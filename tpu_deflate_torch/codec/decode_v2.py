@@ -1,0 +1,589 @@
+"""Member-parallel gzip decode on a CUDA device (counterpart of
+``tpu_deflate.codec.decode_jax_v2``).
+
+The host walks each raw DEFLATE stream's block chain; every wave of
+Huffman blocks goes through the device body :func:`run_wave`: stage A
+(K1) -> stage B (K2) -> stage C (plain PyTorch, as the reference's XLA)
+-> stage DC (K3) -> level-2 compaction with the literal map (K4). The
+packed token pull (:func:`pack_tokens`, K7) brings each lane's tokens back
+and the shared C core resolves them to bytes on the host, where the CRC
+is checked too. Every function takes an explicit ``device``; on a CPU
+device the kernels' plain versions run (the CPU tests), on a CUDA device
+the kernels do.
+
+This is the reference's ``device_resolve="off"`` route. The device LZ77
+resolve (K5, K6) and the lane CRC-32 are not ported yet, so
+``device_resolve="on"`` raises.
+"""
+
+from __future__ import annotations
+
+import io
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from tpu_deflate import native
+from tpu_deflate.codec import decode_jax as dj
+from tpu_deflate.format.errors import (
+    DataFormatError,
+    OutputCapacityError,
+    Reason,
+    check_device_error,
+    reason_to_code,
+)
+from tpu_deflate.kernels.checksum import crc32 as crc32_host
+
+from . import decode_kernels as dk
+from .wave_prep import (
+    _ERR_END,
+    _PAD_PAYLOAD,
+    E_WIN,
+    P_BUCKETS_PALLAS,
+    ROW_COUNT,
+    ROW_EOB_HIT,
+    ROW_EOB_POS,
+    ROW_EOB_TOK,
+    ROW_ERR_HIT,
+    ROW_ERR_TOK,
+    ROW_OVERFLOW,
+    ROW_SIZE_SUM,
+    SENT_EOB,
+    SENT_ERR,
+    TOKEN_MATCH_BIT,
+    V2_L_BUCKETS,
+    V2_LANE_BATCH,
+    W_P,
+    WAVE_BYTES_CAP,
+    _bucket,
+    _k1_groups,
+    _lane_k1,
+    _wave_arrays,
+    wave_to_tensors,
+)
+
+W_CAP_INIT = 66560  # initial per-block window in bytes (covers any 64 KiB block)
+
+
+# ---------------------------------------------------------------------------
+# Device stages
+# ---------------------------------------------------------------------------
+
+
+def stage_c_entries(
+    transfers: torch.Tensor, entry0: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compose the per-tile transfer maps over tiles.
+
+    transfers (L, NT, 48) uint8 with values in [0, 48) or a sentinel
+    (>= 127, passed through unchanged), as stage B produces them; entry0
+    (L,) in [0, 48). Returns the entry offset of every tile (L, NT) uint8
+    and the final state (L,) uint8: 127 (clean EOB), 255 (error) or an
+    offset (ran off the payload). An inclusive Hillis-Steele scan over the
+    tile axis composes maps with ``torch.gather`` (log2(NT) levels).
+    """
+    L, NT, E = transfers.shape
+    assert E == E_WIN
+    x = transfers.to(torch.int64)
+
+    def apply(f: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """f[v] per lane and tile; sentinels pass through, and a value
+        outside the map's domain is an error."""
+        got = f.gather(-1, v.clamp(0, E - 1))
+        return torch.where(v >= SENT_EOB, v, torch.where(v < E, got, SENT_ERR))
+
+    s = 1
+    while s < NT:
+        # prefix[t] = prefix[t - s] then prefix[t]
+        x = torch.cat([x[:, :s], apply(x[:, s:], x[:, :-s])], dim=1)
+        s *= 2
+    e0 = entry0.to(torch.int64).view(L, 1, 1).expand(L, NT, 1)
+    applied = apply(x, e0).view(L, NT)
+    entries = torch.cat([entry0.to(torch.int64).view(L, 1), applied[:, :-1]], dim=1)
+    return entries.to(torch.uint8), applied[:, -1].to(torch.uint8)
+
+
+def run_wave(w: dict, *, k1: int | None = None):
+    """Device body of one wave (``_run_wave_pallas_impl``).
+
+    ``w`` is a wave dict of tensors (:func:`wave_prep.wave_to_tensors`).
+    Returns the reference's 7-tuple (tokens (L, NT*k1) int32 front-
+    compacted with literal bytes mapped, counts, has_eob, eob_exit,
+    err_code, out_total, overflow), all on the wave's device. ``k1``
+    defaults to the wave's bucket; past the largest bucket a tile can still
+    overflow, and the wave loop then reruns the wave with k1 = 512, which
+    cannot.
+    """
+    if k1 is None:
+        k1 = _lane_k1(w.get("_min_tok_bits", 1))
+    dt, tt = dk.stage_a(w["grid"], dk.build_meta(w))
+    L, _W, NT = dt.shape
+    transfers = dk.stage_b(dt)
+    entries, _final = stage_c_entries(transfers, w["rem"])
+    tokc, summ = dk.stage_dc(dt, tt, entries.to(torch.int32), k1=k1)
+
+    counts = summ[:, ROW_COUNT, :].sum(dim=1)
+    eob_hit = summ[:, ROW_EOB_HIT, :]
+    has_eob = eob_hit.sum(dim=1) > 0
+    tile_base = (torch.arange(NT, device=dt.device) * W_P).view(1, NT)
+    eob_pos = (summ[:, ROW_EOB_POS, :] + eob_hit * tile_base).sum(dim=1)
+    eob_tok = summ[:, ROW_EOB_TOK, :].sum(dim=1)
+    eob_exit = torch.where(has_eob, eob_pos + (-eob_tok - 1), 0)
+    err_hit = summ[:, ROW_ERR_HIT, :].sum(dim=1) > 0
+    err_tok = summ[:, ROW_ERR_TOK, :].sum(dim=1)
+    err_code = torch.where(err_hit, -err_tok - 100, 0)
+    out_total = summ[:, ROW_SIZE_SUM, :].sum(dim=1)
+    overflow = summ[:, ROW_OVERFLOW, :].sum() > 0
+
+    tokens = dk.compact_flat(tokc.reshape(L, NT * k1), w["lit_planes"])
+    i32 = torch.int32
+    return (
+        tokens,
+        counts.to(i32),
+        has_eob,
+        eob_exit.to(i32),
+        err_code.to(i32),
+        out_total.to(i32),
+        overflow,
+    )
+
+
+def pack_small(counts, has_eob, eob_exit, err_code, out_total, overflow, nlit=None):
+    """Stack a wave's per-lane results into one (7, L) int32 tensor, so the
+    host pulls one array instead of seven."""
+    L = counts.shape[0]
+    if nlit is None:
+        nlit = torch.zeros(L, dtype=torch.int32, device=counts.device)
+    return torch.stack(
+        [
+            counts.to(torch.int32),
+            has_eob.to(torch.int32),
+            eob_exit.to(torch.int32),
+            err_code.to(torch.int32),
+            out_total.to(torch.int32),
+            overflow.to(torch.int32).expand(L),
+            nlit.to(torch.int32),
+        ]
+    )
+
+
+def pack_tokens(tokens: torch.Tensor):
+    """Split a wave's front-compacted tokens (L, M) int32 for the pull:
+    literals as 1 byte, matches as 4, and the order as a 1-bit map.
+
+    Returns (bitmap (L, ceil(M/32)) int32 [bit k of word w = token 32w+k
+    is a literal], lit (L, M) uint8, match (L, M) int32, nlit (L,) int32).
+    """
+    L, M = tokens.shape
+    is_lit = (tokens >= 0) & (tokens < 256)
+    is_match = tokens >= 256
+    lit_c = dk.compact_any(torch.where(is_lit, tokens, -1))
+    match_c = dk.compact_any(torch.where(is_match, tokens, -1))
+    Mw = -(-M // 32)
+    bits = torch.nn.functional.pad(is_lit.to(torch.int64), (0, Mw * 32 - M))
+    shifts = torch.arange(32, device=tokens.device).view(1, 1, 32)
+    words = (bits.view(L, Mw, 32) << shifts).sum(dim=2)
+    bitmap = dk.wrap_int32(words).to(torch.int32)
+    nlit = is_lit.sum(dim=1).to(torch.int32)
+    return bitmap, lit_c.to(torch.uint8), match_c, nlit
+
+
+# ---------------------------------------------------------------------------
+# Host loop: block-chained decode of raw DEFLATE streams
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LaneState:
+    """Decode progress of one raw DEFLATE stream."""
+
+    payload: bytes
+    bitpos: int = 0
+    done: bool = False
+    err: int = 0  # Reason code (reason_to_code), 0 = ok
+    tokens: list = field(default_factory=list)  # np.int32 arrays per block
+    out_total: int = 0
+    window: int = W_CAP_INIT  # payload bytes per block on the device (grows on demand)
+    bitpos_advanced: bool = False  # this wave's block reached its EOB
+
+    @property
+    def bits(self) -> int:
+        return len(self.payload) * 8
+
+
+def _read_bits_host(payload: bytes, bitpos: int, n: int) -> int:
+    """Little-endian LSB-first bit read (host, header peeks only)."""
+    byte = bitpos >> 3
+    chunk = int.from_bytes(payload[byte : byte + 8], "little")
+    return (chunk >> (bitpos & 7)) & ((1 << n) - 1)
+
+
+def _host_stored_block(st: LaneState, bfinal: bool) -> None:
+    """Consume one stored block on the host."""
+    bp = (st.bitpos + 3 + 7) & ~7  # header + align to byte
+    if bp + 32 > st.bits:
+        st.err = _ERR_END
+        return
+    byte = bp >> 3
+    ln = int.from_bytes(st.payload[byte : byte + 2], "little")
+    nlen = int.from_bytes(st.payload[byte + 2 : byte + 4], "little")
+    if ln != (nlen ^ 0xFFFF):
+        st.err = reason_to_code(Reason.UNCOMPRESSED_BLOCK_LENGTH_MISMATCH)
+        return
+    if bp + 32 + 8 * ln > st.bits:
+        # partial data still counts as output before the END error
+        avail = (st.bits - bp - 32) // 8
+        if avail > 0:
+            data = np.frombuffer(st.payload, np.uint8, avail, byte + 4).astype(np.int32)
+            st.tokens.append(data)
+            st.out_total += avail
+        st.err = _ERR_END
+        return
+    if ln:
+        data = np.frombuffer(st.payload, np.uint8, ln, byte + 4).astype(np.int32)
+        st.tokens.append(data)
+        st.out_total += ln
+    st.bitpos = bp + 32 + 8 * ln
+    if bfinal:
+        st.done = True
+
+
+def _advance_host(st: LaneState):
+    """Walk stored blocks until a Huffman block (returns its (bfinal,
+    btype)) or the lane is done or failed (returns None)."""
+    while not (st.done or st.err):
+        if st.bits - st.bitpos < 3:
+            st.err = _ERR_END
+            return None
+        hdr = _read_bits_host(st.payload, st.bitpos, 3)
+        bfinal, btype = hdr & 1, hdr >> 1
+        if btype == 3:
+            st.err = reason_to_code(Reason.RESERVED_BLOCK_TYPE)
+            return None
+        if btype == 0:
+            _host_stored_block(st, bool(bfinal))
+            continue
+        return bfinal, btype
+    return None
+
+
+def decode_deflate_streams_v2(
+    payloads: list[bytes], device: torch.device, stats: dict | None = None
+) -> list[LaneState]:
+    """Decode raw DEFLATE streams (any block chain) with the wave kernels
+    on ``device``.
+
+    Returns one LaneState per stream with its token stream (stored-block
+    bytes inlined as literal tokens, so the LZ77 window carries across
+    blocks at resolve time), its exact output size and the Reason code of
+    its first failure (0 = clean). ``stats["waves"]``, when given, counts
+    the device waves run.
+    """
+    assert len(payloads) <= V2_LANE_BATCH, "batch the lanes (V2_LANE_BATCH)"
+    lanes = [LaneState(p) for p in payloads]
+    while True:
+        wave = []  # (lane, bfinal) whose next block is Huffman
+        for st in lanes:
+            nxt = _advance_host(st)
+            if nxt is not None:
+                wave.append((st, bool(nxt[0] & 1)))
+        if not wave:
+            break
+        _decode_huffman_wave([st for st, _ in wave], device, stats)
+        for st, bfinal in wave:
+            if not st.err and bfinal and st.bitpos_advanced:
+                st.done = True
+    return lanes
+
+
+def _lane_cap(P: int) -> int:
+    """Largest lane bucket whose padded wave stays under WAVE_BYTES_CAP."""
+    cap = max(WAVE_BYTES_CAP // max(P, 1), V2_L_BUCKETS[0])
+    pick = V2_L_BUCKETS[0]
+    for b in V2_L_BUCKETS:
+        if b <= cap:
+            pick = b
+    return pick
+
+
+def _decode_huffman_wave(wave: list[LaneState], device: torch.device, stats) -> None:
+    """Decode each lane's current Huffman block, grouped by padded-payload
+    bucket and k1 (one oversized or short-code lane must not widen every
+    other lane's arrays); groups split to stay under WAVE_BYTES_CAP. Every
+    subwave is dispatched before any result is pulled, so host prep of one
+    subwave overlaps the kernels of the one before."""
+    if not wave:
+        return
+    for st in wave:
+        st.bitpos_advanced = False
+    k1s = _k1_groups([st.payload for st in wave], [st.bitpos for st in wave])
+    groups: dict[tuple[int, int], list[LaneState]] = {}
+    for st, k1 in zip(wave, k1s):
+        avail = len(st.payload) - st.bitpos // 8
+        key = (_bucket(max(min(avail, st.window), 1), P_BUCKETS_PALLAS), k1)
+        groups.setdefault(key, []).append(st)
+    pending = []
+    for (P, _k1), grp in sorted(groups.items()):
+        lmax = _lane_cap(P)
+        for base in range(0, len(grp), lmax):
+            pend = _decode_huffman_subwave(grp[base : base + lmax], P, device, stats)
+            if pend is not None:
+                pending.append(pend)
+    for mid in [_apply_small(*pend) for pend in pending]:
+        _apply_tokens(*mid)
+
+
+def _decode_huffman_subwave(wave: list[LaneState], P: int, device: torch.device, stats):
+    """Dispatch one wave over lanes sharing payload bucket P; returns the
+    pending (not yet pulled) results, or None if a header failed."""
+    L_real = len(wave)
+    L = _bucket(L_real, V2_L_BUCKETS)
+    shifts = [st.bitpos // 8 for st in wave]
+    rems = [st.bitpos % 8 for st in wave]
+    avail = [len(st.payload) - sh for st, sh in zip(wave, shifts)]
+    remain = [min(a, st.window, P) for a, st in zip(avail, wave)]
+    rows = np.zeros((L, P), np.uint8)
+    row_bits = np.zeros(L, np.int64)
+    start_bits = np.zeros(L, np.int64)
+    for i, st in enumerate(wave):
+        rows[i, : remain[i]] = np.frombuffer(st.payload, np.uint8, remain[i], shifts[i])
+        row_bits[i] = remain[i] * 8
+        start_bits[i] = rems[i]
+    for i in range(L_real, L):
+        rows[i, : len(_PAD_PAYLOAD)] = np.frombuffer(_PAD_PAYLOAD, np.uint8)
+        row_bits[i] = len(_PAD_PAYLOAD) * 8
+    truncated = [remain[i] < avail[i] for i in range(L_real)]
+
+    # Batched header parse; on failure re-parse lane by lane so the error
+    # lands on the right stream only.
+    try:
+        hp = dj.parse_headers_batch(rows, row_bits, start_bits=start_bits)
+    except DataFormatError:
+        for i, st in enumerate(wave):
+            r = _reparse_single(rows[i : i + 1], row_bits[i : i + 1], start_bits[i : i + 1])
+            if r is not None:
+                st.err = reason_to_code(r)
+        rest = [st for st in wave if not st.err]
+        if len(rest) < len(wave):
+            _decode_huffman_wave(rest, device, stats)
+        return None
+    return _dispatch_block_stages(wave, rows, row_bits, hp, truncated, device, stats)
+
+
+def _reparse_single(rows, row_bits, start_bits):
+    try:
+        dj.parse_headers_batch(rows, row_bits, start_bits=start_bits)
+        return None
+    except DataFormatError as e:
+        return e.reason
+
+
+def _dispatch_block_stages(wave, rows, row_bits, hp, truncated, device, stats):
+    """Launch one wave's device work; nothing is pulled to the host here."""
+    w_np, shift2 = _wave_arrays(rows, row_bits, hp)
+    w = wave_to_tensors(w_np, device)
+    tokens, *rest = run_wave(w)
+    if stats is not None:
+        stats["waves"] = stats.get("waves", 0) + 1
+    bitmap, lit8, match32, nlit = pack_tokens(tokens)
+    small = pack_small(*rest, nlit=nlit)
+    return wave, shift2, truncated, w, (bitmap, lit8, match32), small
+
+
+def _round_cols(k: int, width: int, bucket: int) -> int:
+    """Round a column request up to the pull bucket (0 stays 0)."""
+    return min(width, -(-k // bucket) * bucket)
+
+
+def _apply_small(wave, shift2, truncated, w, packed, small):
+    """Pull a wave's per-lane results, then only the token columns in use."""
+    small_h = small.cpu().numpy()
+    if small_h[5, 0]:
+        # Some tile held more than k1 tokens (degenerate short-code
+        # stream): rerun the wave with k1 = 512, which cannot overflow,
+        # and pull the raw token array.
+        tokens, *rest = run_wave(w, k1=W_P)
+        small_h = pack_small(*rest).cpu().numpy()
+        kmax = int(small_h[0, : len(wave)].max()) if wave else 0
+        k = _round_cols(max(kmax, 1), tokens.shape[1], 4096)
+        return wave, shift2, truncated, ("raw", tokens[:, :k].cpu().numpy()), small_h
+    bitmap, lit8, match32 = packed
+    n = len(wave)
+    counts = small_h[0, :n]
+    nlit = small_h[6, :n]
+    kmax = int(counts.max()) if n else 0
+    lk = _round_cols(int(nlit.max()) if n else 0, lit8.shape[1], 2048)
+    mk = _round_cols(int((counts - nlit).max()) if n else 0, match32.shape[1], 2048)
+    bk = _round_cols(-(-max(kmax, 1) // 32), bitmap.shape[1], 512)
+    pulled = (
+        "packed",
+        bitmap[:, :bk].cpu().numpy().view(np.uint32),
+        lit8[:, :lk].cpu().numpy(),
+        match32[:, :mk].cpu().numpy(),
+    )
+    return wave, shift2, truncated, pulled, small_h
+
+
+def _lane_tokens(payload, small_h, i: int, count: int) -> np.ndarray:
+    """Rebuild lane i's int32 token stream from the pulled arrays."""
+    if payload[0] == "raw":
+        return payload[1][i, :count]
+    bm, lit8, match32 = payload[1:]
+    nl = int(small_h[6, i])
+    words = bm[i, : -(-count // 32)]
+    bits = ((words[:, None] >> np.arange(32, dtype=np.uint32)) & 1).astype(bool).ravel()[:count]
+    tok = np.empty(count, np.int32)
+    tok[bits] = lit8[i, :nl].astype(np.int32)
+    tok[~bits] = match32[i, : count - nl]
+    return tok
+
+
+def _apply_tokens(wave, shift2, truncated, payload, small_h) -> None:
+    counts_h, has_eob_h, eob_exit_h, err_h, total_h = small_h[:5]
+    for i, st in enumerate(wave):
+        # A window-truncated row can only produce a spurious
+        # UNEXPECTED_END or a missing EOB: grow the window and redo the
+        # block. Any other error, or an EOB, is genuine.
+        if truncated[i] and not has_eob_h[i] and err_h[i] in (0, _ERR_END):
+            st.window *= 4
+            continue
+        if counts_h[i]:
+            st.tokens.append(_lane_tokens(payload, small_h, i, int(counts_h[i])))
+            st.out_total += int(total_h[i])
+        if err_h[i]:
+            st.err = int(err_h[i])
+        elif has_eob_h[i]:
+            # global bit position just past this block's EOB symbol
+            st.bitpos = (st.bitpos // 8 + int(shift2[i])) * 8 + int(eob_exit_h[i])
+            st.bitpos_advanced = True
+        else:
+            st.err = _ERR_END  # ran off the payload without reaching EOB
+
+
+# ---------------------------------------------------------------------------
+# Host resolve + container
+# ---------------------------------------------------------------------------
+
+
+def _df(reason: Reason) -> DataFormatError:
+    return DataFormatError(reason, reason.name)
+
+
+def _resolve_tokens_numpy(tokens: np.ndarray, count: int) -> bytes:
+    """Token expansion in Python (the shared C core is the fast path)."""
+    out = bytearray()
+    for k in range(count):
+        t = int(tokens[k])
+        if not t & TOKEN_MATCH_BIT:
+            out.append(t & 0xFF)
+            continue
+        run = (t >> 16) & 0x3FF
+        dist = (t & 0xFFFF) + 1
+        if dist > len(out):
+            raise _df(Reason.COPY_FROM_BEFORE_DICTIONARY_START)
+        for _ in range(run):
+            out.append(out[-dist])
+    return bytes(out)
+
+
+def _resolve_lane(st: LaneState, cap: int | None) -> bytes:
+    """Expand a lane's tokens to bytes on the host, in reference error
+    order: a bad back-reference comes earlier in the stream than any
+    pending stage error, so resolve runs first and the stage error is
+    raised only if resolution succeeds."""
+    tokens = (np.concatenate(st.tokens) if st.tokens else np.zeros(0, np.int32)).astype(np.int32)
+    want = cap if (cap is not None and not st.err) else st.out_total + 1
+    if native.available():
+        try:
+            out = native.resolve_tokens(tokens, max(want, 1))
+        except OutputCapacityError:
+            raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH) from None
+    else:
+        out = _resolve_tokens_numpy(tokens, tokens.size)
+        if cap is not None and not st.err and len(out) > cap:
+            raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
+    if st.err:
+        check_device_error(st.err)
+    return out
+
+
+def inflate_raw_v2(payload: bytes, *, device: torch.device) -> bytes:
+    """Decode one complete raw DEFLATE stream through the wave kernels;
+    raises DataFormatError with the reference taxonomy."""
+    st = decode_deflate_streams_v2([payload], device)[0]
+    return _resolve_lane(st, None)
+
+
+# Routing and launch record of the last gzip_decompress_v2 call: members,
+# stored, device_resolved, host_resolved, waves, launches (kernel launches
+# during the call). Module state shared by every caller; not thread-safe.
+LAST_DECODE_STATS: dict = {}
+
+
+def gzip_decompress_v2(
+    data: bytes,
+    *,
+    device: torch.device,
+    verify_crc: bool = True,
+    lane_batch: int | None = None,
+    device_resolve: str = "auto",
+) -> bytes:
+    """Member-parallel gzip decode with the wave kernels on ``device``.
+
+    Stored members decode on the host; every Huffman member goes through
+    the block-chain loop and resolves to bytes on the host, where the
+    trailer CRC is checked. ``device_resolve`` takes "auto" and "off",
+    which both take that route in this version; "on" (the device LZ77
+    resolve) raises NotImplementedError. ``lane_batch`` caps members per
+    device batch (at most V2_LANE_BATCH). Streams without the TD member
+    index decode on the host.
+    """
+    if device_resolve == "on":
+        raise NotImplementedError(
+            "device_resolve='on' needs the device LZ77 resolve (K5 expand, K6 sweep), "
+            "which is not ported yet"
+        )
+    if device_resolve not in ("auto", "off"):
+        raise ValueError(f"device_resolve={device_resolve!r}: expected 'auto', 'off' or 'on'")
+    from tpu_deflate.streams.gzip_stream import GzipReader
+
+    buf = np.frombuffer(data, dtype=np.uint8)
+    members = dj.split_members(buf)
+    if not members:
+        return GzipReader(io.BytesIO(data), multi_member=True).read()
+
+    out_parts: list[bytes | None] = [None] * len(members)
+    huff: list[tuple[int, dj.MemberIndex]] = []
+    for i, m in enumerate(members):
+        btype = (int(buf[m.payload_start]) >> 1) & 3 if m.payload_start < buf.size else 0
+        if btype == 0:
+            out_parts[i] = dj._decode_stored_member(buf, m, verify_crc=verify_crc).tobytes()
+        else:
+            huff.append((i, m))
+
+    stats = LAST_DECODE_STATS
+    stats.clear()
+    stats.update(
+        members=len(members),
+        stored=len(members) - len(huff),
+        device_resolved=0,
+        host_resolved=len(huff),
+        waves=0,
+    )
+    launches0 = dict(dk.LAUNCHES)
+    crc = native.crc32 if native.available() else crc32_host
+    batch_n = min(lane_batch or V2_LANE_BATCH, V2_LANE_BATCH)
+    for base in range(0, len(huff), batch_n):
+        batch = huff[base : base + batch_n]
+        payloads = [buf[m.payload_start : m.end - 8].tobytes() for _, m in batch]
+        states = decode_deflate_streams_v2(payloads, device, stats)
+        for (i, m), st in zip(batch, states):
+            out = _resolve_lane(st, m.isize)
+            if len(out) != m.isize:
+                raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
+            if verify_crc and crc(out) != m.crc32:
+                raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
+            out_parts[i] = out
+    stats["launches"] = {k: dk.LAUNCHES[k] - launches0[k] for k in dk.LAUNCHES}
+    return b"".join(p for p in out_parts if p is not None)
