@@ -5,22 +5,37 @@
 
 Phases, each of which fails the run (non-zero exit) if anything is wrong:
 
-1. environment: torch, CUDA, nvcc and the card; the shared C core must build;
-2. build: the CUDA kernels of tpu_deflate_torch/csrc, from source;
-3. kernels: every kernel of the decode path against its plain PyTorch
-   version on the card, on one real wave (64 members of the synthetic
-   corpus at their payload bucket); outputs must be equal (the pipeline is
-   integer-only, so the tolerance is exact equality); median times;
-4. the slice end to end: ``tpu_deflate_torch.engine.decompress`` of the
-   48 MiB corpus, byte-exact, with every kernel launched on that run;
-5. interop and errors: a foreign gzip stream, a foreign raw multi-block
-   DEFLATE stream through the wave kernels, and a corrupted member raising
-   the same Reason as tpu_deflate's host decoder.
+1. environment: torch, CUDA, nvcc and the card; the shared C core builds;
+2. build: every CUDA kernel of tpu_deflate_torch/csrc, from source (one
+   nvcc per source, in parallel);
+3. kernels: every kernel against its plain PyTorch version on the card,
+   at the main path's shapes: the wave kernels (K1-K4, K7) on one real
+   wave (64 members of the synthetic corpus at their payload bucket), the
+   resolve kernels (K5 expand, K6 sweep) and the lane CRC on one resolve
+   batch of 256 members x 65536 slots built from the corpus's own tokens,
+   K5/K6 on lanes at the resolve's edges (errors, an empty lane, regions
+   past 32 KiB, output past 64 KiB, random far matches), and K5/K6 once
+   more with 32 KiB of history on the tiles of a 1 MiB multi-block
+   stream. Outputs must be equal (the pipeline is integer-only, so the tolerance is exact equality; the sweep's round
+   count, a diagnostic, is not compared); median times beside each
+   kernel's bound;
+4. the main path: ``engine.decompress`` of the 48 MiB corpus with the
+   defaults (device resolve), byte-exact, every Huffman member resolved on
+   the device and every main-path kernel launched; 5 timed runs;
+5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
+   byte-exact with the packed token pull (K7) launched, and 3 timed runs
+   of it on the 48 MiB corpus for comparison;
+6. the ``device_resolve="on"`` route: a gzip -9 stream of 1 MiB in one
+   member with the member index (multi-block, > 64 KiB), resolved on the
+   device in chained tiles;
+7. interop and errors: a foreign gzip stream without the member index,
+   a foreign raw multi-block DEFLATE stream through the wave kernels, and a
+   corrupted member raising the same Reason on the "auto" and "off" routes.
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and the JSON verdict. ``--profile DIR`` adds a torch.profiler
 pass (device time per kernel) and a cProfile pass (host time per
-function) of the end-to-end decode, written into DIR.
+function) of the main path, written into DIR.
 """
 
 from __future__ import annotations
@@ -37,24 +52,32 @@ import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CORPUS_MB = 48
+OFF_CORPUS_MB = 8
 WAVE_LANES = 64
+RESOLVE_LANES = 256
+FOREIGN_BYTES = 1 << 20
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 E2E_REPS = 5
-REPLACES = {
-    "stage_a": "tpu_deflate/codec/decode_pallas.py:110",
-    "stage_b": "tpu_deflate/codec/decode_pallas.py:363",
-    "stage_dc": "tpu_deflate/codec/decode_pallas.py:413",
-    "compact_flat": "tpu_deflate/codec/decode_pallas.py:495",
-    "compact_any": "tpu_deflate/codec/decode_pallas.py:605",
+OFF_REPS = 3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+CSRC = "tpu_deflate_torch/csrc/"
+# kernel -> (its source, the TPU kernel it replaces, the path that launches it)
+KERNELS = {
+    "stage_a": ("stage_a.cu", "tpu_deflate/codec/decode_pallas.py:110", "main"),
+    "stage_b": ("stage_b.cu", "tpu_deflate/codec/decode_pallas.py:363", "main"),
+    "stage_dc": ("stage_dc.cu", "tpu_deflate/codec/decode_pallas.py:413", "main"),
+    "compact_flat": ("compact.cu", "tpu_deflate/codec/decode_pallas.py:495", "main"),
+    "compact_any": ("compact.cu", "tpu_deflate/codec/decode_pallas.py:605", "off"),
+    "expand": ("expand.cu", "tpu_deflate/codec/resolve_pallas.py:150", "main"),
+    "sweep": ("sweep.cu", "tpu_deflate/codec/resolve_pallas.py:353", "main"),
+    "crc32_lanes": ("crc32_lanes.cu", "tpu_deflate/kernels/checksum_jax.py:190", "main"),
 }
-SOURCES = {
-    "stage_a": "tpu_deflate_torch/csrc/stage_a.cu",
-    "stage_b": "tpu_deflate_torch/csrc/stage_b.cu",
-    "stage_dc": "tpu_deflate_torch/csrc/stage_dc.cu",
-    "compact_flat": "tpu_deflate_torch/csrc/compact.cu",
-    "compact_any": "tpu_deflate_torch/csrc/compact.cu",
-}
+PROFILE_KERNELS = (
+    "stage_a_kernel", "stage_b_kernel", "stage_dc_kernel", "compact_kernel", "expand_kernel",
+    "sweep_kernel", "crc32_lanes_kernel",
+)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -100,17 +123,62 @@ def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
 
 
+def bound(inputs, outputs) -> tuple[float, str]:
+    """The least time the card could take for a kernel's work, in ms: the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate and its operations (one integer operation per
+    output element, the least any of these kernels can do) over the CUDA
+    cores' rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    ops = sum(t.numel() for t in outputs)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+class Kernels:
+    """Each kernel against its plain version: equality and times, kept
+    per kernel at the main path's shapes."""
+
+    def __init__(self):
+        self.rec: dict = {}
+
+    def compare(self, name, kern, plain, inputs, shapes, *, main_path=True, proj=None):
+        import torch
+
+        def parts(out):
+            out = out if isinstance(out, tuple) else (out,)
+            return proj(out) if proj else out
+
+        got_full = kern()
+        got, want = parts(got_full), parts(plain())
+        err = max(max_abs_err(g, p) for g, p in zip(got, want))
+        equal = all(torch.equal(g, p) for g, p in zip(got, want))
+        ms = median_ms(kern, KERNEL_REPS)
+        plain_ms = median_ms(plain, PLAIN_REPS)
+        r = self.rec.setdefault(name, {"max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        outs = got_full if isinstance(got_full, tuple) else (got_full,)
+        bms, by = bound(inputs, outs)
+        if main_path:
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, shapes=shapes)
+        log(f"{name} {shapes}: equal={equal} max_abs_err={err} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f} % of it)")
+        require(equal, f"{name} differs from its plain version at {shapes}")
+        return outs
+
+
 def phase_environment() -> None:
     import torch
 
-    from tpu_deflate_torch import _build, host
+    from tpu_deflate_torch import _build, native
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True)
     log(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
     log(f"gpu: {gpu_name_power()}")
     require(torch.cuda.is_available(), "no CUDA device")
-    require(host.native.available(), "the shared C core did not build")
+    native.load()  # raises with the compiler's output if the C core does not build
 
 
 def phase_build() -> None:
@@ -119,26 +187,32 @@ def phase_build() -> None:
     t0 = time.monotonic()
     _build.load()
     log(f"build: {_build.library_path()} in {time.monotonic() - t0:.1f} s")
+    log_path = _build.library_path()[:-3] + ".log"
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            for line in f:
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log("ptxas: " + line.strip())
 
 
-def huffman_payloads(gz: bytes) -> list[bytes]:
+def huffman_members(gz: bytes):
+    """(member index, payload bytes) of every Huffman member, in order."""
     import numpy as np
 
-    from tpu_deflate_torch import host
+    from tpu_deflate_torch.codec import decode_np
 
     buf = np.frombuffer(gz, np.uint8)
-    members = host.split_members(buf)
+    members = decode_np.split_members(buf)
     require(members is not None, "corpus stream lacks the member index")
     return [
-        buf[m.payload_start : m.end - 8].tobytes()
+        (m, buf[m.payload_start : m.end - 8].tobytes())
         for m in members
         if (int(buf[m.payload_start]) >> 1) & 3
     ]
 
 
-def phase_kernels(gz: bytes, device, lanes: int = WAVE_LANES) -> dict:
-    """Each kernel against its plain version on one real wave: equality
-    and median times. Returns {kernel: record}."""
+def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
+    """K1-K4 and K7 on one real wave."""
     import collections
 
     import torch
@@ -147,77 +221,213 @@ def phase_kernels(gz: bytes, device, lanes: int = WAVE_LANES) -> dict:
     from tpu_deflate_torch.codec import decode_v2 as pv2
     from tpu_deflate_torch.codec import wave_prep as wp
 
-    payloads = huffman_payloads(gz)
     by_bucket = collections.defaultdict(list)
-    for p in payloads:
+    for _m, p in huffman_members(gz):
         by_bucket[wp._bucket(len(p), wp.P_BUCKETS_PALLAS)].append(p)
     P, group = max(by_bucket.items(), key=lambda kv: len(kv[1]))
-    group = group[:lanes]
-    w = wp.wave_to_tensors(wp._prep_wave(group, lanes), device)
+    group = group[:WAVE_LANES]
+    w = wp.wave_to_tensors(wp._prep_wave(group, WAVE_LANES), device)
     L, _, NTp = w["grid"].shape
     NT = NTp - 1
     k1_wave = wp._lane_k1(w["_min_tok_bits"])
     log(f"wave: {len(group)} members in bucket P={P}: L={L} NT={NT} k1={k1_wave}")
-    rec: dict = {}
-
-    def compare(name, kern, plain, shapes):
-        got, want = kern(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(max_abs_err(g, p) for g, p in zip(got, want))
-        equal = all(torch.equal(g, p) for g, p in zip(got, want))
-        ms = median_ms(kern, KERNEL_REPS)
-        plain_ms = median_ms(plain, PLAIN_REPS)
-        r = rec.setdefault(name, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if shapes.get("main_path", True):
-            r["ms"], r["plain_ms"] = ms, plain_ms
-        log(f"{name} {shapes}: equal={equal} max_abs_err={err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        require(equal, f"{name} differs from its plain version at {shapes}")
-        return got
 
     meta = dk.build_meta(w)
-    dt, tt = compare(
-        "stage_a",
-        lambda: dk.stage_a(w["grid"], meta),
-        lambda: dk.stage_a_plain(w["grid"], meta),
-        {"grid": [L, 64, NTp], "out": [L, 512, NT]},
+    dt, tt = K.compare(
+        "stage_a", lambda: dk.stage_a(w["grid"], meta), lambda: dk.stage_a_plain(w["grid"], meta),
+        [w["grid"], meta], {"grid": [L, 64, NTp], "out": [L, 512, NT]},
     )
-    (transfers,) = compare(
-        "stage_b", lambda: dk.stage_b(dt), lambda: dk.stage_b_plain(dt),
+    (transfers,) = K.compare(
+        "stage_b", lambda: dk.stage_b(dt), lambda: dk.stage_b_plain(dt), [dt],
         {"delta": [L, 512, NT], "out": [L, NT, 48]},
     )
     entries, _final = pv2.stage_c_entries(transfers, w["rem"])
     entries = entries.to(torch.int32)
     tokc_main = None
     for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
-        tokc, _summ = compare(
+        tokc, _summ = K.compare(
             "stage_dc",
             lambda: dk.stage_dc(dt, tt, entries, k1=k1),
             lambda: dk.stage_dc_plain(dt, tt, entries, k1),
-            {"delta": [L, 512, NT], "k1": k1, "main_path": k1 == k1_wave},
+            [dt, tt, entries],
+            {"delta": [L, 512, NT], "k1": k1},
+            main_path=k1 == k1_wave,
         )
         if k1 == k1_wave:
             tokc_main = tokc
     flat = tokc_main.reshape(L, NT * k1_wave)
-    (tokens,) = compare(
+    (tokens,) = K.compare(
         "compact_flat",
         lambda: dk.compact_flat(flat, w["lit_planes"]),
         lambda: dk.compact_plain(flat, w["lit_planes"]),
+        [flat, w["lit_planes"]],
         {"tok": [L, NT * k1_wave]},
     )
     is_lit = (tokens >= 0) & (tokens < 256)
     lit_in = torch.where(is_lit, tokens, -1)
-    compare(
-        "compact_any",
-        lambda: dk.compact_any(lit_in),
-        lambda: dk.compact_plain(lit_in, None),
-        {"tok": [L, NT * k1_wave]},
+    K.compare(
+        "compact_any", lambda: dk.compact_any(lit_in), lambda: dk.compact_plain(lit_in, None),
+        [lit_in], {"tok": [L, NT * k1_wave]},
     )
-    return rec
 
 
-def phase_end_to_end(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]:
+def chain_depth(y0, src) -> tuple[int, float]:
+    """Hops from each match position to a literal along src (max, mean over
+    match positions), for positions whose chain stays in the tile."""
+    import torch
+
+    pending = y0 < 0
+    n_match = int(pending.sum())
+    pos = src.clamp(min=0).to(torch.int64)
+    depth = pending.to(torch.int64)
+    while bool(pending.any()):
+        nxt = y0.gather(1, pos) < 0
+        pending = pending & nxt
+        depth += pending.to(torch.int64)
+        pos = torch.where(pending, src.gather(1, pos).clamp(min=0).to(torch.int64), pos)
+    return int(depth.max()), float(depth.sum()) / max(n_match, 1)
+
+
+def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels) -> None:
+    """K5, K6 and the lane CRC on one resolve batch of the corpus's own
+    tokens (hist 0), then K5/K6 with 32 KiB of history on tiles 1.. of a
+    1 MiB multi-block stream."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.codec import resolve as rs
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    hm = huffman_members(gz)[:RESOLVE_LANES]
+    require(len(hm) == RESOLVE_LANES, f"the corpus has fewer than {RESOLVE_LANES} Huffman members")
+    order, _small, T = pv2.single_block_tokens([p for _m, p in hm], device)
+    members = [hm[i][0] for i in order]
+    L, N = T.shape
+    log(f"resolve batch: {L} members x {N} token slots, {int((T >= 0).sum())} tokens")
+    y0, src, summ = K.compare(
+        "expand", lambda: rs.expand(T), lambda: rs.expand_plain(T, 0), [T],
+        {"tokens": [L, N], "hist": 0},
+    )
+    tail = torch.zeros((L, rs.TAIL), dtype=torch.int32, device=device)
+    y, status = K.compare(
+        "sweep", lambda: rs.sweep(tail, y0, src), lambda: rs.sweep_plain(tail, y0, src),
+        [tail, y0, src], {"y0": [L, N], "tail": [L, rs.TAIL]},
+        proj=lambda out: (out[0], out[1][:, 0]),
+    )
+    dmax, dmean = chain_depth(y0, src)
+    log(f"sweep: residue {int(status[:, 0].sum())}, rounds per lane (kernel) max "
+        f"{int(status[:, 1].max())}; src chain depth on the corpus: max {dmax}, mean {dmean:.3f} "
+        "hops per match position")
+    y8 = y.to(torch.uint8)
+    (raw,) = K.compare(
+        "crc32_lanes", lambda: cl.crc32_lanes_raw8(y8), lambda: cl.crc32_lanes_raw8_plain(y8),
+        [y8], {"rows": [L, N]},
+    )
+    totals = summ[:, 1].cpu().numpy()
+    require((summ[:, 0] == N).all().item(), "an error position in the corpus batch")
+    require(list(totals) == [m.isize for m in members], "resolved sizes differ from the trailers")
+    crcs = cl.crc32_finish_leftaligned(raw.cpu().numpy(), totals, N)
+    require([int(c) for c in crcs] == [m.crc32 for m in members], "lane CRCs differ from the trailers")
+    log(f"resolve batch: {L} members byte-exact by size and CRC-32 against their trailers")
+
+    edges = torch.from_numpy(edge_tokens(N, rs.TOKEN_MATCH_BIT)).to(device)
+    Le = edges.shape[0]
+    rng = torch.Generator(device="cpu").manual_seed(5)
+    for hist in (0, rs.TAIL):
+        e_y0, e_src, _e_summ = K.compare(
+            "expand", lambda: rs.expand(edges, hist=hist), lambda: rs.expand_plain(edges, hist),
+            [edges], {"edge tokens": [Le, N], "hist": hist}, main_path=False,
+        )
+        e_tail = torch.randint(0, 256, (Le, rs.TAIL), generator=rng, dtype=torch.int32).to(device)
+        e_tail = e_tail if hist else torch.zeros_like(e_tail)
+        K.compare(
+            "sweep", lambda: rs.sweep(e_tail, e_y0, e_src), lambda: rs.sweep_plain(e_tail, e_y0, e_src),
+            [e_tail, e_y0, e_src], {"edge y0": [Le, N], "hist": hist}, main_path=False,
+            proj=lambda out: (out[0], out[1][:, 0]),
+        )
+
+    data = corpus[:FOREIGN_BYTES]
+    raw_stream = foreign_raw(data)
+    st = pv2.decode_deflate_streams_v2([raw_stream], device)[0]
+    require(not st.err, "foreign stream did not decode")
+    tiles = torch.from_numpy(rs.split_tokens_tiles(np.concatenate(st.tokens))).to(device)
+    ys, _summs = rs.resolve_tokens_tiled(tiles[None])
+    require(ys[0].to(torch.uint8).cpu().numpy().tobytes()[: len(data)] == data, "tiled resolve")
+    ct = tiles[1:].contiguous()
+    tails = ys[0, :-1, N - rs.TAIL :].contiguous()
+    Lt = ct.shape[0]
+    y0h, srch, _sh = K.compare(
+        "expand", lambda: rs.expand(ct, hist=rs.TAIL), lambda: rs.expand_plain(ct, rs.TAIL), [ct],
+        {"tokens": [Lt, N], "hist": rs.TAIL}, main_path=False,
+    )
+    K.compare(
+        "sweep", lambda: rs.sweep(tails, y0h, srch), lambda: rs.sweep_plain(tails, y0h, srch),
+        [tails, y0h, srch], {"y0": [Lt, N], "tail": [Lt, rs.TAIL]}, main_path=False,
+        proj=lambda out: (out[0], out[1][:, 0]),
+    )
+
+
+def edge_tokens(n_pos: int, match_bit: int):
+    """(8, n_pos) int32 token lanes at the resolve's edges: copy before
+    start, an oversized distance, an empty lane, constant-distance regions
+    past 32 KiB (where the cap on k binds), output past n_pos, and random
+    tokens that reach far back."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    lits = rng.integers(0, 256, 40000).tolist()
+    rand = np.where(
+        rng.random(30000) < 0.5,
+        rng.integers(0, 256, 30000),
+        match_bit | rng.integers(3, 259, 30000) << 16 | rng.integers(0, 32768, 30000),
+    ).tolist()
+    lanes = [
+        [65, match_bit | 5 << 16 | 3],
+        lits + [match_bit | 5 << 16 | 0x8000, match_bit | 9 << 16 | 3],
+        [],
+        [65] + [match_bit | 258 << 16 | 0] * 250,
+        [1, 2, 3, 4] + [match_bit | 258 << 16 | 3] * 250,
+        [7, 8, 9] + [match_bit | 200 << 16 | 2] * 300,
+        lits + [match_bit | 258 << 16 | int(d) for d in rng.integers(0, 300, 230)],
+        rand,
+    ]
+    out = np.full((len(lanes), n_pos), -1, np.int32)
+    for i, toks in enumerate(lanes):
+        out[i, : min(len(toks), n_pos)] = toks[:n_pos]
+    return out
+
+
+def foreign_raw(data: bytes) -> bytes:
+    """The raw DEFLATE payload of a gzip -9 stream of data."""
+    gz = gzip.compress(data, 9)
+    require(gz[3] == 0, "unexpected gzip header flags")
+    return gz[10:-8]
+
+
+def td_member(payload: bytes, isize: int, crc: int) -> bytes:
+    """One gzip member with the 'TD' member index around a raw payload."""
+    total = 20 + len(payload) + 8
+    head = b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x08\x00TD\x04\x00" + total.to_bytes(4, "little")
+    return head + payload + crc.to_bytes(4, "little") + isize.to_bytes(4, "little")
+
+
+def timed_decode(gz: bytes, corpus: bytes, reps: int, config=None) -> list[float]:
+    import torch
+
+    from tpu_deflate_torch import engine
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.monotonic()
+        out = engine.decompress(gz, engine="cuda", config=config)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        require(out == corpus, "output differs from the corpus (timed run)")
+    return walls
+
+
+def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]:
     import torch
 
     from tpu_deflate_torch import engine
@@ -231,30 +441,74 @@ def phase_end_to_end(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float
     wall = time.monotonic() - t0
     launches = dict(dk.LAUNCHES)
     stats = dict(pv2.LAST_DECODE_STATS)
-    require(out == corpus, "end-to-end output differs from the corpus")
-    log(f"e2e run 1: {wall:.3f} s, {len(corpus) / wall / 1e9:.4f} GB/s, {len(gz)} compressed bytes")
-    log(f"e2e stats: {json.dumps(stats)}")
+    require(out == corpus, "main-path output differs from the corpus")
+    log(f"main path run 1: {wall:.3f} s, {len(corpus) / wall / 1e9:.4f} GB/s, {len(gz)} compressed bytes")
+    log(f"main path stats: {json.dumps(stats)}")
     log(f"launches in the main-path run: {json.dumps(launches)}")
-    for k, n in launches.items():
-        require(n > 0, f"kernel {k} was not launched on the main path")
-    require(stats["host_resolved"] == n_huff, "host_resolved != Huffman member count")
-    walls = []
-    for _ in range(E2E_REPS):
-        t0 = time.monotonic()
-        out = engine.decompress(gz, engine="cuda")
-        torch.cuda.synchronize()
-        walls.append(time.monotonic() - t0)
-        require(out == corpus, "end-to-end output differs from the corpus (timed run)")
+    for k, (_src, _tpu, path) in KERNELS.items():
+        if path == "main":
+            require(launches[k] > 0, f"kernel {k} was not launched on the main path")
+    require(stats["device_resolved"] == n_huff, "device_resolved != Huffman member count")
+    require(stats["host_resolved"] == 0, "a Huffman member took the host route")
+    walls = timed_decode(gz, corpus, E2E_REPS)
     med = statistics.median(walls)
-    log(f"e2e {E2E_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e9:.4f} GB/s, "
+    log(f"main path {E2E_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e9:.4f} GB/s, "
         f"min {min(walls):.4f} s, max {max(walls):.4f} s")
     log(f"gpu: {gpu_name_power()}")
     return launches, med
 
 
+def phase_off_route(corpus: bytes, gz: bytes) -> dict:
+    """The host-resolve route: K7 and the wave kernels at a smaller depth,
+    then timed at the main path's depth for comparison."""
+    import bench
+    from tpu_deflate_torch import engine, native
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.config import DecoderConfig
+
+    off = DecoderConfig(device_resolve="off")
+    small = bench.make_corpus(OFF_CORPUS_MB)
+    gz_small = native.compress_members_native(small)
+    dk.reset_launches()
+    out = engine.decompress(gz_small, engine="cuda", config=off)
+    launches = dict(dk.LAUNCHES)
+    stats = dict(pv2.LAST_DECODE_STATS)
+    require(out == small, "device_resolve='off' output differs")
+    log(f"off route ({OFF_CORPUS_MB} MiB): byte-exact, stats {json.dumps(stats)}, "
+        f"launches {json.dumps(launches)}")
+    for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any"):
+        require(launches[k] > 0, f"kernel {k} was not launched on the off route")
+    require(stats["device_resolved"] == 0 and launches["expand"] == 0, "off route resolved on device")
+    walls = timed_decode(gz, corpus, OFF_REPS, config=off)
+    med = statistics.median(walls)
+    log(f"off route ({CORPUS_MB} MiB) {OFF_REPS} timed runs: median {med:.4f} s = "
+        f"{len(corpus) / med / 1e9:.4f} GB/s, min {min(walls):.4f} s, max {max(walls):.4f} s")
+    return launches
+
+
+def phase_on_route(corpus: bytes) -> None:
+    from tpu_deflate_torch import engine
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.config import DecoderConfig
+
+    data = corpus[:FOREIGN_BYTES]
+    member = td_member(foreign_raw(data), len(data), zlib.crc32(data))
+    dk.reset_launches()
+    out = engine.decompress(member, engine="cuda", config=DecoderConfig(device_resolve="on"))
+    launches = dict(dk.LAUNCHES)
+    stats = dict(pv2.LAST_DECODE_STATS)
+    require(out == data, "device_resolve='on' output differs")
+    log(f"on route: gzip -9 member of {len(data)} bytes ({len(member)} compressed) byte-exact, "
+        f"stats {json.dumps(stats)}, launches {json.dumps(launches)}")
+    require(stats["device_resolved"] > 0, "the 'on' route resolved nothing on the device")
+    require(launches["expand"] > 0 and launches["sweep"] > 0, "the 'on' route launched no resolve")
+
+
 def phase_profile(gz: bytes, outdir: str, timed_median_s: float) -> None:
     """Device time per kernel (torch.profiler) and host time per function
-    (cProfile) of one end-to-end decode each, written into outdir. The
+    (cProfile) of one main-path decode each, written into outdir. The
     device's busy share is read off the one profiled decode: the summed
     duration of its device events (kernels and copies, one stream, so
     they do not overlap) over that same decode's wall time; beside it,
@@ -275,10 +529,10 @@ def phase_profile(gz: bytes, outdir: str, timed_median_s: float) -> None:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     averages = prof.key_averages()
-    table = averages.table(sort_by="cuda_time_total", row_limit=25)
+    table = averages.table(sort_by="cuda_time_total", row_limit=30)
     with open(os.path.join(outdir, "profile_device.txt"), "w") as f:
         f.write(table)
-    log("profile (device time by op):\n" + "\n".join(table.splitlines()[:22]))
+    log("profile (device time by op):\n" + "\n".join(table.splitlines()[:26]))
     cuda = torch.autograd.DeviceType.CUDA
     device_events = [e for e in prof.events() if e.device_type == cuda]
     busy_us = sum(e.time_range.elapsed_us() for e in device_events)
@@ -286,7 +540,7 @@ def phase_profile(gz: bytes, outdir: str, timed_median_s: float) -> None:
         f"idle {100 * (1 - busy_us / 1e6 / wall):.2f} % of that wall; "
         f"idle {100 * (1 - busy_us / 1e6 / timed_median_s):.2f} % of the timed median "
         f"{timed_median_s * 1e3:.3f} ms")
-    for kernel in ("stage_a_kernel", "stage_b_kernel", "stage_dc_kernel", "compact_kernel"):
+    for kernel in PROFILE_KERNELS:
         us = [e.time_range.elapsed_us() for e in device_events if kernel in e.name]
         require(bool(us), f"profile shows no {kernel} launch")
         log(f"main-path {kernel}: {len(us)} launches, device {sum(us):.1f} us total, "
@@ -297,23 +551,23 @@ def phase_profile(gz: bytes, outdir: str, timed_median_s: float) -> None:
     torch.cuda.synchronize()
     pr.disable()
     s = io.StringIO()
-    pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(40)
+    pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(45)
     with open(os.path.join(outdir, "profile_host.txt"), "w") as f:
         f.write(s.getvalue())
-    log("profile (host cumulative):\n" + "\n".join(s.getvalue().splitlines()[:60]))
+    log("profile (host cumulative):\n" + "\n".join(s.getvalue().splitlines()[:70]))
 
 
 def phase_interop(corpus: bytes, gz: bytes, device) -> None:
-    import numpy as np
-
-    from tpu_deflate_torch import engine, host
+    from tpu_deflate_torch import engine
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.config import DecoderConfig
+    from tpu_deflate_torch.format.errors import DataFormatError
 
-    data = corpus[: 1 << 20]
+    data = corpus[:FOREIGN_BYTES]
     foreign = gzip.compress(data, 9)
     require(engine.decompress(foreign, engine="cuda") == data, "foreign gzip stream")
-    log(f"foreign gzip (python gzip -9, {len(foreign)} bytes): ok")
+    log(f"foreign gzip without the member index (python gzip -9, {len(foreign)} bytes): ok")
     co = zlib.compressobj(9, zlib.DEFLATED, -15)
     raw = co.compress(data) + co.flush()
     before = dk.LAUNCHES["stage_a"]
@@ -321,19 +575,18 @@ def phase_interop(corpus: bytes, gz: bytes, device) -> None:
     log(f"foreign raw DEFLATE (zlib -9, {len(raw)} bytes) through the wave kernels: ok, "
         f"{dk.LAUNCHES['stage_a'] - before} stage-A launches")
 
-    buf = np.frombuffer(gz, np.uint8)
-    m = next(m for m in host.split_members(buf) if (int(buf[m.payload_start]) >> 1) & 3)
+    m, _p = huffman_members(gz)[0]
     bad = bytearray(gz[m.start : m.end])
     bad[m.payload_start - m.start + 100] ^= 0x5A
     reasons = []
-    for decode in (host.host_gzip_decompress, lambda b: engine.decompress(b, engine="cuda")):
+    for mode in ("auto", "off"):
         try:
-            decode(bytes(bad))
+            engine.decompress(bytes(bad), engine="cuda", config=DecoderConfig(device_resolve=mode))
             reasons.append(None)
-        except host.DataFormatError as e:
-            reasons.append(e.reason)
-    log(f"corrupted member: host decoder {reasons[0]}, port {reasons[1]}")
-    require(reasons[1] is not None and reasons[0] == reasons[1], "corruption Reason differs")
+        except DataFormatError as e:
+            reasons.append(e.reason.name)
+    log(f"corrupted member: auto route {reasons[0]}, off route {reasons[1]}")
+    require(reasons[0] is not None and reasons[0] == reasons[1], "corruption Reason differs")
 
 
 def main(argv: list[str]) -> int:
@@ -355,33 +608,41 @@ def main(argv: list[str]) -> int:
     phase_build()
 
     import bench
-    from tpu_deflate_torch import host
+    from tpu_deflate_torch import native
 
     t0 = time.monotonic()
     corpus = bench.make_corpus(CORPUS_MB)
-    gz = host.native.compress_members_native(corpus)
-    n_huff = len(huffman_payloads(gz))
+    gz = native.compress_members_native(corpus)
+    n_huff = len(huffman_members(gz))
     log(f"corpus: {len(corpus)} bytes -> {len(gz)} gzip bytes, {n_huff} Huffman members "
         f"({time.monotonic() - t0:.1f} s)")
 
-    rec = phase_kernels(gz, device)
-    launches, timed_median_s = phase_end_to_end(corpus, gz, n_huff)
+    K = Kernels()
+    phase_wave_kernels(gz, device, K)
+    phase_resolve_kernels(gz, corpus, device, K)
+    launches, timed_median_s = phase_main_path(corpus, gz, n_huff)
     if args.profile:
         phase_profile(gz, args.profile, timed_median_s)
+    off_launches = phase_off_route(corpus, gz)
+    phase_on_route(corpus)
     phase_interop(corpus, gz, device)
 
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": rec[name]["max_abs_err"],
-            "ms": rec[name]["ms"],
-            "plain_ms": rec[name]["plain_ms"],
+            "source": CSRC + src,
+            "replaces": tpu,
+            "path": path,
+            "launches": (launches if path == "main" else off_launches)[name],
+            "max_abs_err": K.rec[name]["max_abs_err"],
+            "ms": K.rec[name]["ms"],
+            "plain_ms": K.rec[name]["plain_ms"],
+            "bound_ms": K.rec[name]["bound_ms"],
+            "bound_by": K.rec[name]["bound_by"],
+            "library_ms": None,
         }
-        for name in SOURCES
+        for name, (src, tpu, path) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_power())

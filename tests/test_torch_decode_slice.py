@@ -1,7 +1,11 @@
 """The port's decode slice end to end on the CPU (plain versions of the
 kernels) against the JAX package: the wave body's 7-tuple, whole gzip
-streams, error Reasons and the conformance vectors. Integer-only, so every
-comparison is exact equality."""
+streams on the host-resolve route and on the device-resolve route
+(``device_resolve="on"``, which the JAX package runs with its Pallas
+resolve in interpret mode), routing counts, error Reasons, the
+conformance vectors and the fallback for streams without a member index.
+Integer-only, so every comparison is exact equality. The port's Reason is
+its own enum: Reasons compare by name."""
 
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import tpu_deflate
 from tpu_deflate import native
 from tpu_deflate.codec import decode_jax as dj
 from tpu_deflate.codec import decode_jax_v2 as v2
@@ -21,6 +26,7 @@ from tpu_deflate.codec.profile import profile_compress_host
 from tpu_deflate.format.errors import DataFormatError
 
 from tpu_deflate_torch import engine
+from tpu_deflate_torch.format import errors as port_errors
 from tpu_deflate_torch.codec import decode_kernels as dk
 from tpu_deflate_torch.codec import decode_v2 as pv2
 from tpu_deflate_torch.codec import wave_prep as wp
@@ -50,10 +56,12 @@ def _port(gz: bytes, **kw) -> bytes:
 
 
 def _reason(fn, *args):
+    """The name of the Reason fn(*args) raises (either package's error), or
+    None."""
     try:
         fn(*args)
-    except DataFormatError as e:
-        return e.reason
+    except (DataFormatError, port_errors.DataFormatError) as e:
+        return e.reason.name
     return None
 
 
@@ -141,9 +149,9 @@ def test_good_vector(name, bits, hexout):
 
 @pytest.mark.parametrize("name,bits,reason", BAD_VECTORS, ids=[v[0] for v in BAD_VECTORS])
 def test_bad_vector(name, bits, reason):
-    with pytest.raises(DataFormatError) as ei:
+    with pytest.raises(port_errors.DataFormatError) as ei:
         pv2.inflate_raw_v2(bits_to_bytes(bits, "0"), device=CPU)
-    assert ei.value.reason == reason
+    assert ei.value.reason.name == reason.name
 
 
 def test_vectors_batched_one_wave():
@@ -155,9 +163,9 @@ def test_vectors_batched_one_wave():
     for (name, _, hexout), st in zip(GOOD_VECTORS, states):
         assert pv2._resolve_lane(st, None) == bytes.fromhex(hexout), name
     for (name, _, reason), st in zip(BAD_VECTORS, states[len(GOOD_VECTORS) :]):
-        with pytest.raises(DataFormatError) as ei:
+        with pytest.raises(port_errors.DataFormatError) as ei:
             pv2._resolve_lane(st, None)
-        assert ei.value.reason == reason, name
+        assert ei.value.reason.name == reason.name, name
 
 
 def test_overflow_rerun(monkeypatch):
@@ -189,14 +197,155 @@ def test_engine_cuda_raises_without_cuda():
         engine.decompress(gz, engine="native")
 
 
-def test_device_resolve_on_not_ported():
-    gz = _compress(b"abc" * 100)
-    with pytest.raises(NotImplementedError, match="K5"):
-        _port(gz, device_resolve="on")
-    assert _port(gz, device_resolve="off") == _port(gz, device_resolve="auto") == b"abc" * 100
-
-
 def test_wave_k1_matches_reference():
     for mtb in range(1, 20):
         assert v2._lane_k1(mtb) == wp._lane_k1(mtb)
-    assert dk.LAUNCHES.keys() == {"stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any"}
+    assert dk.LAUNCHES.keys() == {
+        "stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any",
+        "expand", "sweep", "crc32_lanes",
+    }
+
+
+# ---------------------------------------------------------------------------
+# The device-resolve route (device_resolve="on")
+# ---------------------------------------------------------------------------
+
+
+def _td_member(payload: bytes, isize: int, crc: int) -> bytes:
+    """One gzip member with the TD member index around a raw DEFLATE payload."""
+    total = 20 + len(payload) + 8
+    return (
+        b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x08\x00TD\x04\x00"
+        + total.to_bytes(4, "little")
+        + payload
+        + crc.to_bytes(4, "little")
+        + (isize & 0xFFFFFFFF).to_bytes(4, "little")
+    )
+
+
+def _zlib_member(data: bytes) -> bytes:
+    co = zlib.compressobj(9, zlib.DEFLATED, -15)
+    return _td_member(co.compress(data) + co.flush(), len(data), zlib.crc32(data))
+
+
+def _on_stream(kind: str) -> bytes:
+    if kind == "profile":  # single-block members: the main path
+        return _compress(_structured(21, 150_000))
+    if kind == "mixed":  # stored and Huffman members
+        return _compress(os.urandom(70000) + _structured(22, 100_000))
+    if kind == "multiblock":  # a zlib -9 member of several blocks, > 64 KiB
+        return _zlib_member(_structured(23, 200_000))
+    if kind == "both":  # main-path members followed by a multi-block one
+        return _compress(_structured(24, 80_000)) + _zlib_member(_structured(25, 90_000))
+    raise KeyError(kind)
+
+
+@pytest.mark.parametrize("kind", ["profile", "mixed", "multiblock", "both"])
+def test_device_resolve_on_matches_reference(kind):
+    gz = _on_stream(kind)
+    got = _port(gz, device_resolve="on")
+    stats = dict(pv2.LAST_DECODE_STATS)
+    want = v2.gzip_decompress_tpu_v2(gz, device_resolve="on")
+    assert got == want == pygzip.decompress(gz)
+    ref = v2.LAST_DECODE_STATS
+    for k in ("members", "stored", "device_resolved", "host_resolved"):
+        assert stats[k] == ref[k], k
+    assert stats["device_resolved"] > 0 and stats["host_resolved"] == 0
+    # on the CPU the plain versions run: no kernel launch is counted
+    assert set(stats["launches"].values()) == {0}
+
+
+def test_device_resolve_routes():
+    """"auto" on a CPU device takes the host route; "on" resolves every
+    Huffman member on the device; a bad mode raises."""
+    gz = _on_stream("both")
+    data = pygzip.decompress(gz)
+    for mode, dev_count in (("off", 0), ("auto", 0), ("on", 3)):
+        assert _port(gz, device_resolve=mode) == data
+        stats = pv2.LAST_DECODE_STATS
+        assert (stats["device_resolved"], stats["host_resolved"]) == (dev_count, 3 - dev_count)
+    with pytest.raises(ValueError):
+        _port(gz, device_resolve="yes")
+
+
+@pytest.mark.parametrize("where", ["early", "middle", "trailer", "crc", "isize"])
+def test_corruption_same_reason_device_resolve_on(where):
+    data = _structured(5, 60000)
+    gz = bytearray(_compress(data))
+    m = dj.split_members(np.frombuffer(bytes(gz), np.uint8))[0]
+    at = {
+        "early": m.payload_start + 100,
+        "middle": len(gz) // 2,
+        "trailer": m.end - 6,
+        "crc": m.end - 8,
+        "isize": m.end - 4,
+    }[where]
+    gz[at] ^= 0x55
+    got = _reason(lambda b: _port(b, device_resolve="on"), bytes(gz))
+    want = _reason(lambda b: v2.gzip_decompress_tpu_v2(b, device_resolve="on"), bytes(gz))
+    assert got is not None and got == want
+
+
+@pytest.mark.parametrize("name,bits,reason", BAD_VECTORS, ids=[v[0] for v in BAD_VECTORS])
+def test_bad_vector_device_resolve_on(name, bits, reason):
+    """Each bad vector as a TD-indexed member through both packages' "on"
+    routes: the same Reason."""
+    gz = _td_member(bits_to_bytes(bits, "0"), 3, 0)
+    got = _reason(lambda b: _port(b, device_resolve="on"), gz)
+    want = _reason(lambda b: v2.gzip_decompress_tpu_v2(b, device_resolve="on"), gz)
+    assert got is not None and got == want
+
+
+def test_good_vectors_device_resolve_on():
+    gz = b"".join(
+        _td_member(bits_to_bytes(bits, "0"), len(bytes.fromhex(h)), zlib.crc32(bytes.fromhex(h)))
+        for _, bits, h in GOOD_VECTORS
+    )
+    want = b"".join(bytes.fromhex(h) for _, _, h in GOOD_VECTORS)
+    assert _port(gz, device_resolve="on") == v2.gzip_decompress_tpu_v2(gz, device_resolve="on") == want
+
+
+# ---------------------------------------------------------------------------
+# Streams without the TD member index: the C core's serial member walk
+# ---------------------------------------------------------------------------
+
+
+def _foreign(kind: str) -> bytes:
+    data = _structured(31, 80_000)
+    gz = pygzip.compress(data, compresslevel=9)
+    two = gz + pygzip.compress(data[:5000], compresslevel=1)
+    cases = {
+        "whole": two,
+        "truncated_header": gz[:6],
+        "truncated_payload": gz[: len(gz) // 2],
+        "truncated_trailer": gz[:-3],
+        "corrupt_payload": gz[:40] + bytes([gz[40] ^ 0xFF]) + gz[41:],
+        "corrupt_late": gz[:-400] + bytes([gz[-400] ^ 0x10]) + gz[-399:],
+        "corrupt_crc": gz[:-8] + bytes([gz[-8] ^ 1]) + gz[-7:],
+        "corrupt_isize": gz[:-4] + bytes([gz[-4] ^ 1]) + gz[-3:],
+        "bad_magic": b"\x1f\x8c" + gz[2:],
+        "bad_method": gz[:2] + b"\x07" + gz[3:],
+        "reserved_flags": gz[:3] + b"\x20" + gz[4:],
+        "trailing_garbage": gz + b"\x00\x01",
+        "second_member_truncated": two[: len(gz) + 30],
+        "empty": b"",
+    }
+    return cases[kind]
+
+
+_FOREIGN = [
+    "whole", "truncated_header", "truncated_payload", "truncated_trailer", "corrupt_payload",
+    "corrupt_late", "corrupt_crc", "corrupt_isize", "bad_magic", "bad_method", "reserved_flags",
+    "trailing_garbage", "second_member_truncated", "empty",
+]
+
+
+@pytest.mark.parametrize("kind", _FOREIGN)
+def test_no_index_fallback_matches_host_decoder(kind):
+    gz = _foreign(kind)
+    want = _reason(tpu_deflate.gzip_decompress, gz)
+    got = _reason(_port, gz)
+    assert got == want
+    if want is None:
+        assert _port(gz) == tpu_deflate.gzip_decompress(gz)
+        assert pv2.LAST_DECODE_STATS == {}  # no member index: no device routing

@@ -3,9 +3,9 @@ level-2 compaction (K4, with K7 as its no-map mode).
 
 Each wrapper checks its inputs, then runs the hand-written CUDA kernel of
 ``tpu_deflate_torch/csrc/`` on CUDA tensors, or the plain PyTorch version
-beside it on CPU tensors. A CUDA tensor never reaches a plain version: the
-kernel launches or the wrapper raises. ``LAUNCHES`` counts kernel launches
-per wrapper (plain-version calls do not count).
+beside it on CPU tensors (``_build.on_card``). A CUDA tensor never reaches
+a plain version: the kernel launches or the wrapper raises. ``LAUNCHES``
+(``_build.LAUNCHES``) counts kernel launches per wrapper.
 
 The plain versions are the readable spec and the CPU path. They mirror
 the reference's integer semantics exactly: uint32 windows are held in
@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .wave_prep import (
     _ERR_EMPTY_DIST,
     _ERR_END,
@@ -48,50 +49,9 @@ from .wave_prep import (
     W_P,
 )
 
-# Kernel launches per wrapper since process start (or the last reset).
-LAUNCHES = {"stage_a": 0, "stage_b": 0, "stage_dc": 0, "compact_flat": 0, "compact_any": 0}
-
 _EOB_ADV = 4096
 _ERR_ADV = 8192
 _M32 = 0xFFFFFFFF
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-# ---------------------------------------------------------------------------
-# Wrapper plumbing
-# ---------------------------------------------------------------------------
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
-    _require(isinstance(t, torch.Tensor), f"{name}: expected a tensor")
-    _require(t.dtype == dtype, f"{name}: dtype {t.dtype}, expected {dtype}")
-    _require(t.dim() == ndim, f"{name}: shape {tuple(t.shape)}, expected {ndim} dims")
-    _require(t.is_contiguous(), f"{name}: must be contiguous")
-    _require(t.numel() > 0, f"{name}: empty")
-
-
-def _route(*tensors: torch.Tensor) -> bool:
-    """True for the kernel (all tensors on one CUDA device), False for the
-    plain version (all on the CPU); raises otherwise."""
-    dev = tensors[0].device
-    _require(all(t.device == dev for t in tensors), "inputs on different devices")
-    if dev.type == "cpu":
-        return False
-    _require(dev.type == "cuda", f"unsupported device {dev}")
-    return True
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -292,12 +252,12 @@ def stage_a_plain(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor,
 def stage_a(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage A (K1): grid (L, 64, NT+1) uint8, meta (L, 128) int32 ->
     (delta, token), both (L, 512, NT) int32."""
-    _check("grid", grid, torch.uint8, 3)
-    _check("meta", meta, torch.int32, 2)
+    _build.check_tensor("grid", grid, torch.uint8, 3)
+    _build.check_tensor("meta", meta, torch.int32, 2)
     L, WB, NTp = grid.shape
-    _require(WB == 64 and NTp >= 2, f"grid: shape {tuple(grid.shape)}, expected (L, 64, NT+1)")
-    _require(tuple(meta.shape) == (L, META_W), f"meta: shape {tuple(meta.shape)}")
-    if not _route(grid, meta):
+    _build.require(WB == 64 and NTp >= 2, f"grid: shape {tuple(grid.shape)}, expected (L, 64, NT+1)")
+    _build.require(tuple(meta.shape) == (L, META_W), f"meta: shape {tuple(meta.shape)}")
+    if not _build.on_card(grid, meta):
         return stage_a_plain(grid, meta)
     NT = NTp - 1
     delta = torch.empty((L, W_P, NT), dtype=torch.int32, device=grid.device)
@@ -307,7 +267,7 @@ def stage_a(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor, torch
         err = lib.td_stage_a(
             grid.data_ptr(), meta.data_ptr(), delta.data_ptr(), token.data_ptr(), L, NT,
             _ERR_END, _ERR_RESERVED_LEN, _ERR_EMPTY_DIST, _ERR_RESERVED_DIST,
-            _stream(grid.device),
+            _build.stream(grid.device),
         )
     _build.check(err, "td_stage_a")
     LAUNCHES["stage_a"] += 1
@@ -341,15 +301,15 @@ def stage_b_plain(delta_t: torch.Tensor) -> torch.Tensor:
 def stage_b(delta_t: torch.Tensor) -> torch.Tensor:
     """Stage B (K2): delta (L, 512, NT) int32 -> transfer maps (L, NT, 48)
     uint8 (exit offset into the next tile, or 127 / 255)."""
-    _check("delta_t", delta_t, torch.int32, 3)
+    _build.check_tensor("delta_t", delta_t, torch.int32, 3)
     L, W, NT = delta_t.shape
-    _require(W == W_P, f"delta_t: shape {tuple(delta_t.shape)}, expected (L, 512, NT)")
-    if not _route(delta_t):
+    _build.require(W == W_P, f"delta_t: shape {tuple(delta_t.shape)}, expected (L, 512, NT)")
+    if not _build.on_card(delta_t):
         return stage_b_plain(delta_t)
     out = torch.empty((L, NT, E_WIN), dtype=torch.uint8, device=delta_t.device)
     lib = _build.load()
     with torch.cuda.device(delta_t.device):
-        err = lib.td_stage_b(delta_t.data_ptr(), out.data_ptr(), L, NT, _stream(delta_t.device))
+        err = lib.td_stage_b(delta_t.data_ptr(), out.data_ptr(), L, NT, _build.stream(delta_t.device))
     _build.check(err, "td_stage_b")
     LAUNCHES["stage_b"] += 1
     return out
@@ -413,15 +373,15 @@ def stage_dc(
     """Stage DC (K3): delta/token (L, 512, NT) int32, entries (L, NT) int32
     (>= 48 is a dead tile) -> (tokens (L, NT, k1) int32 with -1 padding,
     summary (L, 8, NT) int32)."""
-    _check("delta_t", delta_t, torch.int32, 3)
-    _check("token_t", token_t, torch.int32, 3)
-    _check("entries", entries, torch.int32, 2)
+    _build.check_tensor("delta_t", delta_t, torch.int32, 3)
+    _build.check_tensor("token_t", token_t, torch.int32, 3)
+    _build.check_tensor("entries", entries, torch.int32, 2)
     L, W, NT = delta_t.shape
-    _require(W == W_P, f"delta_t: shape {tuple(delta_t.shape)}, expected (L, 512, NT)")
-    _require(token_t.shape == delta_t.shape, f"token_t: shape {tuple(token_t.shape)}")
-    _require(tuple(entries.shape) == (L, NT), f"entries: shape {tuple(entries.shape)}")
-    _require(1 <= k1 <= W_P, f"k1={k1} outside [1, {W_P}]")
-    if not _route(delta_t, token_t, entries):
+    _build.require(W == W_P, f"delta_t: shape {tuple(delta_t.shape)}, expected (L, 512, NT)")
+    _build.require(token_t.shape == delta_t.shape, f"token_t: shape {tuple(token_t.shape)}")
+    _build.require(tuple(entries.shape) == (L, NT), f"entries: shape {tuple(entries.shape)}")
+    _build.require(1 <= k1 <= W_P, f"k1={k1} outside [1, {W_P}]")
+    if not _build.on_card(delta_t, token_t, entries):
         return stage_dc_plain(delta_t, token_t, entries, k1)
     dev = delta_t.device
     tokens = torch.empty((L, NT, k1), dtype=torch.int32, device=dev)
@@ -430,7 +390,7 @@ def stage_dc(
     with torch.cuda.device(dev):
         err = lib.td_stage_dc(
             delta_t.data_ptr(), token_t.data_ptr(), entries.data_ptr(), tokens.data_ptr(),
-            summ.data_ptr(), L, NT, k1, _stream(dev),
+            summ.data_ptr(), L, NT, k1, _build.stream(dev),
         )
     _build.check(err, "td_stage_dc")
     LAUNCHES["stage_dc"] += 1
@@ -468,12 +428,12 @@ def compact_plain(tok: torch.Tensor, lit_planes: torch.Tensor | None) -> torch.T
 
 
 def _compact(tok: torch.Tensor, lit_planes: torch.Tensor | None) -> torch.Tensor:
-    _check("tok", tok, torch.int32, 2)
+    _build.check_tensor("tok", tok, torch.int32, 2)
     L, M = tok.shape
     if lit_planes is not None:
-        _check("lit_planes", lit_planes, torch.int32, 2)
-        _require(tuple(lit_planes.shape) == (L, 64), f"lit_planes: shape {tuple(lit_planes.shape)}")
-    on_card = _route(tok) if lit_planes is None else _route(tok, lit_planes)
+        _build.check_tensor("lit_planes", lit_planes, torch.int32, 2)
+        _build.require(tuple(lit_planes.shape) == (L, 64), f"lit_planes: shape {tuple(lit_planes.shape)}")
+    on_card = _build.on_card(tok) if lit_planes is None else _build.on_card(tok, lit_planes)
     if not on_card:
         return compact_plain(tok, lit_planes)
     out = torch.empty_like(tok)
@@ -481,7 +441,7 @@ def _compact(tok: torch.Tensor, lit_planes: torch.Tensor | None) -> torch.Tensor
     with torch.cuda.device(tok.device):
         err = lib.td_compact(
             tok.data_ptr(), 0 if lit_planes is None else lit_planes.data_ptr(), out.data_ptr(),
-            L, M, int(lit_planes is not None), _stream(tok.device),
+            L, M, int(lit_planes is not None), _build.stream(tok.device),
         )
     _build.check(err, "td_compact")
     LAUNCHES["compact_flat" if lit_planes is not None else "compact_any"] += 1

@@ -1,41 +1,46 @@
 """Member-parallel gzip decode on a CUDA device (counterpart of
 ``tpu_deflate.codec.decode_jax_v2``).
 
-The host walks each raw DEFLATE stream's block chain; every wave of
-Huffman blocks goes through the device body :func:`run_wave`: stage A
-(K1) -> stage B (K2) -> stage C (plain PyTorch, as the reference's XLA)
--> stage DC (K3) -> level-2 compaction with the literal map (K4). The
-packed token pull (:func:`pack_tokens`, K7) brings each lane's tokens back
-and the shared C core resolves them to bytes on the host, where the CRC
-is checked too. Every function takes an explicit ``device``; on a CPU
-device the kernels' plain versions run (the CPU tests), on a CUDA device
-the kernels do.
+The main path (:func:`_decode_single_block_device`) takes every member
+whose payload is one final Huffman block of at most 64 KiB output: waves
+go through the device body :func:`run_wave` (stage A (K1) -> stage B (K2)
+-> stage C (plain PyTorch, as the reference's XLA) -> stage DC (K3) ->
+level-2 compaction with the literal map (K4)), the tokens stay on the
+device and resolve to bytes there (``resolve``: expand (K5), sweep (K6)),
+the lane CRC-32 kernel checksums each row, and only the small per-lane
+vectors and the final bytes cross to the host.
 
-This is the reference's ``device_resolve="off"`` route. The device LZ77
-resolve (K5, K6) and the lane CRC-32 are not ported yet, so
-``device_resolve="on"`` raises.
+Other members (multi-block, larger, or a lane the device hands back) take
+the host route: the host walks each raw DEFLATE stream's block chain,
+every wave of Huffman blocks runs through :func:`run_wave`, the packed
+token pull (:func:`pack_tokens`, K7) brings the tokens back and the shared
+C core resolves them, checking the CRC on the host. With
+``device_resolve="on"`` those tokens go back to the device and resolve in
+chained 64 KiB tiles (``resolve.resolve_big_streams``).
+
+Every function takes an explicit ``device``; on a CPU device the kernels'
+plain versions run (the CPU tests), on a CUDA device the kernels do.
 """
 
 from __future__ import annotations
 
-import io
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from tpu_deflate import native
-from tpu_deflate.codec import decode_jax as dj
-from tpu_deflate.format.errors import (
+from .. import native
+from ..format.errors import (
     DataFormatError,
     OutputCapacityError,
     Reason,
     check_device_error,
     reason_to_code,
 )
-from tpu_deflate.kernels.checksum import crc32 as crc32_host
-
+from ..kernels import checksum_lanes as cl
 from . import decode_kernels as dk
+from . import decode_np as dnp
+from . import resolve as rs
 from .wave_prep import (
     _ERR_END,
     _PAD_PAYLOAD,
@@ -51,7 +56,6 @@ from .wave_prep import (
     ROW_SIZE_SUM,
     SENT_EOB,
     SENT_ERR,
-    TOKEN_MATCH_BIT,
     V2_L_BUCKETS,
     V2_LANE_BATCH,
     W_P,
@@ -59,6 +63,7 @@ from .wave_prep import (
     _bucket,
     _k1_groups,
     _lane_k1,
+    _prep_wave,
     _wave_arrays,
     wave_to_tensors,
 )
@@ -358,7 +363,7 @@ def _decode_huffman_subwave(wave: list[LaneState], P: int, device: torch.device,
     # Batched header parse; on failure re-parse lane by lane so the error
     # lands on the right stream only.
     try:
-        hp = dj.parse_headers_batch(rows, row_bits, start_bits=start_bits)
+        hp = dnp.parse_headers_batch(rows, row_bits, start_bits=start_bits)
     except DataFormatError:
         for i, st in enumerate(wave):
             r = _reparse_single(rows[i : i + 1], row_bits[i : i + 1], start_bits[i : i + 1])
@@ -373,7 +378,7 @@ def _decode_huffman_subwave(wave: list[LaneState], P: int, device: torch.device,
 
 def _reparse_single(rows, row_bits, start_bits):
     try:
-        dj.parse_headers_batch(rows, row_bits, start_bits=start_bits)
+        dnp.parse_headers_batch(rows, row_bits, start_bits=start_bits)
         return None
     except DataFormatError as e:
         return e.reason
@@ -470,23 +475,6 @@ def _df(reason: Reason) -> DataFormatError:
     return DataFormatError(reason, reason.name)
 
 
-def _resolve_tokens_numpy(tokens: np.ndarray, count: int) -> bytes:
-    """Token expansion in Python (the shared C core is the fast path)."""
-    out = bytearray()
-    for k in range(count):
-        t = int(tokens[k])
-        if not t & TOKEN_MATCH_BIT:
-            out.append(t & 0xFF)
-            continue
-        run = (t >> 16) & 0x3FF
-        dist = (t & 0xFFFF) + 1
-        if dist > len(out):
-            raise _df(Reason.COPY_FROM_BEFORE_DICTIONARY_START)
-        for _ in range(run):
-            out.append(out[-dist])
-    return bytes(out)
-
-
 def _resolve_lane(st: LaneState, cap: int | None) -> bytes:
     """Expand a lane's tokens to bytes on the host, in reference error
     order: a bad back-reference comes earlier in the stream than any
@@ -494,15 +482,10 @@ def _resolve_lane(st: LaneState, cap: int | None) -> bytes:
     raised only if resolution succeeds."""
     tokens = (np.concatenate(st.tokens) if st.tokens else np.zeros(0, np.int32)).astype(np.int32)
     want = cap if (cap is not None and not st.err) else st.out_total + 1
-    if native.available():
-        try:
-            out = native.resolve_tokens(tokens, max(want, 1))
-        except OutputCapacityError:
-            raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH) from None
-    else:
-        out = _resolve_tokens_numpy(tokens, tokens.size)
-        if cap is not None and not st.err and len(out) > cap:
-            raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
+    try:
+        out = native.resolve_tokens(tokens, max(want, 1))
+    except OutputCapacityError:
+        raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH) from None
     if st.err:
         check_device_error(st.err)
     return out
@@ -515,9 +498,117 @@ def inflate_raw_v2(payload: bytes, *, device: torch.device) -> bytes:
     return _resolve_lane(st, None)
 
 
+# ---------------------------------------------------------------------------
+# Device resolve of single-block members (the main path)
+# ---------------------------------------------------------------------------
+
+RB = 256  # lanes per resolve batch (the last batch holds the rest, unpadded)
+
+
+def _single_block_eligible(buf: np.ndarray, m: dnp.MemberIndex) -> bool:
+    """A member the main path decodes whole: one final Huffman block whose
+    output fits a resolve tile and whose payload fits a bucket."""
+    if m.isize > rs.N_POS:
+        return False
+    plen = m.end - 8 - m.payload_start
+    if plen <= 0 or plen > P_BUCKETS_PALLAS[-1]:
+        return False
+    hdr = int(buf[m.payload_start])
+    return (hdr & 1) == 1 and ((hdr >> 1) & 3) in (1, 2)
+
+
+def single_block_tokens(
+    payloads: list[bytes], device: torch.device, stats: dict | None = None
+) -> tuple[list[int], torch.Tensor, torch.Tensor]:
+    """The main path's waves: payloads grouped by payload bucket and k1,
+    each group's waves through :func:`run_wave`. Returns (the payload index
+    of each row, the per-lane vectors (7, n) int32 of :func:`pack_small`,
+    the tokens (n, N_POS) int32 padded or cut to N_POS slots), rows in
+    wave order and all on ``device``. ``payloads`` must not be empty."""
+    N = rs.N_POS
+    k1s = _k1_groups(payloads, [0] * len(payloads))
+    bygroup: dict[tuple[int, int], list[int]] = {}
+    for i, (p, k1) in enumerate(zip(payloads, k1s)):
+        bygroup.setdefault((_bucket(len(p), P_BUCKETS_PALLAS), k1), []).append(i)
+    order, smalls, toks = [], [], []
+    for (P, _k1), idxs in sorted(bygroup.items()):
+        lmax = _lane_cap(P)
+        for base in range(0, len(idxs), lmax):
+            chunk = idxs[base : base + lmax]
+            w = _prep_wave([payloads[i] for i in chunk], _bucket(len(chunk), V2_L_BUCKETS))
+            tokens, *rest = run_wave(wave_to_tensors(w, device))
+            if stats is not None:
+                stats["waves"] = stats.get("waves", 0) + 1
+            n = len(chunk)
+            t = tokens[:n, :N]
+            toks.append(torch.nn.functional.pad(t, (0, N - t.shape[1]), value=-1))
+            smalls.append(pack_small(*rest)[:, :n])
+            order += chunk
+    return order, torch.cat(smalls, 1), torch.cat(toks)
+
+
+def _decode_single_block_device(
+    payloads: list[bytes], members: list, verify_crc: bool, device: torch.device, stats: dict
+) -> list[bytes | None]:
+    """Decode single-block final Huffman members entirely on ``device``.
+
+    The waves' tokens (:func:`single_block_tokens`) resolve in batches of
+    at most RB lanes (K5, K6) and the lane CRC kernel checksums the rows.
+    The host pulls the per-lane vectors, summaries and raw CRCs first, the
+    bytes after. Returns per member its bytes, or None where the lane goes
+    back to the host route (a wave whose tiles overflowed k1, or a resolve
+    residue). Raises DataFormatError in the reference's order:
+    copy-before-start, then the stage error, then a missing EOB, then
+    size, then CRC.
+    """
+    N = rs.N_POS
+    order, small, T = single_block_tokens(payloads, device, stats)
+    ys, summs, raws = [], [], []
+    for base in range(0, T.shape[0], RB):
+        y, summ = rs.resolve_tokens_device(T[base : base + RB])
+        y8 = y.to(torch.uint8)
+        ys.append(y8)
+        summs.append(summ)
+        raws.append(cl.crc32_lanes_raw8(y8))
+    small_h = small.cpu().numpy()
+    summ_h = torch.cat(summs).cpu().numpy()
+    raw_h = torch.cat(raws).cpu().numpy()
+    y_h = torch.cat(ys).cpu().numpy()
+    crcs = cl.crc32_finish_leftaligned(raw_h, np.clip(summ_h[:, 1], 0, N), N) if verify_crc else None
+
+    outs: list[bytes | None] = [None] * len(payloads)
+    for li, pi in enumerate(order):
+        _count, has_eob, _eob_exit, err, _total, ovf, _nlit = (int(v) for v in small_h[:, li])
+        if ovf:
+            continue  # a tile held more than k1 tokens: the host route redoes it
+        summ = summ_h[li]
+        if int(summ[0]) < N:
+            # a bad back-reference precedes any pending stage error
+            raise _df(Reason.COPY_FROM_BEFORE_DICTIONARY_START)
+        if err:
+            check_device_error(err)
+        if not has_eob:
+            check_device_error(_ERR_END)
+        if int(summ[3]) > 0:
+            continue  # unresolved residue: the host route resolves the lane
+        total = int(summ[1])
+        m = members[pi]
+        if total != m.isize:
+            raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
+        if verify_crc and int(crcs[li]) != m.crc32:
+            raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
+        outs[pi] = y_h[li, :total].tobytes()
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# Front door
+# ---------------------------------------------------------------------------
+
 # Routing and launch record of the last gzip_decompress_v2 call: members,
 # stored, device_resolved, host_resolved, waves, launches (kernel launches
-# during the call). Module state shared by every caller; not thread-safe.
+# during the call); empty after a stream without a member index. Module
+# state shared by every caller; not thread-safe.
 LAST_DECODE_STATS: dict = {}
 
 
@@ -529,61 +620,83 @@ def gzip_decompress_v2(
     lane_batch: int | None = None,
     device_resolve: str = "auto",
 ) -> bytes:
-    """Member-parallel gzip decode with the wave kernels on ``device``.
+    """Member-parallel gzip decode with the kernels on ``device``.
 
-    Stored members decode on the host; every Huffman member goes through
-    the block-chain loop and resolves to bytes on the host, where the
-    trailer CRC is checked. ``device_resolve`` takes "auto" and "off",
-    which both take that route in this version; "on" (the device LZ77
-    resolve) raises NotImplementedError. ``lane_batch`` caps members per
-    device batch (at most V2_LANE_BATCH). Streams without the TD member
-    index decode on the host.
+    Stored members decode on the host. ``device_resolve``: "auto" sends
+    every single-block Huffman member of at most 64 KiB through the main
+    path when ``device`` is CUDA, and everything else through the host
+    route; "on" does so on any device and also resolves the host route's
+    tokens on the device in chained tiles; "off" takes the host route for
+    every Huffman member. ``lane_batch`` caps members per host-route batch
+    (at most V2_LANE_BATCH). A stream without the TD member index decodes
+    member by member in the shared C core.
     """
-    if device_resolve == "on":
-        raise NotImplementedError(
-            "device_resolve='on' needs the device LZ77 resolve (K5 expand, K6 sweep), "
-            "which is not ported yet"
-        )
-    if device_resolve not in ("auto", "off"):
+    if device_resolve not in ("auto", "on", "off"):
         raise ValueError(f"device_resolve={device_resolve!r}: expected 'auto', 'off' or 'on'")
-    from tpu_deflate.streams.gzip_stream import GzipReader
-
+    stats = LAST_DECODE_STATS
+    stats.clear()
     buf = np.frombuffer(data, dtype=np.uint8)
-    members = dj.split_members(buf)
+    members = dnp.split_members(buf)
     if not members:
-        return GzipReader(io.BytesIO(data), multi_member=True).read()
+        return native.gzip_decompress_serial(data)
 
     out_parts: list[bytes | None] = [None] * len(members)
-    huff: list[tuple[int, dj.MemberIndex]] = []
+    huff: list[tuple[int, dnp.MemberIndex]] = []
     for i, m in enumerate(members):
         btype = (int(buf[m.payload_start]) >> 1) & 3 if m.payload_start < buf.size else 0
         if btype == 0:
-            out_parts[i] = dj._decode_stored_member(buf, m, verify_crc=verify_crc).tobytes()
+            out_parts[i] = dnp._decode_stored_member(buf, m, verify_crc=verify_crc).tobytes()
         else:
             huff.append((i, m))
 
-    stats = LAST_DECODE_STATS
-    stats.clear()
-    stats.update(
-        members=len(members),
-        stored=len(members) - len(huff),
-        device_resolved=0,
-        host_resolved=len(huff),
-        waves=0,
-    )
+    stats.update(members=len(members), stored=len(members) - len(huff), waves=0)
     launches0 = dict(dk.LAUNCHES)
-    crc = native.crc32 if native.available() else crc32_host
+    device_resolved = 0
+    if huff and (device_resolve == "on" or (device_resolve == "auto" and device.type == "cuda")):
+        elig = [(i, m) for i, m in huff if _single_block_eligible(buf, m)]
+        if elig:
+            outs = _decode_single_block_device(
+                [buf[m.payload_start : m.end - 8].tobytes() for _, m in elig],
+                [m for _, m in elig],
+                verify_crc,
+                device,
+                stats,
+            )
+            done = set()
+            for (i, _m), o in zip(elig, outs):
+                if o is not None:
+                    out_parts[i] = o
+                    done.add(i)
+            huff = [(i, m) for i, m in huff if i not in done]
+            device_resolved = len(done)
+
+    # "on" also resolves the host route's members (multi-block, larger
+    # than 64 KiB, handed back) on the device: their tokens tile-split
+    # and resolve with chained 32 KiB tails.
     batch_n = min(lane_batch or V2_LANE_BATCH, V2_LANE_BATCH)
     for base in range(0, len(huff), batch_n):
         batch = huff[base : base + batch_n]
         payloads = [buf[m.payload_start : m.end - 8].tobytes() for _, m in batch]
         states = decode_deflate_streams_v2(payloads, device, stats)
-        for (i, m), st in zip(batch, states):
-            out = _resolve_lane(st, m.isize)
+        douts: list[bytes | None] = [None] * len(batch)
+        if device_resolve == "on":
+            clean = [(j, st) for j, st in enumerate(states) if not st.err and st.tokens]
+            if clean:
+                outs_b, resid = rs.resolve_big_streams(
+                    [np.concatenate(st.tokens).astype(np.int32) for _, st in clean], device
+                )
+                for (j, _st), o, r in zip(clean, outs_b, resid):
+                    if r == 0:
+                        douts[j] = o.tobytes()
+        for j, ((i, m), st) in enumerate(zip(batch, states)):
+            out = douts[j] if douts[j] is not None else _resolve_lane(st, m.isize)
             if len(out) != m.isize:
                 raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
-            if verify_crc and crc(out) != m.crc32:
+            if verify_crc and native.crc32(out) != m.crc32:
                 raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
             out_parts[i] = out
+        device_resolved += sum(o is not None for o in douts)
+    stats["device_resolved"] = device_resolved
+    stats["host_resolved"] = len(members) - stats["stored"] - device_resolved
     stats["launches"] = {k: dk.LAUNCHES[k] - launches0[k] for k in dk.LAUNCHES}
     return b"".join(p for p in out_parts if p is not None)

@@ -1,8 +1,8 @@
 """Host-side wave preparation for the decode kernels (NumPy only).
 
 A copy of the NumPy host prep of ``tpu_deflate.codec.decode_jax_v2`` and
-the layout constants of ``tpu_deflate.codec.decode_pallas``: those modules
-import JAX, which the port never does. Everything here is kept identical
+the layout constants of ``tpu_deflate.codec.decode_pallas``: the port
+imports nothing of the JAX package. Everything here is kept identical
 to the reference (``tests/test_torch_wave_prep.py`` holds it key by key),
 so both packages cut waves into the same shapes and tables. The payload
 and lane buckets (``P_BUCKETS_PALLAS``, ``V2_L_BUCKETS``,
@@ -19,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_deflate.codec import decode_jax as dj
-from tpu_deflate.format.errors import Reason, reason_to_code
+from ..format.errors import Reason, reason_to_code
+from ..format.tables import LENGTH_BASE, LENGTH_EXTRA
+from . import decode_np as dnp
 
 W_TILE_P = 512  # stage A layout unit: bits per tile column
 ENTRY_WIN = 48  # max bits one symbol group consumes (15+5+15+13)
@@ -166,8 +167,6 @@ def class_ladder_tables(lengths: np.ndarray, tables: dict) -> dict:
     11 plane words over the match rank; ``lit_planes`` holds the literal
     rank -> byte map as 8 bit planes over 8 words of 32 ranks.
     """
-    from tpu_deflate.format.tables import LENGTH_BASE, LENGTH_EXTRA
-
     L, N = lengths.shape
     first = tables["first"].astype(np.int64)
     count = tables["count"].astype(np.int64)
@@ -353,7 +352,7 @@ def _k1_groups(payloads_or_rows, bitpos_list) -> list[int]:
         row_bits[i] = m * 8
         start_bits[i] = bp % 8
     try:
-        hp = dj.parse_headers_batch(rows, row_bits, start_bits=start_bits)
+        hp = dnp.parse_headers_batch(rows, row_bits, start_bits=start_bits)
         mt = lane_min_tok_bits(hp)
         return [_lane_k1(int(m)) for m in mt]
     except Exception:
@@ -373,7 +372,7 @@ def _prep_wave(payloads: list[bytes], lanes: int | None, buckets: tuple[int, ...
     for i in range(len(payloads), L):
         rows[i, : len(_PAD_PAYLOAD)] = np.frombuffer(_PAD_PAYLOAD, np.uint8)
         row_bits[i] = len(_PAD_PAYLOAD) * 8
-    hp = dj.parse_headers_batch(rows, row_bits)
+    hp = dnp.parse_headers_batch(rows, row_bits)
     w, _shift2 = _wave_arrays(rows, row_bits, hp)
     return w
 

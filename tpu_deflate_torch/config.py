@@ -1,0 +1,17 @@
+"""Decode knobs of the port (the decode fields of
+``tpu_deflate.config.DecoderConfig``)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    verify_crc: bool = True
+    # members per device batch (capped at wave_prep.V2_LANE_BATCH)
+    lane_batch: int = 256
+    # LZ77 resolve and CRC-32 on the device: "auto" (on when the decode
+    # device is CUDA), "on" (also multi-block and > 64 KiB members, and on
+    # a CPU device with the plain versions) or "off" (host resolve)
+    device_resolve: str = "auto"
