@@ -30,12 +30,24 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    device in chained tiles;
 7. interop and errors: a foreign gzip stream without the member index,
    a foreign raw multi-block DEFLATE stream through the wave kernels, and a
-   corrupted member raising the same Reason on the "auto" and "off" routes.
+   corrupted member raising the same Reason on the "auto" and "off" routes;
+8. encode kernels: K8 parse transfers, K9 parse replay and K10 emit body
+   against their plain versions (exact equality) on the first batch of
+   the encode's main path (64 members x 64 KiB of the corpus), then on
+   step fields of all 1 and all 250, a batch with a lane routed FIXED and
+   a lane of 15-bit literal codes whose bits overflow the word grid;
+9. the encode's main path: ``engine.compress`` of the 48 MiB corpus at the
+   default effort 2, byte-exact through ``gzip.decompress`` and the port's
+   ``engine.decompress``, 768 members, every encode kernel and the lane
+   CRC launched, its size beside the C core's member encoder; 3 timed runs;
+10. the card against the CPU: five members (text, random, runs, zeros, a
+   short tail) encoded on the card and with the plain versions on the CPU
+   at efforts 1, 2, 3 and 5 must be byte-identical.
 
 The last lines are a JSON record of the kernels, the card's name and
 power limit, and the JSON verdict. ``--profile DIR`` adds a torch.profiler
 pass (device time per kernel) and a cProfile pass (host time per
-function) of the main path, written into DIR.
+function) of the decode's and of the encode's main path, written into DIR.
 """
 
 from __future__ import annotations
@@ -73,11 +85,20 @@ KERNELS = {
     "expand": ("expand.cu", "tpu_deflate/codec/resolve_pallas.py:150", "main"),
     "sweep": ("sweep.cu", "tpu_deflate/codec/resolve_pallas.py:353", "main"),
     "crc32_lanes": ("crc32_lanes.cu", "tpu_deflate/kernels/checksum_jax.py:190", "main"),
+    "parse_transfers": ("parse.cu", "tpu_deflate/codec/parse_pallas.py:66", "encode"),
+    "parse_replay": ("parse.cu", "tpu_deflate/codec/parse_pallas.py:82", "encode"),
+    "emit_body": ("emit.cu", "tpu_deflate/codec/emit_pallas.py:67", "encode"),
 }
 PROFILE_KERNELS = (
     "stage_a_kernel", "stage_b_kernel", "stage_dc_kernel", "compact_kernel", "expand_kernel",
     "sweep_kernel", "crc32_lanes_kernel",
 )
+ENCODE_PROFILE_KERNELS = (
+    "parse_transfers_kernel", "parse_replay_kernel", "emit_kernel", "crc32_lanes_kernel",
+)
+ENCODE_REPS = 3
+ENCODE_EFFORTS = (1, 2, 3, 5)
+MEMBER = 64 * 1024
 
 
 def require(cond: bool, msg: str) -> None:
@@ -506,13 +527,14 @@ def phase_on_route(corpus: bytes) -> None:
     require(launches["expand"] > 0 and launches["sweep"] > 0, "the 'on' route launched no resolve")
 
 
-def phase_profile(gz: bytes, outdir: str, timed_median_s: float) -> None:
+def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_median_s: float) -> None:
     """Device time per kernel (torch.profiler) and host time per function
-    (cProfile) of one main-path decode each, written into outdir. The
-    device's busy share is read off the one profiled decode: the summed
-    duration of its device events (kernels and copies, one stream, so
-    they do not overlap) over that same decode's wall time; beside it,
-    the same busy time over the timed median of the unprofiled decodes."""
+    (cProfile) of one call of run() each, written into outdir as
+    {prefix}_device.txt and {prefix}_host.txt. The device's busy share is
+    read off the one profiled call: the summed duration of its device
+    events (kernels and copies, one stream, so they do not overlap) over
+    that same call's wall time; beside it, the same busy time over the
+    timed median of the unprofiled calls."""
     import cProfile
     import io
     import pstats
@@ -520,41 +542,39 @@ def phase_profile(gz: bytes, outdir: str, timed_median_s: float) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_deflate_torch import engine
-
     os.makedirs(outdir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        engine.decompress(gz, engine="cuda")
+        run()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     averages = prof.key_averages()
     table = averages.table(sort_by="cuda_time_total", row_limit=30)
-    with open(os.path.join(outdir, "profile_device.txt"), "w") as f:
+    with open(os.path.join(outdir, f"{prefix}_device.txt"), "w") as f:
         f.write(table)
-    log("profile (device time by op):\n" + "\n".join(table.splitlines()[:26]))
+    log(f"profile of one {label} (device time by op):\n" + "\n".join(table.splitlines()[:26]))
     cuda = torch.autograd.DeviceType.CUDA
     device_events = [e for e in prof.events() if e.device_type == cuda]
     busy_us = sum(e.time_range.elapsed_us() for e in device_events)
-    log(f"profiled decode: wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+    log(f"profiled {label}: wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
         f"idle {100 * (1 - busy_us / 1e6 / wall):.2f} % of that wall; "
         f"idle {100 * (1 - busy_us / 1e6 / timed_median_s):.2f} % of the timed median "
         f"{timed_median_s * 1e3:.3f} ms")
-    for kernel in PROFILE_KERNELS:
+    for kernel in kernels:
         us = [e.time_range.elapsed_us() for e in device_events if kernel in e.name]
         require(bool(us), f"profile shows no {kernel} launch")
-        log(f"main-path {kernel}: {len(us)} launches, device {sum(us):.1f} us total, "
+        log(f"{label} {kernel}: {len(us)} launches, device {sum(us):.1f} us total, "
             f"per launch min {min(us):.1f} median {statistics.median(us):.1f} max {max(us):.1f} us")
     pr = cProfile.Profile()
     pr.enable()
-    engine.decompress(gz, engine="cuda")
+    run()
     torch.cuda.synchronize()
     pr.disable()
     s = io.StringIO()
     pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(45)
-    with open(os.path.join(outdir, "profile_host.txt"), "w") as f:
+    with open(os.path.join(outdir, f"{prefix}_host.txt"), "w") as f:
         f.write(s.getvalue())
-    log("profile (host cumulative):\n" + "\n".join(s.getvalue().splitlines()[:70]))
+    log(f"profile of one {label} (host cumulative):\n" + "\n".join(s.getvalue().splitlines()[:70]))
 
 
 def phase_interop(corpus: bytes, gz: bytes, device) -> None:
@@ -589,6 +609,173 @@ def phase_interop(corpus: bytes, gz: bytes, device) -> None:
     require(reasons[0] is not None and reasons[0] == reasons[1], "corruption Reason differs")
 
 
+def encode_members(corpus: bytes) -> bytes:
+    """Five members of the corpus for the card-against-CPU check: text,
+    random bytes, runs, zeros and a 60-byte text tail (which routes to
+    fixed codes). Offsets follow bench.make_corpus: text from 0, records
+    from 12 MiB, runs from 24 MiB, random bytes from 30 MiB."""
+    mib = 1 << 20
+    return (corpus[:MEMBER] + corpus[30 * mib : 30 * mib + MEMBER]
+            + corpus[24 * mib : 24 * mib + MEMBER] + bytes(MEMBER) + corpus[12 * mib - 60 : 12 * mib])
+
+
+def encode_batch(data: bytes, device) -> dict:
+    """One lane batch of data as the encoder builds it at effort 2 (lazy
+    parse, quality 0): the parse's step tiles, the host entries, K10's
+    inputs and the route."""
+    import numpy as np
+
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
+
+    pend = pe._dispatch_analyze(np.frombuffer(data, np.uint8), True, 0, device)
+    args, tiles, entries, choice = pe.emit_inputs(pend)
+    return {"tiles": tiles, "entries": entries, "choice": choice, "emit": em.body_args(args)}
+
+
+def phase_encode_kernels(corpus: bytes, device, K: Kernels) -> None:
+    """K8, K9 and K10 on the first batch of the encode's main path (64
+    members), then at the edges: step fields of all 1 and all 250, a batch
+    with a lane routed FIXED, and a lane whose bits overflow the word grid."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
+    from tpu_deflate_torch.codec import encode_np
+    from tpu_deflate_torch.codec import parse as pp
+
+    def parse_pair(tiles, entries, shapes, main_path):
+        L, _T, NT = tiles.shape
+        steps = tiles.transpose(1, 2)
+        (transfers,) = K.compare(
+            "parse_transfers", lambda: pp.parse_transfers(tiles), lambda: pp.parse_transfers_plain(tiles),
+            [steps], {**shapes, "out": [L, NT, pp.E_P]}, main_path=main_path,
+        )
+        if entries is None:
+            entries = torch.from_numpy(pp.host_entries(transfers.cpu().numpy())).to(device)
+        (tok,) = K.compare(
+            "parse_replay", lambda: pp.parse_replay(tiles, entries),
+            lambda: pp.parse_replay_plain(tiles, entries), [steps, entries],
+            {**shapes, "entries": [L, NT]}, main_path=main_path,
+        )
+        return tok
+
+    b = encode_batch(corpus[: pe.ENC_LANE_BATCH * MEMBER], device)
+    L, _T, NT = b["tiles"].shape
+    S = NT * pp.T_P
+    tok = parse_pair(b["tiles"], b["entries"], {"steps": [L, S]}, True)
+    log(f"encode batch: {L} members, {int(tok.sum())} tokens of {L * S} positions")
+    args = b["emit"]
+    words, body_end = K.compare(
+        "emit_body", lambda: em.emit_body(*args), lambda: em.emit_body_plain(*args), list(args),
+        {"fields": [L, S], "words": [L, em.EMIT_WORDS]},
+    )
+    log(f"emit: body bits per lane min {int(body_end.min())} max {int(body_end.max())}, "
+        f"routes {np.bincount(b['choice'].cpu().numpy(), minlength=3).tolist()} (dynamic, fixed, stored)")
+
+    for value in (1, pp.PARSE_MAX_STEP):
+        tiles = pp.step_tiles(torch.full((L, S), value, dtype=torch.int32, device=device))
+        parse_pair(tiles, None, {"steps": [L, S], "all": value}, False)
+
+    bf = encode_batch(encode_members(corpus), device)
+    choice = bf["choice"].cpu().numpy()
+    require(pe.ROUTE_FIXED in choice, f"no lane routed FIXED: {choice.tolist()}")
+    fargs = bf["emit"]
+    K.compare("emit_body", lambda: em.emit_body(*fargs), lambda: em.emit_body_plain(*fargs), list(fargs),
+              {"fields": list(fargs[0].shape), "routes": choice.tolist()}, main_path=False)
+
+    rng = torch.Generator(device="cpu").manual_seed(4)
+    sym = torch.randint(0, 256, (1, S), generator=rng, dtype=torch.int32).to(device)
+    ones, zeros = torch.ones_like(sym), torch.zeros_like(sym)
+    ll = torch.from_numpy(encode_np.pack_codes(np.full((1, 288), 15, np.int64), 15)).to(device)
+    dc = torch.zeros((1, 30), dtype=torch.int32, device=device)
+    hdr = torch.tensor([77], dtype=torch.int32, device=device)
+    oargs = (sym, ones, zeros, zeros, zeros, zeros, zeros, ll, dc, hdr)
+    _w, end = K.compare("emit_body", lambda: em.emit_body(*oargs), lambda: em.emit_body_plain(*oargs),
+                        list(oargs), {"15-bit literals": [1, S]}, main_path=False)
+    require(int(end[0]) == 77 + 15 * S > 32 * em.EMIT_WORDS, "overflow lane's body end")
+
+
+def member_routes(gz: bytes) -> tuple[int, dict]:
+    """(member count, {dynamic, fixed, stored: count}) from each member's BTYPE."""
+    import collections
+
+    import numpy as np
+
+    from tpu_deflate_torch.codec import decode_np
+
+    buf = np.frombuffer(gz, np.uint8)
+    members = decode_np.split_members(buf)
+    require(members is not None, "encoded stream lacks the member index")
+    names = {0: "stored", 1: "fixed", 2: "dynamic", 3: "reserved"}
+    routes = collections.Counter(names[(int(buf[m.payload_start]) >> 1) & 3] for m in members)
+    return len(members), dict(routes)
+
+
+def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
+    """engine.compress of the corpus at the default effort: round trip
+    through gzip and the port's decode, every encode kernel launched, then
+    timed runs."""
+    import torch
+
+    from tpu_deflate_torch import _build, engine, native
+
+    _build.reset_launches()
+    t0 = time.monotonic()
+    gz = engine.compress(corpus, engine="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _build.all_launches()
+    log(f"encode run 1: {wall:.3f} s, {len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
+    for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the encode")
+    require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
+    require(engine.decompress(gz, engine="cuda") == corpus, "the port's decode of the encoded corpus differs")
+    n_members, routes = member_routes(gz)
+    require(n_members == len(corpus) // MEMBER, f"{n_members} members")
+    native_size = len(native.compress_members_native(corpus))
+    log(f"encode: {len(corpus)} -> {len(gz)} bytes (ratio {len(gz) / len(corpus):.4f}), {n_members} members "
+        f"{json.dumps(routes)}; the C core's member encoder: {native_size} bytes (ratio "
+        f"{native_size / len(corpus):.4f}); byte-exact through gzip.decompress and engine.decompress")
+    walls = []
+    for _ in range(ENCODE_REPS):
+        t0 = time.monotonic()
+        out = engine.compress(corpus, engine="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        require(out == gz, "encode output differs between runs")
+    med = statistics.median(walls)
+    log(f"encode {ENCODE_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e6:.2f} MB/s, "
+        f"min {min(walls):.4f} s, max {max(walls):.4f} s")
+    log(f"gpu: {gpu_name_power()}")
+    return launches, med
+
+
+def phase_encode_cpu(corpus: bytes, device) -> None:
+    """Five members encoded on the card and on the CPU (plain versions)
+    at each effort, and one full lane batch (the first 64 members) at
+    effort 2: the outputs must be byte-identical."""
+    import torch
+
+    from tpu_deflate_torch.codec import encode as pe
+
+    five = encode_members(corpus)
+    cases = [("five members", five, e) for e in ENCODE_EFFORTS]
+    cases.append((f"{pe.ENC_LANE_BATCH} members", corpus[: pe.ENC_LANE_BATCH * MEMBER], 2))
+    for what, data, effort in cases:
+        t0 = time.monotonic()
+        card = pe.compress_members(data, device=device, effort=effort)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        cpu = pe.compress_members(data, device=torch.device("cpu"), effort=effort)
+        t2 = time.monotonic()
+        require(card == cpu, f"{what}, effort {effort}: card and CPU outputs differ")
+        require(gzip.decompress(card) == data, f"{what}, effort {effort}: round trip")
+        log(f"{what}, effort {effort}: card and CPU byte-identical, {len(card)} bytes, routes "
+            f"{json.dumps(member_routes(card)[1])}; card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="write device and host profiles into DIR")
@@ -608,7 +795,7 @@ def main(argv: list[str]) -> int:
     phase_build()
 
     import bench
-    from tpu_deflate_torch import native
+    from tpu_deflate_torch import engine, native
 
     t0 = time.monotonic()
     corpus = bench.make_corpus(CORPUS_MB)
@@ -622,10 +809,19 @@ def main(argv: list[str]) -> int:
     phase_resolve_kernels(gz, corpus, device, K)
     launches, timed_median_s = phase_main_path(corpus, gz, n_huff)
     if args.profile:
-        phase_profile(gz, args.profile, timed_median_s)
+        phase_profile(lambda: engine.decompress(gz, engine="cuda"), "decode", args.profile, "profile",
+                      PROFILE_KERNELS, timed_median_s)
     off_launches = phase_off_route(corpus, gz)
     phase_on_route(corpus)
     phase_interop(corpus, gz, device)
+
+    phase_encode_kernels(corpus, device, K)
+    enc_launches, enc_median_s = phase_encode_main(corpus)
+    if args.profile:
+        phase_profile(lambda: engine.compress(corpus, engine="cuda"), "encode", args.profile,
+                      "profile_encode", ENCODE_PROFILE_KERNELS, enc_median_s)
+    phase_encode_cpu(corpus, device)
+    path_launches = {"main": launches, "off": off_launches, "encode": enc_launches}
 
     kernels = [
         {
@@ -634,7 +830,7 @@ def main(argv: list[str]) -> int:
             "source": CSRC + src,
             "replaces": tpu,
             "path": path,
-            "launches": (launches if path == "main" else off_launches)[name],
+            "launches": path_launches[path][name],
             "max_abs_err": K.rec[name]["max_abs_err"],
             "ms": K.rec[name]["ms"],
             "plain_ms": K.rec[name]["plain_ms"],

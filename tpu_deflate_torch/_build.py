@@ -17,8 +17,9 @@ ints from ``tensor.data_ptr()`` and ``torch.cuda.current_stream()
 
 Each wrapper runs its kernel on CUDA tensors and the plain PyTorch
 version beside it on CPU tensors; a CUDA tensor never reaches a plain
-version. ``LAUNCHES`` counts kernel launches per wrapper (plain-version
-calls do not count).
+version. ``LAUNCHES`` (decode kernels and the lane CRC) and
+``ENCODE_LAUNCHES`` (encoder kernels) count kernel launches per wrapper
+(plain-version calls do not count).
 """
 
 from __future__ import annotations
@@ -52,21 +53,32 @@ SIGNATURES = {
     "td_expand": [_P, _P, _P, _P, _I, _I, _P],
     "td_sweep": [_P, _P, _P, _P, _P, _I, _P],
     "td_crc32_lanes": [_P, _P, _P, _I, _I, _I, _P],
+    "td_parse_transfers": [_P, _P, _I, _I, _P],
+    "td_parse_replay": [_P, _P, _P, _I, _I, _P],
+    "td_emit_body": [_P] * 12 + [_I, _I, _P],
 }
 
-# Kernel launches per wrapper since process start (or the last reset).
+# Kernel launches per wrapper since process start (or the last reset): the
+# decode's kernels and the lane CRC, then the encoder's kernels.
 LAUNCHES = {
     "stage_a": 0, "stage_b": 0, "stage_dc": 0, "compact_flat": 0, "compact_any": 0,
     "expand": 0, "sweep": 0, "crc32_lanes": 0,
 }
+ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0}
 
 _lib = None
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ENCODE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def all_launches() -> dict:
+    """Both launch counts as one dict (a copy)."""
+    return {**LAUNCHES, **ENCODE_LAUNCHES}
 
 
 def _sources() -> list[str]:

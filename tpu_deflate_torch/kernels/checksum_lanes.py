@@ -1,6 +1,6 @@
 """Per-lane CRC-32 of resolved rows on the device (counterpart of
 ``tpu_deflate.kernels.checksum_jax``: ``crc32_lanes_raw8``,
-``crc_matrices8``, ``crc32_finish_leftaligned``).
+``crc_matrices8``, ``crc32_finish_leftaligned``, ``crc32_members``).
 
 :func:`crc32_lanes_raw8` returns, for each row of an (L, W) uint8 tensor
 (W a power-of-two multiple of 512 bytes), the raw CRC register (init 0, no
@@ -142,3 +142,14 @@ def crc32_finish_leftaligned(raw: np.ndarray, lengths: np.ndarray, width: int) -
     ones = np.full(lengths.shape, 0xFFFFFFFF, np.uint32)
     shifted = _apply_bits(ones, 8 * lengths, _op_shift_pow2)
     return r ^ shifted ^ np.uint32(0xFFFFFFFF)
+
+
+def crc32_members(rows: torch.Tensor, lengths: np.ndarray) -> np.ndarray:
+    """Final CRC-32 of each member row (counterpart of
+    ``checksum_jax.crc32_members``): rows (L, W) uint8 hold each member's
+    first ``lengths[i]`` bytes, zero after them, as the encoder's padded
+    batch does. The lane CRC runs where the rows lie (the kernel on the
+    card, the plain version on the CPU); the host strips the zero tails.
+    Returns (L,) uint32."""
+    raw = crc32_lanes_raw8(rows)
+    return crc32_finish_leftaligned(raw.cpu().numpy(), lengths, rows.shape[1])
