@@ -9,8 +9,13 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 2. build: every CUDA kernel of tpu_deflate_torch/csrc, from source (one
    nvcc per source, in parallel);
 3. kernels: every kernel against its plain PyTorch version on the card,
-   at the main path's shapes: the wave kernels (K1-K4, K7) on one real
-   wave (64 members of the synthetic corpus at their payload bucket), the
+   at the main path's shapes: the wave kernels (K1 with its table kernel,
+   K2-K4, K7) on one real wave (64 members of the synthetic corpus at
+   their payload bucket; the share of its positions that K1 decodes
+   through the ladders is printed), K1 and its tables again on waves with
+   11-15-bit codes, fixed Huffman codes, a single distance code, an empty
+   distance code, a garbage lane and payloads ending inside the last tile,
+   the
    resolve kernels (K5 expand, K6 sweep) and the lane CRC on one resolve
    batch of 256 members x 65536 slots built from the corpus's own tokens,
    K5/K6 on lanes at the resolve's edges (errors, an empty lane, regions
@@ -34,8 +39,11 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 8. encode kernels: K8 parse transfers, K9 parse replay and K10 emit body
    against their plain versions (exact equality) on the first batch of
    the encode's main path (64 members x 64 KiB of the corpus), then on
-   step fields of all 1 and all 250, a batch with a lane routed FIXED and
-   a lane of 15-bit literal codes whose bits overflow the word grid;
+   step fields of all 1 and all 250, a batch with a lane routed FIXED, a
+   lane of 15-bit literal codes whose bits overflow the word grid, lanes
+   whose segments carry no bits, a width that is not a multiple of K10's
+   segment, and slots of more than 31 bits; every lane of the first batch
+   has a segment that starts inside a word;
 9. the encode's main path: ``engine.compress`` of the 48 MiB corpus at the
    default effort 2, byte-exact through ``gzip.decompress`` and the port's
    ``engine.decompress``, 768 members, every encode kernel and the lane
@@ -77,6 +85,7 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 CSRC = "tpu_deflate_torch/csrc/"
 # kernel -> (its source, the TPU kernel it replaces, the path that launches it)
 KERNELS = {
+    "stage_a_tables": ("stage_a.cu", "tpu_deflate/codec/decode_pallas.py:110", "main"),
     "stage_a": ("stage_a.cu", "tpu_deflate/codec/decode_pallas.py:110", "main"),
     "stage_b": ("stage_b.cu", "tpu_deflate/codec/decode_pallas.py:363", "main"),
     "stage_dc": ("stage_dc.cu", "tpu_deflate/codec/decode_pallas.py:413", "main"),
@@ -90,7 +99,7 @@ KERNELS = {
     "emit_body": ("emit.cu", "tpu_deflate/codec/emit_pallas.py:67", "encode"),
 }
 PROFILE_KERNELS = (
-    "stage_a_kernel", "stage_b_kernel", "stage_dc_kernel", "compact_kernel", "expand_kernel",
+    "stage_a_tables_kernel", "stage_a_kernel", "stage_b_kernel", "stage_dc_kernel", "compact_kernel", "expand_kernel",
     "sweep_kernel", "crc32_lanes_kernel",
 )
 ENCODE_PROFILE_KERNELS = (
@@ -99,6 +108,7 @@ ENCODE_PROFILE_KERNELS = (
 ENCODE_REPS = 3
 ENCODE_EFFORTS = (1, 2, 3, 5)
 MEMBER = 64 * 1024
+EDGE_P = 8192  # payload bytes per lane of K1's edge waves
 
 
 def require(cond: bool, msg: str) -> None:
@@ -254,10 +264,17 @@ def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
     log(f"wave: {len(group)} members in bucket P={P}: L={L} NT={NT} k1={k1_wave}")
 
     meta = dk.build_meta(w)
+    (tables,) = K.compare(
+        "stage_a_tables", lambda: dk.stage_a_tables(meta), lambda: dk.stage_a_tables_plain(meta),
+        [meta], {"meta": [L, dk.META_W], "out": [L, dk.TAB_W]},
+    )
     dt, tt = K.compare(
         "stage_a", lambda: dk.stage_a(w["grid"], meta), lambda: dk.stage_a_plain(w["grid"], meta),
         [w["grid"], meta], {"grid": [L, 64, NTp], "out": [L, 512, NT]},
     )
+    n_long, n_pos = long_route(w["grid"], tables)
+    log(f"stage_a long route on the corpus wave: {n_long} of {n_pos} positions "
+        f"({100 * n_long / n_pos:.4f} %)")
     (transfers,) = K.compare(
         "stage_b", lambda: dk.stage_b(dt), lambda: dk.stage_b_plain(dt), [dt],
         {"delta": [L, 512, NT], "out": [L, NT, 48]},
@@ -290,6 +307,112 @@ def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
         "compact_any", lambda: dk.compact_any(lit_in), lambda: dk.compact_plain(lit_in, None),
         [lit_in], {"tok": [L, NT * k1_wave]},
     )
+
+
+def long_route(grid, tables) -> tuple[int, int]:
+    """(positions that K1 decodes through the ladders, all positions) of a
+    wave: a long litlen entry, or a match whose distance entry is long, read
+    from the tables as the kernel reads them (indexed by stream bits)."""
+    import torch
+
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    vR, vR2 = dk.stage_a_windows(grid)
+
+    def rev32(x):
+        return sum(dk._rev8((x >> (8 * k)) & 255) << (24 - 8 * k) for k in range(4))
+
+    nat = rev32(vR) | ((rev32(vR2) & 0xFFFF) << 32)  # stream bits pos..pos+47
+    L = vR.shape[0]
+    tab = tables.to(torch.int64)
+    le = tab[:, : dk.TAB_N].gather(1, (nat & (dk.TAB_N - 1)).view(L, -1)).view_as(nat)
+    match = ((le >> 4) & 7) == dk.K_MATCH
+    d1 = (le & 15) + torch.where(match, (le >> 16) & 7, 0)
+    de = tab[:, dk.TAB_N :].gather(1, ((nat >> d1) & (dk.TAB_N - 1)).view(L, -1)).view_as(nat)
+    is_long = ((le & dk.E_LONG) != 0) | (match & ((de & dk.E_LONG) != 0))
+    return int(is_long.sum()), is_long.numel()
+
+
+def skewed_lengths(rng, L: int, n_sym: int, width: int, ratio: float):
+    """(L, width) complete code lengths with many 11-15-bit codes:
+    geometric frequencies over a random symbol order, limited to 15 bits."""
+    import numpy as np
+
+    from tpu_deflate_torch.kernels.huffman import huffman_lengths_batch
+
+    freqs = (1e12 * ratio ** np.stack([rng.permutation(n_sym) for _ in range(L)])).astype(np.int64) + 1
+    out = np.zeros((L, width), np.int32)
+    out[:, :n_sym] = huffman_lengths_batch(freqs, 15)
+    return out
+
+
+def lengths_wave(ll, d, dist_empty, rng, row_bits=None) -> dict:
+    """A wave of random payload bytes under the given code lengths (L, 288)
+    and (L, 32), built as wave_prep builds it from a header parse."""
+    import numpy as np
+
+    from tpu_deflate_torch.codec import decode_np
+    from tpu_deflate_torch.codec import wave_prep as wp
+
+    L = ll.shape[0]
+    rows = rng.integers(0, 256, (L, EDGE_P), dtype=np.uint8)
+    bits = np.full(L, 8 * EDGE_P, np.int64) if row_bits is None else np.asarray(row_bits, np.int64)
+    hp = decode_np.HeaderParse(ll.astype(np.int32), d.astype(np.int32), np.asarray(dist_empty, bool),
+                               np.zeros(L, np.int64), np.full(L, 2, np.int32), np.ones(L, bool))
+    return wp._wave_arrays(rows, bits, hp)[0]
+
+
+def k1_edge_waves(gz: bytes) -> dict:
+    """K1's edge waves (NumPy wave dicts): (a) litlen and distance trees
+    with 11-15-bit codes; (b) fixed Huffman, with the reserved litlen
+    286/287 and distance 30/31 codes; (c) a single distance code (with the
+    header parse's completion at symbol 31) and an empty distance code; (d)
+    corpus members and a garbage lane, random bytes behind a valid header;
+    (e) payloads that end inside the last tile and the one before it."""
+    import numpy as np
+
+    from tpu_deflate_torch.codec import wave_prep as wp
+    from tpu_deflate_torch.format.tables import FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS
+
+    rng = np.random.default_rng(23)
+    ll_one = skewed_lengths(rng, 2, 286, 288, 0.97)
+    d_one = np.zeros((2, 32), np.int32)
+    d_one[0, 7] = d_one[0, 31] = 1
+    payloads = [p for _m, p in huffman_members(gz)[:3]]
+    payloads.append(payloads[0][:64] + rng.integers(0, 256, 4000, dtype=np.uint8).tobytes())
+    return {
+        "long codes": lengths_wave(skewed_lengths(rng, 4, 286, 288, 0.93),
+                                   skewed_lengths(rng, 4, 30, 32, 0.55), [False] * 4, rng),
+        "fixed Huffman": lengths_wave(np.tile(FIXED_LITLEN_LENGTHS, (2, 1)),
+                                      np.tile(FIXED_DIST_LENGTHS, (2, 1)), [False] * 2, rng),
+        "one distance code, empty distance code": lengths_wave(ll_one, d_one, [False, True], rng),
+        "garbage lane": wp._prep_wave(payloads, 4),
+        "ends inside the last tiles": lengths_wave(
+            skewed_lengths(rng, 2, 286, 288, 0.9), skewed_lengths(rng, 2, 30, 32, 0.7), [False] * 2,
+            rng, row_bits=[8 * EDGE_P - 37, 8 * EDGE_P - 512 - 300]),
+    }
+
+
+def phase_k1_edges(gz: bytes, device, K: Kernels) -> None:
+    """K1 and its table kernel against their plain versions on the edge
+    waves."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import wave_prep as wp
+
+    for what, wave in k1_edge_waves(gz).items():
+        w = wp.wave_to_tensors(wave, device)
+        meta = dk.build_meta(w)
+        L, _, NTp = w["grid"].shape
+        (tables,) = K.compare(
+            "stage_a_tables", lambda: dk.stage_a_tables(meta), lambda: dk.stage_a_tables_plain(meta),
+            [meta], {"edge": what, "meta": [L, dk.META_W]}, main_path=False,
+        )
+        K.compare(
+            "stage_a", lambda: dk.stage_a(w["grid"], meta), lambda: dk.stage_a_plain(w["grid"], meta),
+            [w["grid"], meta], {"edge": what, "grid": [L, 64, NTp]}, main_path=False,
+        )
+        n_long, n_pos = long_route(w["grid"], tables)
+        log(f"stage_a edge '{what}': long route {n_long} of {n_pos} positions")
 
 
 def chain_depth(y0, src) -> tuple[int, float]:
@@ -455,17 +578,36 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import decode_v2 as pv2
 
-    dk.reset_launches()
-    t0 = time.monotonic()
-    out = engine.decompress(gz, engine="cuda")
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = dict(dk.LAUNCHES)
+    waves = []  # K1's (grid, meta) shapes, in launch order
+    stage_a = dk.stage_a
+
+    def recording_stage_a(grid, meta):
+        waves.append((tuple(grid.shape), tuple(meta.shape)))
+        return stage_a(grid, meta)
+
+    dk.stage_a = recording_stage_a
+    try:
+        dk.reset_launches()
+        t0 = time.monotonic()
+        out = engine.decompress(gz, engine="cuda")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(dk.LAUNCHES)
+    finally:
+        dk.stage_a = stage_a
     stats = dict(pv2.LAST_DECODE_STATS)
     require(out == corpus, "main-path output differs from the corpus")
     log(f"main path run 1: {wall:.3f} s, {len(corpus) / wall / 1e9:.4f} GB/s, {len(gz)} compressed bytes")
     log(f"main path stats: {json.dumps(stats)}")
     log(f"launches in the main-path run: {json.dumps(launches)}")
+    total_us = 0.0
+    for i, ((L, _wb, NTp), meta_shape) in enumerate(waves):
+        NT = NTp - 1
+        nbytes = L * 64 * NTp + 4 * meta_shape[0] * meta_shape[1] + 2 * 4 * L * 512 * NT
+        us = nbytes / HBM_BYTES_PER_S * 1e6
+        total_us += us
+        log(f"stage_a main-path wave {i}: L={L} NT={NT}, {nbytes} bytes, bound {us:.2f} us (bytes)")
+    log(f"stage_a main-path bound over {len(waves)} launches: {total_us:.2f} us")
     for k, (_src, _tpu, path) in KERNELS.items():
         if path == "main":
             require(launches[k] > 0, f"kernel {k} was not launched on the main path")
@@ -564,7 +706,8 @@ def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_medi
         us = [e.time_range.elapsed_us() for e in device_events if kernel in e.name]
         require(bool(us), f"profile shows no {kernel} launch")
         log(f"{label} {kernel}: {len(us)} launches, device {sum(us):.1f} us total, "
-            f"per launch min {min(us):.1f} median {statistics.median(us):.1f} max {max(us):.1f} us")
+            f"per launch min {min(us):.1f} median {statistics.median(us):.1f} max {max(us):.1f} us"
+            + (f", in order {[round(u, 1) for u in us]}" if len(us) <= 16 else ""))
     pr = cProfile.Profile()
     pr.enable()
     run()
@@ -696,6 +839,51 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels) -> None:
                         list(oargs), {"15-bit literals": [1, S]}, main_path=False)
     require(int(end[0]) == 77 + 15 * S > 32 * em.EMIT_WORDS, "overflow lane's body end")
 
+    # Lanes whose segments carry no bits: all of lane 0, segments 1 and 2 of lane 1.
+    seg = em.EMIT_SEGMENT
+    eargs = [t[:2].clone() for t in args]
+    eargs[1][0] = 0
+    eargs[1][1, seg : 3 * seg] = 0
+    K.compare("emit_body", lambda: em.emit_body(*eargs), lambda: em.emit_body_plain(*eargs), eargs,
+              {"empty segments": [2, S]}, main_path=False)
+    # A width that is not a multiple of the segment.
+    cut = 2 * seg + em.EMIT_CHUNK
+    cargs = [t[:3, :cut].contiguous() for t in args[:7]] + [t[:3] for t in args[7:]]
+    K.compare("emit_body", lambda: em.emit_body(*cargs), lambda: em.emit_body_plain(*cargs), cargs,
+              {"fields": [3, cut]}, main_path=False)
+    # Length slots of more than 31 bits (25 extra bits behind the code),
+    # which the kernel places one by one.
+    wargs = [t[:2].clone() for t in args]
+    wargs[3][:] = torch.randint(0, 1 << 25, wargs[3].shape, generator=rng, dtype=torch.int32).to(device)
+    wargs[2][:] = 25
+    K.compare("emit_body", lambda: em.emit_body(*wargs), lambda: em.emit_body_plain(*wargs), wargs,
+              {"slots over 31 bits": [2, S]}, main_path=False)
+    for what, a, every in (("first batch", args, True), ("cut width", cargs, True),
+                           ("FIXED batch", fargs, False)):
+        starts = segment_starts(a)
+        inside = ((starts & 31) != 0).any(dim=1)
+        log(f"emit segments, {what}: {int(inside.sum())} of {starts.shape[0]} lanes have a segment "
+            "starting inside a word")
+        require(bool(inside.all()) or not every, f"emit {what}: a lane whose segments all start on a word")
+
+
+def segment_starts(args):
+    """(L, segments) first bit of each of K10's segments, from each
+    position's bit count as the plain version counts it."""
+    import torch
+
+    from tpu_deflate_torch.codec import emit as em
+
+    sym, flags, leb, _lev, dsym, deb, _dev, ll, dc, hdr = args
+    i64 = torch.int64
+    tok, match = (flags & 1) != 0, (flags & 2) != 0
+    b0 = torch.where(tok, ll.to(i64).gather(1, sym.clamp(0, 287).to(i64)) >> 16, 0)
+    b2 = dc.to(i64).gather(1, dsym.clamp(0, 29).to(i64)) >> 16
+    nb = b0 + torch.where(match, leb.to(i64) + b2 + deb.to(i64), 0)
+    ends = hdr.to(i64)[:, None] + torch.cumsum(nb, dim=1)
+    bounds = torch.arange(em.EMIT_SEGMENT, nb.shape[1], em.EMIT_SEGMENT, device=nb.device)
+    return torch.cat([hdr.to(i64)[:, None], ends[:, bounds - 1]], dim=1)
+
 
 def member_routes(gz: bytes) -> tuple[int, dict]:
     """(member count, {dynamic, fixed, stored: count}) from each member's BTYPE."""
@@ -806,6 +994,7 @@ def main(argv: list[str]) -> int:
 
     K = Kernels()
     phase_wave_kernels(gz, device, K)
+    phase_k1_edges(gz, device, K)
     phase_resolve_kernels(gz, corpus, device, K)
     launches, timed_median_s = phase_main_path(corpus, gz, n_huff)
     if args.profile:

@@ -201,7 +201,7 @@ def test_wave_k1_matches_reference():
     for mtb in range(1, 20):
         assert v2._lane_k1(mtb) == wp._lane_k1(mtb)
     assert dk.LAUNCHES.keys() == {
-        "stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any",
+        "stage_a_tables", "stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any",
         "expand", "sweep", "crc32_lanes",
     }
 

@@ -46,7 +46,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (all return cudaError_t as int).
 SIGNATURES = {
-    "td_stage_a": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "td_stage_a_tables": [_P, _P, _I, _P],
+    "td_stage_a": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "td_stage_b": [_P, _P, _I, _I, _P],
     "td_stage_dc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "td_compact": [_P, _P, _P, _I, _I, _I, _P],
@@ -55,14 +56,14 @@ SIGNATURES = {
     "td_crc32_lanes": [_P, _P, _P, _I, _I, _I, _P],
     "td_parse_transfers": [_P, _P, _I, _I, _P],
     "td_parse_replay": [_P, _P, _P, _I, _I, _P],
-    "td_emit_body": [_P] * 12 + [_I, _I, _P],
+    "td_emit_body": [_P] * 13 + [_I, _I, _P],
 }
 
 # Kernel launches per wrapper since process start (or the last reset): the
 # decode's kernels and the lane CRC, then the encoder's kernels.
 LAUNCHES = {
-    "stage_a": 0, "stage_b": 0, "stage_dc": 0, "compact_flat": 0, "compact_any": 0,
-    "expand": 0, "sweep": 0, "crc32_lanes": 0,
+    "stage_a_tables": 0, "stage_a": 0, "stage_b": 0, "stage_dc": 0, "compact_flat": 0,
+    "compact_any": 0, "expand": 0, "sweep": 0, "crc32_lanes": 0,
 }
 ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0}
 

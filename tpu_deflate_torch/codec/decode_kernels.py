@@ -1,5 +1,7 @@
-"""The decode wave's kernels: stage A (K1), stage B (K2), stage DC (K3) and
-level-2 compaction (K4, with K7 as its no-map mode).
+"""The decode wave's kernels: stage A (K1, which on the card first builds
+each lane's decode tables with a kernel of its own, ``stage_a_tables``),
+stage B (K2), stage DC (K3) and level-2 compaction (K4, with K7 as its
+no-map mode).
 
 Each wrapper checks its inputs, then runs the hand-written CUDA kernel of
 ``tpu_deflate_torch/csrc/`` on CUDA tensors, or the plain PyTorch version
@@ -52,6 +54,21 @@ from .wave_prep import (
 _EOB_ADV = 4096
 _ERR_ADV = 8192
 _M32 = 0xFFFFFFFF
+
+# K1's decode tables (csrc/stage_a.cu): per lane TAB_N litlen entries then
+# TAB_N distance entries, indexed by the next TAB_BITS stream bits in stream
+# order (the ladder reads them reversed). Litlen entry: code length (bits
+# 0-3), class K_* (bits 4-6, in the reference's order of precedence),
+# payload (bits 16-31: literal rank, else match descriptor). Distance entry:
+# code length (0-3), found (4), reserved symbol 30/31 (5), extra bits (6-9),
+# distance base - 1 (16-31). E_LONG marks a prefix that the kernel decodes
+# through the ladders.
+TAB_BITS = 10
+TAB_N = 1 << TAB_BITS
+TAB_W = 2 * TAB_N
+K_LIT, K_MATCH, K_EOB, K_RES, K_MISSING = range(5)
+E_DFOUND, E_DRES = 1 << 4, 1 << 5
+E_LONG = 1 << 15
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +147,74 @@ def _rev_low16(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return x >> (16 - k)
 
 
+def _col(m: torch.Tensor, c: int, like: torch.Tensor) -> torch.Tensor:
+    """Meta column c (signed int32 values in int64), broadcast per lane
+    against ``like`` (lanes first)."""
+    return m[:, c].view(-1, *([1] * (like.dim() - 1)))
+
+
+def _ladder(m, v, sat_base, pack_base, nlive_col, extra=()):
+    """Bounds-ladder decode of reversed windows v (uint32 in int64, lanes
+    first): (code length, canonical index, found, the extra accumulators,
+    mask of the passed thresholds whose step adds to an accumulator).
+    ``extra`` holds (init column, pack base) pairs of accumulators riding
+    the same compares."""
+    acc = torch.zeros_like(v)
+    mask = torch.zeros_like(v)
+    accs = [_col(m, init, v).expand_as(v) for init, _ in extra]
+    for l in range(1, 15):
+        ge = v >= (_col(m, sat_base + l, v) & _M32)
+        acc = torch.where(ge, acc + _col(m, pack_base + l, v), acc)
+        accs = [torch.where(ge, a + _col(m, p + l, v), a) for a, (_, p) in zip(accs, extra)]
+        moves = _col(m, pack_base + l, v) != 0
+        for _, p in extra:
+            moves = moves | (_col(m, p + l, v) != 0)
+        mask = mask | ((ge & moves).to(torch.int64) << l)
+    acc = wrap_int32(acc)
+    cnt = acc >> 20
+    ln = 1 + cnt
+    off = (acc & 0xFFFFF) - (cnt << 16)
+    idx = wrap_int32(_shr(v, 31 - cnt) + off)
+    return ln, idx, idx < _col(m, nlive_col, v), accs, mask
+
+
+def _litlen(m: torch.Tensor, vR: torch.Tensor) -> dict:
+    """The litlen code of reversed windows vR through the class ladder
+    (``wave_prep.class_ladder_tables``): code length, found, literal, EOB,
+    reserved length, match, literal rank, match descriptor (run extra bits |
+    run base - 3) and the mask of passed thresholds."""
+    ln, lidx, lfound, (acc2, acc3), mask = _ladder(
+        m, vR, MA_LLSAT, MA_LLPACK, MA_LLNLIVE, ((MA_INIT2, MA_LLP2), (MA_INIT3, MA_LLP3))
+    )
+    lnb = ln << 12
+    lit_end = ((acc2 >> 16) & 0xFFFF) - lnb
+    res_start = (acc2 & 0xFFFF) - lnb
+    lit_off = ((acc3 >> 16) & 0xFFFF) - lnb
+    mrank_off = (acc3 & 0xFFFF) - lnb
+
+    is_lit = lfound & (lidx < lit_end)
+    is_eob = lfound & (lidx == _col(m, MA_EOB, vR))
+    reserved_len = lfound & (lidx >= res_start)
+    is_match = lfound & ~is_lit & ~is_eob & ~reserved_len
+    mrank = (lidx + mrank_off) & 31
+    mdesc = torch.zeros_like(lidx)
+    for bbit in range(11):
+        mdesc = mdesc | (((_col(m, MA_MW + bbit, vR) & _M32) >> mrank) & 1) << bbit
+    return {"ln": ln, "found": lfound, "lit": is_lit, "eob": is_eob, "res": reserved_len,
+            "match": is_match, "lit_rank": lidx + lit_off, "mdesc": mdesc, "mask": mask}
+
+
+def _dist(m: torch.Tensor, vD: torch.Tensor) -> dict:
+    """The distance code of reversed windows vD: code length, found,
+    distance symbol and the mask of passed thresholds."""
+    dln, didx, dfound, _, mask = _ladder(m, vD, MA_DSAT, MA_DPACK, MA_DNLIVE)
+    d5 = didx.clamp(min=0) & 31
+    ds = torch.zeros_like(didx)
+    for bbit in range(5):
+        ds = ds | ((((_col(m, MA_DPERM + bbit, vD) & _M32) >> d5) & 1) << bbit)
+    return {"ln": dln, "found": dfound, "ds": ds, "mask": mask}
+
+
 def stage_a_plain(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch stage A: grid (L, 64, NT+1) uint8, meta (L, 128)
     int32 -> (delta, token), both (L, 512, NT) int32. Position
@@ -142,71 +227,18 @@ def stage_a_plain(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor,
     def col(c: int) -> torch.Tensor:  # signed int32 column, broadcast per lane
         return m[:, c].view(L, 1, 1)
 
-    def ucol(c: int) -> torch.Tensor:  # the same column as uint32
-        return col(c) & _M32
-
-    g = _rev8(grid.to(torch.int64))
-    q = torch.arange(64, device=dev)
-
-    def brow(k: int) -> torch.Tensor:
-        """(L, 64, NT): reversed byte q+k of tile t (spilling into t+1)."""
-        rows = g[:, (q + k) & 63, :]
-        spill = ((q + k) >> 6).view(1, 64, 1) == 1
-        return torch.where(spill, rows[:, :, 1:], rows[:, :, :NT])
-
-    b = [brow(k) for k in range(9)]
-    u32a = ((b[0] << 24) | (b[1] << 16) | (b[2] << 8) | b[3]).unsqueeze(2)
-    u32b = ((b[4] << 24) | (b[5] << 16) | (b[6] << 8) | b[7]).unsqueeze(2)
-    r = torch.arange(8, device=dev).view(1, 1, 8, 1)
-    # Reversed windows: stream bit p at bit 31 of vR, p+32 at bit 31 of vR2.
-    vR = (((u32a << r) & _M32) | (b[4].unsqueeze(2) >> (8 - r))).reshape(L, W_P, NT)
-    vR2 = (((u32b << r) & _M32) | (b[8].unsqueeze(2) >> (8 - r))).reshape(L, W_P, NT)
-
-    def ladder(v, sat_base, pack_base, nlive_col, extra=()):
-        acc = torch.zeros_like(v)
-        accs = [col(init).expand_as(v) for init, _ in extra]
-        for l in range(1, 15):
-            ge = v >= ucol(sat_base + l)
-            acc = torch.where(ge, acc + col(pack_base + l), acc)
-            accs = [torch.where(ge, a + col(p + l), a) for a, (_, p) in zip(accs, extra)]
-        acc = wrap_int32(acc)
-        cnt = acc >> 20
-        ln = 1 + cnt
-        off = (acc & 0xFFFFF) - (cnt << 16)
-        idx = wrap_int32(_shr(v, 31 - cnt) + off)
-        return ln, idx, idx < col(nlive_col), accs
-
-    ln, lidx, lfound, (acc2, acc3) = ladder(
-        vR, MA_LLSAT, MA_LLPACK, MA_LLNLIVE, ((MA_INIT2, MA_LLP2), (MA_INIT3, MA_LLP3))
-    )
-    lnb = ln << 12
-    lit_end = ((acc2 >> 16) & 0xFFFF) - lnb
-    res_start = (acc2 & 0xFFFF) - lnb
-    lit_off = ((acc3 >> 16) & 0xFFFF) - lnb
-    mrank_off = (acc3 & 0xFFFF) - lnb
-
-    is_lit = lfound & (lidx < lit_end)
-    is_eob = lfound & (lidx == col(MA_EOB))
-    reserved_len = lfound & (lidx >= res_start)
-    is_match = lfound & ~is_lit & ~is_eob & ~reserved_len
-
-    lit_rank = lidx + lit_off
-    mrank = (lidx + mrank_off) & 31
-    mdesc = torch.zeros_like(lidx)
-    for bbit in range(11):
-        mdesc = mdesc | (((ucol(MA_MW + bbit) >> mrank) & 1) << bbit)
-    run_bits = torch.where(is_match, mdesc & 7, 0)
-    pay = mdesc >> 3  # run base - 3
+    vR, vR2 = stage_a_windows(grid)
+    c = _litlen(m, vR)
+    ln, is_lit, is_eob, is_match = c["ln"], c["lit"], c["eob"], c["match"]
+    run_bits = torch.where(is_match, c["mdesc"] & 7, 0)
+    pay = c["mdesc"] >> 3  # run base - 3
     rev = _shr(vR, 32 - ln - run_bits)
     run = (pay + 3) + _rev_low16(rev & ((1 << run_bits) - 1), run_bits)
     d1 = ln + run_bits
     vD = _shl(vR, d1) | _shr(vR2, 32 - d1)
 
-    dln, didx, dfound, _ = ladder(vD, MA_DSAT, MA_DPACK, MA_DNLIVE)
-    d5 = didx.clamp(min=0) & 31
-    ds = torch.zeros_like(didx)
-    for bbit in range(5):
-        ds = ds | (((ucol(MA_DPERM + bbit) >> d5) & 1) << bbit)
+    d = _dist(m, vD)
+    dln, ds = d["ln"], d["ds"]
     dist_bits = ((ds >> 1) - 1).clamp(min=0)
     reserved_dist = ds >= 30
     dbase_m1 = torch.where(ds < 4, ds, (2 + (ds & 1)) << dist_bits)
@@ -223,14 +255,14 @@ def stage_a_plain(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor,
     end_dcode = end_run + dln
     end_all = end_dcode + dist_bits
 
-    errc = torch.zeros_like(lidx)
+    errc = torch.zeros_like(ln)
     for cond, code in (
-        (~lfound, _ERR_END),
+        (~c["found"], _ERR_END),
         (end_len > bits, _ERR_END),
-        (reserved_len, _ERR_RESERVED_LEN),
+        (c["res"], _ERR_RESERVED_LEN),
         (is_match & (end_run > bits), _ERR_END),
         (is_match & dist_empty, _ERR_EMPTY_DIST),
-        (is_match & ~dfound, _ERR_END),
+        (is_match & ~d["found"], _ERR_END),
         (is_match & (end_dcode > bits), _ERR_END),
         (is_match & reserved_dist, _ERR_RESERVED_DIST),
         (is_match & (end_all > bits), _ERR_END),
@@ -241,7 +273,7 @@ def stage_a_plain(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor,
     delta = torch.where(errc != 0, SENT_ERR, torch.where(is_eob, SENT_EOB, adv))
     token = torch.where(
         is_lit,
-        lit_rank,
+        c["lit_rank"],
         TOKEN_MATCH_BIT | (run.clamp(3, 258) << 16) | (dist - 1).clamp(0, 65535),
     )
     token = torch.where(is_eob, -(1 + ln), token)
@@ -249,9 +281,93 @@ def stage_a_plain(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor,
     return delta.to(torch.int32), wrap_int32(token).to(torch.int32)
 
 
+def stage_a_windows(grid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """grid (L, 64, NT+1) uint8 -> the reversed 32-bit windows (vR, vR2)
+    at every position, (L, 512, NT) uint32 in int64: stream bit p at bit 31
+    of vR, bit p+32 at bit 31 of vR2."""
+    L, _, NTp = grid.shape
+    NT = NTp - 1
+    dev = grid.device
+    g = _rev8(grid.to(torch.int64))
+    q = torch.arange(64, device=dev)
+
+    def brow(k: int) -> torch.Tensor:
+        """(L, 64, NT): reversed byte q+k of tile t (spilling into t+1)."""
+        rows = g[:, (q + k) & 63, :]
+        spill = ((q + k) >> 6).view(1, 64, 1) == 1
+        return torch.where(spill, rows[:, :, 1:], rows[:, :, :NT])
+
+    b = [brow(k) for k in range(9)]
+    u32a = ((b[0] << 24) | (b[1] << 16) | (b[2] << 8) | b[3]).unsqueeze(2)
+    u32b = ((b[4] << 24) | (b[5] << 16) | (b[6] << 8) | b[7]).unsqueeze(2)
+    r = torch.arange(8, device=dev).view(1, 1, 8, 1)
+    vR = (((u32a << r) & _M32) | (b[4].unsqueeze(2) >> (8 - r))).reshape(L, W_P, NT)
+    vR2 = (((u32b << r) & _M32) | (b[8].unsqueeze(2) >> (8 - r))).reshape(L, W_P, NT)
+    return vR, vR2
+
+
+def stage_a_tables_plain(meta: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's table kernel: meta (L, 128) int32 -> (L,
+    TAB_W) int32, the lane's TAB_N litlen entries then TAB_N distance
+    entries (layout above), one per TAB_BITS-bit window prefix. An entry is
+    short where the ladder passes the same thresholds (those whose step adds
+    something) at the prefix's lowest and highest 32-bit window, so at every
+    window between, and the code is at most TAB_BITS long; it then packs
+    what the ladder gives. Every other entry is ``E_LONG``."""
+    m = meta.to(torch.int64)
+    L = m.shape[0]
+    prefix = torch.arange(TAB_N, device=meta.device)
+    lo = (prefix << (32 - TAB_BITS)).view(1, TAB_N).expand(L, TAB_N)
+    hi = lo | ((1 << (32 - TAB_BITS)) - 1)
+
+    a, b = _litlen(m, lo), _litlen(m, hi)
+    lit_rank = wrap_int32(a["lit_rank"])
+    payload = torch.where(a["lit"], lit_rank, a["mdesc"])
+    ll_short = ((a["mask"] == b["mask"]) & (a["ln"] >= 1) & (a["ln"] <= TAB_BITS)
+                & (~a["lit"] | ((lit_rank >= 0) & (lit_rank <= 0xFFFF))))
+    kind = torch.where(~a["found"], K_MISSING, torch.where(
+        a["res"], K_RES, torch.where(a["eob"], K_EOB, torch.where(a["lit"], K_LIT, K_MATCH))))
+    ll = a["ln"] | (kind << 4) | (payload << 16)
+
+    c, d = _dist(m, lo), _dist(m, hi)
+    d_short = (c["mask"] == d["mask"]) & (c["ln"] >= 1) & (c["ln"] <= TAB_BITS)
+    ds = c["ds"]
+    dist_bits = ((ds >> 1) - 1).clamp(min=0)
+    dbase_m1 = torch.where(ds < 4, ds, (2 + (ds & 1)) << dist_bits)
+    dd = (c["ln"] | c["found"].to(torch.int64) * E_DFOUND | (ds >= 30).to(torch.int64) * E_DRES
+          | (dist_bits << 6) | (dbase_m1 << 16))
+
+    # Entry of reversed prefix i at the index of its bits in stream order.
+    at = torch.zeros_like(prefix)
+    for k in range(TAB_BITS):
+        at |= ((prefix >> k) & 1) << (TAB_BITS - 1 - k)
+    out = torch.empty((L, TAB_W), dtype=torch.int64, device=meta.device)
+    out[:, at] = torch.where(ll_short, ll, E_LONG)
+    out[:, TAB_N + at] = torch.where(d_short, dd, E_LONG)
+    return wrap_int32(out).to(torch.int32)
+
+
+def stage_a_tables(meta: torch.Tensor) -> torch.Tensor:
+    """K1's table kernel: meta (L, 128) int32 -> decode tables (L, TAB_W)
+    int32 (:func:`stage_a_tables_plain`)."""
+    _build.check_tensor("meta", meta, torch.int32, 2)
+    _build.require(meta.shape[1] == META_W, f"meta: shape {tuple(meta.shape)}")
+    if not _build.on_card(meta):
+        return stage_a_tables_plain(meta)
+    L = meta.shape[0]
+    tables = torch.empty((L, TAB_W), dtype=torch.int32, device=meta.device)
+    lib = _build.load()
+    with torch.cuda.device(meta.device):
+        err = lib.td_stage_a_tables(meta.data_ptr(), tables.data_ptr(), L, _build.stream(meta.device))
+    _build.check(err, "td_stage_a_tables")
+    LAUNCHES["stage_a_tables"] += 1
+    return tables
+
+
 def stage_a(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage A (K1): grid (L, 64, NT+1) uint8, meta (L, 128) int32 ->
-    (delta, token), both (L, 512, NT) int32."""
+    (delta, token), both (L, 512, NT) int32. On the card the lane's decode
+    tables come first, from :func:`stage_a_tables`."""
     _build.check_tensor("grid", grid, torch.uint8, 3)
     _build.check_tensor("meta", meta, torch.int32, 2)
     L, WB, NTp = grid.shape
@@ -260,12 +376,14 @@ def stage_a(grid: torch.Tensor, meta: torch.Tensor) -> tuple[torch.Tensor, torch
     if not _build.on_card(grid, meta):
         return stage_a_plain(grid, meta)
     NT = NTp - 1
+    tables = stage_a_tables(meta)
     delta = torch.empty((L, W_P, NT), dtype=torch.int32, device=grid.device)
     token = torch.empty_like(delta)
     lib = _build.load()
     with torch.cuda.device(grid.device):
         err = lib.td_stage_a(
-            grid.data_ptr(), meta.data_ptr(), delta.data_ptr(), token.data_ptr(), L, NT,
+            grid.data_ptr(), meta.data_ptr(), tables.data_ptr(), delta.data_ptr(),
+            token.data_ptr(), L, NT,
             _ERR_END, _ERR_RESERVED_LEN, _ERR_EMPTY_DIST, _ERR_RESERVED_DIST,
             _build.stream(grid.device),
         )

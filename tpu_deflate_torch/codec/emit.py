@@ -33,7 +33,8 @@ from .._build import ENCODE_LAUNCHES
 from .decode_kernels import wrap_int32
 
 EMIT_WORDS = 176 * 128  # 22528 words per lane (the reference's WORD_ROWS x 128)
-EMIT_CHUNK = 1024  # positions per step of the kernel's block
+EMIT_CHUNK = 1024  # S must be a multiple of this
+EMIT_SEGMENT = 4096  # positions per block of the kernel (SEG in csrc/emit.cu)
 _M32 = 0xFFFFFFFF
 
 
@@ -97,14 +98,20 @@ def emit_body(sym, flags, leb, lev, dsym, deb, dev, ll_codes, d_codes, hdr_bits)
     args = (*fields.values(), ll_codes, d_codes, hdr_bits)
     if not _build.on_card(*args):
         return emit_body_plain(*args)
+    _build.require(all(t.data_ptr() % 16 == 0 for t in fields.values()),
+                   "token fields: the kernel reads them in 16-byte vectors and needs them aligned")
     devc = sym.device
-    words = torch.empty((L, EMIT_WORDS), dtype=torch.int32, device=devc)
+    # Zero-filled: segments OR their shared first and last words, and the
+    # words past the body stay 0. The scratch holds each (lane, segment)'s
+    # look-back status word, then the segments' ticket counter.
+    words = torch.zeros((L, EMIT_WORDS), dtype=torch.int32, device=devc)
     body_end = torch.empty(L, dtype=torch.int32, device=devc)
+    scratch = torch.zeros(L * -(-S // EMIT_SEGMENT) + 1, dtype=torch.int64, device=devc)
     lib = _build.load()
     with torch.cuda.device(devc):
         err = lib.td_emit_body(
-            *(t.data_ptr() for t in args), words.data_ptr(), body_end.data_ptr(), L, S,
-            _build.stream(devc),
+            *(t.data_ptr() for t in args), words.data_ptr(), body_end.data_ptr(),
+            scratch.data_ptr(), L, S, _build.stream(devc),
         )
     _build.check(err, "td_emit_body")
     ENCODE_LAUNCHES["emit_body"] += 1
