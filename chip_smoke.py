@@ -15,8 +15,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    through the ladders is printed), K1 and its tables again on waves with
    11-15-bit codes, fixed Huffman codes, a single distance code, an empty
    distance code, a garbage lane and payloads ending inside the last tile,
-   the
-   resolve kernels (K5 expand, K6 sweep) and the lane CRC on one resolve
+   K2 again on edge deltas (one lane, one tile, a tile count that is not a
+   multiple of its 32-tile strip, all 1, all 48, dense EOB / error
+   sentinels, deltas of 0 and 60, hops of 64 and 200, the int32 limits),
+   the resolve kernels (K5 expand, K6 sweep) and the lane CRC on one resolve
    batch of 256 members x 65536 slots built from the corpus's own tokens,
    K5/K6 on lanes at the resolve's edges (errors, an empty lane, regions
    past 32 KiB, output past 64 KiB, random far matches), and K5/K6 once
@@ -26,7 +28,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    kernel's bound;
 4. the main path: ``engine.decompress`` of the 48 MiB corpus with the
    defaults (device resolve), byte-exact, every Huffman member resolved on
-   the device and every main-path kernel launched; 5 timed runs;
+   the device and every main-path kernel launched, with each kernel's
+   bound per launch and summed over the run; 5 timed runs;
 5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
    byte-exact with the packed token pull (K7) launched, and 3 timed runs
    of it on the 48 MiB corpus for comparison;
@@ -39,7 +42,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 8. encode kernels: K8 parse transfers, K9 parse replay and K10 emit body
    against their plain versions (exact equality) on the first batch of
    the encode's main path (64 members x 64 KiB of the corpus), then on
-   step fields of all 1 and all 250, a batch with a lane routed FIXED, a
+   step fields of all 1, all 250, random 1..250 and one with steps <= 0
+   (K8 only), a batch with a lane routed FIXED, a
    lane of 15-bit literal codes whose bits overflow the word grid, lanes
    whose segments carry no bits, a width that is not a multiple of K10's
    segment, and slots of more than 31 bits; every lane of the first batch
@@ -47,7 +51,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 9. the encode's main path: ``engine.compress`` of the 48 MiB corpus at the
    default effort 2, byte-exact through ``gzip.decompress`` and the port's
    ``engine.decompress``, 768 members, every encode kernel and the lane
-   CRC launched, its size beside the C core's member encoder; 3 timed runs;
+   CRC launched, its size beside the C core's member encoder, each
+   kernel's bound per launch and summed over the run; 3 timed runs;
 10. the card against the CPU: five members (text, random, runs, zeros, a
    short tail) encoded on the card and with the plain versions on the CPU
    at efforts 1, 2, 3 and 5 must be byte-identical.
@@ -61,6 +66,7 @@ function) of the decode's and of the encode's main path, written into DIR.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gzip
 import json
 import os
@@ -165,6 +171,48 @@ def bound(inputs, outputs) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def tensor_bytes(x) -> int:
+    """Bytes of the tensors in x (a tensor, or a tuple or list of them)."""
+    if hasattr(x, "element_size"):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(tensor_bytes(t) for t in x)
+    return 0
+
+
+@contextlib.contextmanager
+def recorded(*names):
+    """Wrap each (module, function name) for the block; yields {name: [the
+    bytes each call moves: its tensor arguments read once, its tensor
+    results written once]}, in call order."""
+    calls = {name: [] for _module, name in names}
+    saved = [(module, name, getattr(module, name)) for module, name in names]
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls[name].append(tensor_bytes(args) + tensor_bytes(out))
+            return out
+        return wrapper
+
+    for module, name, fn in saved:
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def path_bounds(label: str, calls: dict) -> None:
+    """Print each wrapper's bytes bound per launch and summed over one run of
+    a main path (us at the card's memory rate)."""
+    for name, nbytes in calls.items():
+        us = [b / HBM_BYTES_PER_S * 1e6 for b in nbytes]
+        log(f"{label} main-path bound of {name}: {len(us)} launches, {sum(nbytes)} bytes, "
+            f"per launch {[round(u, 2) for u in us]} us, summed {sum(us):.2f} us (bytes)")
 
 
 class Kernels:
@@ -415,6 +463,49 @@ def phase_k1_edges(gz: bytes, device, K: Kernels) -> None:
         log(f"stage_a edge '{what}': long route {n_long} of {n_pos} positions")
 
 
+def k2_edge_deltas() -> dict:
+    """K2's edge inputs, (L, 512, NT) int32 deltas from a seed: one lane of
+    one tile; 45 tiles (a partial 32-tile strip); 3 tiles; all 1 (the
+    longest chains); all 48; dense EOB / error sentinels; deltas of 0 (a
+    cursor that stops) and 60; hops of 64 and 200, which the kernel walks;
+    deltas at the int32 limits."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(29)
+
+    def rnd(shape):
+        return torch.randint(1, 49, shape, generator=g, dtype=torch.int32)
+
+    def mixed(shape, shares):
+        d, u, lo = rnd(shape), torch.rand(shape, generator=g), 0.0
+        for share, value in shares:
+            d[(u >= lo) & (u < lo + share)] = value
+            lo += share
+        return d
+
+    return {
+        "one lane, one tile": rnd((1, 512, 1)),
+        "45 tiles": rnd((2, 512, 45)),
+        "3 tiles": rnd((3, 512, 3)),
+        "all 1": torch.ones((2, 512, 64), dtype=torch.int32),
+        "all 48": torch.full((2, 512, 64), 48, dtype=torch.int32),
+        "dense sentinels": mixed((2, 512, 96), [(0.1, 127), (0.1, 255)]),
+        "deltas 0 and 60": mixed((2, 512, 64), [(0.05, 0), (0.05, 60)]),
+        "hops of 64 and 200": mixed((2, 512, 64), [(0.02, 64), (0.02, 200)]),
+        "int32 limits": mixed((2, 512, 64), [(0.02, 2**31 - 1), (0.02, -(2**31)), (0.02, 9000)]),
+    }
+
+
+def phase_k2_edges(device, K: Kernels) -> None:
+    """K2 against its plain version on the edge deltas."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    for what, d in k2_edge_deltas().items():
+        d = d.to(device)
+        K.compare("stage_b", lambda: dk.stage_b(d), lambda: dk.stage_b_plain(d), [d],
+                  {"edge": what, "delta": list(d.shape)}, main_path=False)
+
+
 def chain_depth(y0, src) -> tuple[int, float]:
     """Hops from each match position to a literal along src (max, mean over
     match positions), for positions whose chain stays in the tile."""
@@ -578,36 +669,24 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import decode_v2 as pv2
 
-    waves = []  # K1's (grid, meta) shapes, in launch order
-    stage_a = dk.stage_a
+    from tpu_deflate_torch.codec import resolve as rs
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
 
-    def recording_stage_a(grid, meta):
-        waves.append((tuple(grid.shape), tuple(meta.shape)))
-        return stage_a(grid, meta)
-
-    dk.stage_a = recording_stage_a
-    try:
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+    with recorded(*kernels) as calls:
         dk.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = dict(dk.LAUNCHES)
-    finally:
-        dk.stage_a = stage_a
     stats = dict(pv2.LAST_DECODE_STATS)
     require(out == corpus, "main-path output differs from the corpus")
     log(f"main path run 1: {wall:.3f} s, {len(corpus) / wall / 1e9:.4f} GB/s, {len(gz)} compressed bytes")
     log(f"main path stats: {json.dumps(stats)}")
     log(f"launches in the main-path run: {json.dumps(launches)}")
-    total_us = 0.0
-    for i, ((L, _wb, NTp), meta_shape) in enumerate(waves):
-        NT = NTp - 1
-        nbytes = L * 64 * NTp + 4 * meta_shape[0] * meta_shape[1] + 2 * 4 * L * 512 * NT
-        us = nbytes / HBM_BYTES_PER_S * 1e6
-        total_us += us
-        log(f"stage_a main-path wave {i}: L={L} NT={NT}, {nbytes} bytes, bound {us:.2f} us (bytes)")
-    log(f"stage_a main-path bound over {len(waves)} launches: {total_us:.2f} us")
+    path_bounds("decode", calls)
     for k, (_src, _tpu, path) in KERNELS.items():
         if path == "main":
             require(launches[k] > 0, f"kernel {k} was not launched on the main path")
@@ -778,8 +857,9 @@ def encode_batch(data: bytes, device) -> dict:
 
 def phase_encode_kernels(corpus: bytes, device, K: Kernels) -> None:
     """K8, K9 and K10 on the first batch of the encode's main path (64
-    members), then at the edges: step fields of all 1 and all 250, a batch
-    with a lane routed FIXED, and a lane whose bits overflow the word grid."""
+    members), then at the edges: step fields of all 1, all 250 and random
+    1..250, K8 on steps <= 0, a batch with a lane routed FIXED, and a lane
+    whose bits overflow the word grid."""
     import numpy as np
     import torch
 
@@ -820,6 +900,18 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels) -> None:
     for value in (1, pp.PARSE_MAX_STEP):
         tiles = pp.step_tiles(torch.full((L, S), value, dtype=torch.int32, device=device))
         parse_pair(tiles, None, {"steps": [L, S], "all": value}, False)
+    g = torch.Generator(device="cpu").manual_seed(31)
+    rand = torch.randint(1, pp.PARSE_MAX_STEP + 1, (L, S), generator=g, dtype=torch.int32)
+    parse_pair(pp.step_tiles(rand.to(device)), None, {"steps": [L, S], "random": [1, pp.PARSE_MAX_STEP]},
+               False)
+    # Steps that stop a lock-step cursor (<= 0) or leave the tile at once.
+    stop, u = rand.clone(), torch.rand((L, S), generator=g)
+    stop[u < 0.5] = 1
+    for lo, hi, value in ((0.5, 0.53, 0), (0.53, 0.55, -7), (0.55, 0.56, 600), (0.56, 0.57, 2**31 - 1)):
+        stop[(u >= lo) & (u < hi)] = value
+    stiles = pp.step_tiles(stop.to(device))
+    K.compare("parse_transfers", lambda: pp.parse_transfers(stiles), lambda: pp.parse_transfers_plain(stiles),
+              [stiles.transpose(1, 2)], {"steps": [L, S], "steps <= 0": True}, main_path=False)
 
     bf = encode_batch(encode_members(corpus), device)
     choice = bf["choice"].cpu().numpy()
@@ -908,14 +1000,21 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
     import torch
 
     from tpu_deflate_torch import _build, engine, native
+    from tpu_deflate_torch.codec import parse as pp
 
-    _build.reset_launches()
-    t0 = time.monotonic()
-    gz = engine.compress(corpus, engine="cuda")
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = _build.all_launches()
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    kernels = [(pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
+    with recorded(*kernels) as calls:
+        _build.reset_launches()
+        t0 = time.monotonic()
+        gz = engine.compress(corpus, engine="cuda")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = _build.all_launches()
     log(f"encode run 1: {wall:.3f} s, {len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
+    path_bounds("encode", calls)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
@@ -995,6 +1094,7 @@ def main(argv: list[str]) -> int:
     K = Kernels()
     phase_wave_kernels(gz, device, K)
     phase_k1_edges(gz, device, K)
+    phase_k2_edges(device, K)
     phase_resolve_kernels(gz, corpus, device, K)
     launches, timed_median_s = phase_main_path(corpus, gz, n_huff)
     if args.profile:

@@ -16,14 +16,26 @@
 // has no gather. For steps >= 1 that is the serial walk cur += s[cur]; a
 // step <= 0 freezes a lock-step cursor, so the walk stops after it.
 //
-// Bound on the H100: memory traffic, the steps read once (2 KiB a tile)
-// and 256 bytes (K8) or 512 bytes (K9) written a tile; the walks are
-// dependent shared-memory loads, about 512 / (mean step) of them per
-// cursor. Design: one block per (lane, tile) stages the tile's steps in
-// shared memory with coalesced loads. K8: thread e walks from e and
-// stores its exit byte (neighbouring threads, neighbouring bytes). K9: one
-// thread walks from the entry and marks flags in shared memory; the block
-// then stores the 512 flags coalesced.
+// K8 (parse_transfers_kernel): the 256 walks of a tile end in a few common
+// chains after a few tokens, so one walk per entry (a thread each) repeats
+// the same dependent shared loads; with literal steps of 1 a tile costs
+// tens of thousands of them. Instead each of
+// the tile's 512 positions gets its first hop, p + s[p] inside the tile or a
+// terminal that holds the exit byte (where p + s[p] >= 512, or where
+// s[p] <= 0 stops the cursor: exit (p + s[p] - 512) & 0xFF), and nine
+// rounds of pointer jumping, nxt[p] <- nxt[nxt[p]], with terminals as fixed
+// points, carry every position to its exit (a chain has at most 512 hops).
+// One warp per tile: each thread holds 16 positions in registers (four
+// groups of 4, from one 16-byte load each), the hops live in 1 KiB of
+// shared memory, __syncwarp orders the rounds, and a warp stops early once
+// all its positions are terminal. Bound on the H100: memory traffic, the
+// steps read once (2 KiB a tile) and 256 bytes written a tile; the rounds
+// are ~9 x 16 dependent shared loads per thread.
+//
+// K9 (parse_replay_kernel): one block per (lane, tile) stages the tile's
+// steps in shared memory with coalesced loads; one thread walks from the
+// entry and marks flags in shared memory; the block then stores the 512
+// flags coalesced.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -37,18 +49,55 @@ __device__ __forceinline__ void load_steps(const int* __restrict__ steps, int* s
   for (int i = threadIdx.x; i < T_P; i += blockDim.x) s[i] = tile[i];
 }
 
-__global__ void __launch_bounds__(E_P)
+constexpr uint32_t TERM = 0x8000;  // a terminal hop; its low byte is the exit
+constexpr int ROUNDS = 9;          // ceil(log2(512))
+
+// Position p's first hop: the next position, or a terminal.
+__device__ __forceinline__ uint32_t first_hop(int p, int s) {
+  return (s <= 0 || s >= T_P - p) ? TERM | (((unsigned)p + (unsigned)s) & 255u) : (uint32_t)(p + s);
+}
+
+// steps (n_tiles, 512) -> out (n_tiles, 256). One warp per tile; thread
+// lane holds positions 128 k + 4 lane + j (k, j in 0..3).
+__global__ void __launch_bounds__(32)
     parse_transfers_kernel(const int* __restrict__ steps, uint8_t* __restrict__ out) {
-  __shared__ int s[T_P];
-  load_steps(steps, s);
-  __syncthreads();
-  int cur = threadIdx.x;
-  while (cur < T_P) {
-    const int a = s[cur];
-    cur += a;
-    if (a <= 0) break;
+  __shared__ __align__(8) uint16_t nxt[T_P];
+  const int lane = threadIdx.x;
+  const int* st = steps + (size_t)blockIdx.x * T_P;
+  const bool vec = (reinterpret_cast<uintptr_t>(steps) & 15) == 0;
+  uint32_t v[16];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int p = 128 * k + 4 * lane;
+    const int4 q = vec ? *reinterpret_cast<const int4*>(st + p) : make_int4(st[p], st[p + 1], st[p + 2], st[p + 3]);
+    v[4 * k] = first_hop(p, q.x);
+    v[4 * k + 1] = first_hop(p + 1, q.y);
+    v[4 * k + 2] = first_hop(p + 2, q.z);
+    v[4 * k + 3] = first_hop(p + 3, q.w);
   }
-  out[(size_t)blockIdx.x * E_P + threadIdx.x] = (uint8_t)(cur - T_P);
+#pragma unroll 1
+  for (int r = 0; r < ROUNDS; ++r) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      *reinterpret_cast<uint2*>(nxt + 128 * k + 4 * lane) =
+          make_uint2(v[4 * k] | v[4 * k + 1] << 16, v[4 * k + 2] | v[4 * k + 3] << 16);
+    __syncwarp();
+    bool live = false;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (!(v[i] & TERM)) {
+        v[i] = nxt[v[i]];
+        live |= !(v[i] & TERM);
+      }
+    }
+    if (!__any_sync(0xffffffffu, live)) break;
+    __syncwarp();  // every read of this round before the next round's stores
+  }
+  uint8_t* o = out + (size_t)blockIdx.x * E_P;
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    *reinterpret_cast<uint32_t*>(o + 128 * k + 4 * lane) = (v[4 * k] & 255u) | (v[4 * k + 1] & 255u) << 8 |
+                                                            (v[4 * k + 2] & 255u) << 16 | (v[4 * k + 3] & 255u) << 24;
 }
 
 __global__ void __launch_bounds__(E_P)
@@ -76,7 +125,7 @@ __global__ void __launch_bounds__(E_P)
 }  // namespace
 
 extern "C" int td_parse_transfers(const void* steps, void* out, int L, int NT, void* stream) {
-  parse_transfers_kernel<<<L * NT, E_P, 0, static_cast<cudaStream_t>(stream)>>>(
+  parse_transfers_kernel<<<L * NT, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(steps), static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }
