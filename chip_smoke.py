@@ -18,12 +18,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    K2 again on edge deltas (one lane, one tile, a tile count that is not a
    multiple of its 32-tile strip, all 1, all 48, dense EOB / error
    sentinels, deltas of 0 and 60, hops of 64 and 200, the int32 limits),
-   the resolve kernels (K5 expand, K6 sweep) and the lane CRC on one resolve
-   batch of 256 members x 65536 slots built from the corpus's own tokens,
+   K3 again on edge deltas (0, -5, 60, the int32 limits, dense sentinels;
+   entries 0, 47, 48 and 255) at every k1, the resolve kernels (K5 expand,
+   K6 sweep) and the lane CRC on the main path's two resolve batches (256
+   and 178 members x 65536 slots) built from the corpus's own tokens,
    K5/K6 on lanes at the resolve's edges (errors, an empty lane, regions
-   past 32 KiB, output past 64 KiB, random far matches), and K5/K6 once
-   more with 32 KiB of history on the tiles of a 1 MiB multi-block
-   stream. Outputs must be equal (the pipeline is integer-only, so the tolerance is exact equality; the sweep's round
+   past 32 KiB, output past 64 KiB, random far matches, only 258-runs,
+   only literals), and K5/K6 once more with 32 KiB of history on the tiles
+   of a 1 MiB multi-block stream. Outputs must be equal (the pipeline is integer-only, so the tolerance is exact equality; the sweep's round
    count, a diagnostic, is not compared); median times beside each
    kernel's bound;
 4. the main path: ``engine.decompress`` of the 48 MiB corpus with the
@@ -43,7 +45,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    against their plain versions (exact equality) on the first batch of
    the encode's main path (64 members x 64 KiB of the corpus), then on
    step fields of all 1, all 250, random 1..250 and one with steps <= 0
-   (K8 only), a batch with a lane routed FIXED, a
+   and at the int32 limits (K9 there with entries of -1, 0, 255, 511 and
+   512 in the first tiles), a batch with a lane routed FIXED, a
    lane of 15-bit literal codes whose bits overflow the word grid, lanes
    whose segments carry no bits, a width that is not a multiple of K10's
    segment, and slots of more than 31 bits; every lane of the first batch
@@ -80,7 +83,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CORPUS_MB = 48
 OFF_CORPUS_MB = 8
 WAVE_LANES = 64
-RESOLVE_LANES = 256
 FOREIGN_BYTES = 1 << 20
 KERNEL_REPS = 20
 PLAIN_REPS = 3
@@ -506,6 +508,39 @@ def phase_k2_edges(device, K: Kernels) -> None:
                   {"edge": what, "delta": list(d.shape)}, main_path=False)
 
 
+def k3_edge_inputs():
+    """K3's edge inputs from a seed: (L, 512, NT) int32 deltas of 0 and -5
+    (a cursor that stops after its position), 60, 2^31 - 1 and INT_MIN (a
+    hop that leaves the tile; a signed sum would overflow), dense EOB /
+    error sentinels among deltas of 1..48; random tokens; entries with 0,
+    47, 48 (a dead tile) and 255 in the first tiles."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(37)
+    L, NT = 2, 64
+    delta = torch.randint(1, 49, (L, 512, NT), generator=g, dtype=torch.int32)
+    u = torch.rand((L, 512, NT), generator=g)
+    for lo, hi, value in ((0.00, 0.03, 0), (0.03, 0.06, -5), (0.06, 0.08, 60), (0.08, 0.10, 2**31 - 1),
+                          (0.10, 0.12, -(2**31)), (0.12, 0.20, 127), (0.20, 0.26, 255)):
+        delta[(u >= lo) & (u < hi)] = value
+    token = torch.randint(0, 1 << 27, (L, 512, NT), generator=g, dtype=torch.int32)
+    entries = torch.randint(0, 48, (L, NT), generator=g, dtype=torch.int32)
+    entries[:, :4] = torch.tensor([0, 47, 48, 255], dtype=torch.int32)
+    return delta, token, entries
+
+
+def phase_k3_edges(device, K: Kernels) -> None:
+    """K3 against its plain version on the edge deltas, at every k1."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import wave_prep as wp
+
+    d, tk, e = (x.to(device) for x in k3_edge_inputs())
+    for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
+        K.compare("stage_dc", lambda: dk.stage_dc(d, tk, e, k1=k1), lambda: dk.stage_dc_plain(d, tk, e, k1),
+                  [d, tk, e], {"edge": "int32 limits, stops, sentinels", "delta": list(d.shape), "k1": k1},
+                  main_path=False)
+
+
 def chain_depth(y0, src) -> tuple[int, float]:
     """Hops from each match position to a literal along src (max, mean over
     match positions), for positions whose chain stays in the tile."""
@@ -524,9 +559,10 @@ def chain_depth(y0, src) -> tuple[int, float]:
 
 
 def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels) -> None:
-    """K5, K6 and the lane CRC on one resolve batch of the corpus's own
-    tokens (hist 0), then K5/K6 with 32 KiB of history on tiles 1.. of a
-    1 MiB multi-block stream."""
+    """K5, K6 and the lane CRC on the main path's two resolve batches of the
+    corpus's own tokens (hist 0; 256 and 178 lanes), then K5/K6 on edge
+    lanes and with 32 KiB of history on tiles 1.. of a 1 MiB multi-block
+    stream."""
     import numpy as np
     import torch
 
@@ -534,38 +570,42 @@ def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels) -> None:
     from tpu_deflate_torch.codec import resolve as rs
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
-    hm = huffman_members(gz)[:RESOLVE_LANES]
-    require(len(hm) == RESOLVE_LANES, f"the corpus has fewer than {RESOLVE_LANES} Huffman members")
-    order, _small, T = pv2.single_block_tokens([p for _m, p in hm], device)
-    members = [hm[i][0] for i in order]
-    L, N = T.shape
-    log(f"resolve batch: {L} members x {N} token slots, {int((T >= 0).sum())} tokens")
-    y0, src, summ = K.compare(
-        "expand", lambda: rs.expand(T), lambda: rs.expand_plain(T, 0), [T],
-        {"tokens": [L, N], "hist": 0},
-    )
-    tail = torch.zeros((L, rs.TAIL), dtype=torch.int32, device=device)
-    y, status = K.compare(
-        "sweep", lambda: rs.sweep(tail, y0, src), lambda: rs.sweep_plain(tail, y0, src),
-        [tail, y0, src], {"y0": [L, N], "tail": [L, rs.TAIL]},
-        proj=lambda out: (out[0], out[1][:, 0]),
-    )
-    dmax, dmean = chain_depth(y0, src)
-    log(f"sweep: residue {int(status[:, 0].sum())}, rounds per lane (kernel) max "
-        f"{int(status[:, 1].max())}; src chain depth on the corpus: max {dmax}, mean {dmean:.3f} "
-        "hops per match position")
-    y8 = y.to(torch.uint8)
-    (raw,) = K.compare(
-        "crc32_lanes", lambda: cl.crc32_lanes_raw8(y8), lambda: cl.crc32_lanes_raw8_plain(y8),
-        [y8], {"rows": [L, N]},
-    )
-    totals = summ[:, 1].cpu().numpy()
-    require((summ[:, 0] == N).all().item(), "an error position in the corpus batch")
-    require(list(totals) == [m.isize for m in members], "resolved sizes differ from the trailers")
-    crcs = cl.crc32_finish_leftaligned(raw.cpu().numpy(), totals, N)
-    require([int(c) for c in crcs] == [m.crc32 for m in members], "lane CRCs differ from the trailers")
-    log(f"resolve batch: {L} members byte-exact by size and CRC-32 against their trailers")
+    hm = huffman_members(gz)
+    require(len(hm) > pv2.RB, f"the corpus has at most {pv2.RB} Huffman members: one resolve batch")
+    order, _small, T_all = pv2.single_block_tokens([p for _m, p in hm], device)
+    for base in range(0, T_all.shape[0], pv2.RB):
+        T = T_all[base : base + pv2.RB]
+        members = [hm[i][0] for i in order[base : base + pv2.RB]]
+        main = base == 0
+        L, N = T.shape
+        log(f"resolve batch at lane {base}: {L} members x {N} token slots, {int((T >= 0).sum())} tokens")
+        y0, src, summ = K.compare(
+            "expand", lambda: rs.expand(T), lambda: rs.expand_plain(T, 0), [T],
+            {"tokens": [L, N], "hist": 0}, main_path=main,
+        )
+        tail = torch.zeros((L, rs.TAIL), dtype=torch.int32, device=device)
+        y, status = K.compare(
+            "sweep", lambda: rs.sweep(tail, y0, src), lambda: rs.sweep_plain(tail, y0, src),
+            [tail, y0, src], {"y0": [L, N], "tail": [L, rs.TAIL]}, main_path=main,
+            proj=lambda out: (out[0], out[1][:, 0]),
+        )
+        dmax, dmean = chain_depth(y0, src)
+        log(f"sweep: residue {int(status[:, 0].sum())}, rounds per lane (kernel) max "
+            f"{int(status[:, 1].max())}; src chain depth on the corpus: max {dmax}, mean {dmean:.3f} "
+            "hops per match position")
+        y8 = y.to(torch.uint8)
+        (raw,) = K.compare(
+            "crc32_lanes", lambda: cl.crc32_lanes_raw8(y8), lambda: cl.crc32_lanes_raw8_plain(y8),
+            [y8], {"rows": [L, N]}, main_path=main,
+        )
+        totals = summ[:, 1].cpu().numpy()
+        require((summ[:, 0] == N).all().item(), "an error position in the corpus batch")
+        require(list(totals) == [m.isize for m in members], "resolved sizes differ from the trailers")
+        crcs = cl.crc32_finish_leftaligned(raw.cpu().numpy(), totals, N)
+        require([int(c) for c in crcs] == [m.crc32 for m in members], "lane CRCs differ from the trailers")
+        log(f"resolve batch: {L} members byte-exact by size and CRC-32 against their trailers")
 
+    N = rs.N_POS
     edges = torch.from_numpy(edge_tokens(N, rs.TOKEN_MATCH_BIT)).to(device)
     Le = edges.shape[0]
     rng = torch.Generator(device="cpu").manual_seed(5)
@@ -604,10 +644,12 @@ def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels) -> None:
 
 
 def edge_tokens(n_pos: int, match_bit: int):
-    """(8, n_pos) int32 token lanes at the resolve's edges: copy before
+    """(11, n_pos) int32 token lanes at the resolve's edges: copy before
     start, an oversized distance, an empty lane, constant-distance regions
-    past 32 KiB (where the cap on k binds), output past n_pos, and random
-    tokens that reach far back."""
+    past 32 KiB (where the cap on k binds), output past n_pos, random
+    tokens that reach far back, a lane of only 258-runs, and literal-only
+    lanes (one that fills every slot, one that ends inside the first
+    half)."""
     import numpy as np
 
     rng = np.random.default_rng(17)
@@ -626,6 +668,9 @@ def edge_tokens(n_pos: int, match_bit: int):
         [7, 8, 9] + [match_bit | 200 << 16 | 2] * 300,
         lits + [match_bit | 258 << 16 | int(d) for d in rng.integers(0, 300, 230)],
         rand,
+        [match_bit | 258 << 16 | int(d) for d in rng.integers(0, 32768, 300)],
+        rng.integers(0, 256, n_pos).tolist(),
+        lits[:20000],
     ]
     out = np.full((len(lanes), n_pos), -1, np.int32)
     for i, toks in enumerate(lanes):
@@ -858,8 +903,9 @@ def encode_batch(data: bytes, device) -> dict:
 def phase_encode_kernels(corpus: bytes, device, K: Kernels) -> None:
     """K8, K9 and K10 on the first batch of the encode's main path (64
     members), then at the edges: step fields of all 1, all 250 and random
-    1..250, K8 on steps <= 0, a batch with a lane routed FIXED, and a lane
-    whose bits overflow the word grid."""
+    1..250, K8 and K9 on steps <= 0 and at the int32 limits (K9 with entries
+    off the tile), a batch with a lane routed FIXED, and a lane whose bits
+    overflow the word grid."""
     import numpy as np
     import torch
 
@@ -910,8 +956,18 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels) -> None:
     for lo, hi, value in ((0.5, 0.53, 0), (0.53, 0.55, -7), (0.55, 0.56, 600), (0.56, 0.57, 2**31 - 1)):
         stop[(u >= lo) & (u < hi)] = value
     stiles = pp.step_tiles(stop.to(device))
-    K.compare("parse_transfers", lambda: pp.parse_transfers(stiles), lambda: pp.parse_transfers_plain(stiles),
-              [stiles.transpose(1, 2)], {"steps": [L, S], "steps <= 0": True}, main_path=False)
+    (stransfers,) = K.compare(
+        "parse_transfers", lambda: pp.parse_transfers(stiles), lambda: pp.parse_transfers_plain(stiles),
+        [stiles.transpose(1, 2)], {"steps": [L, S], "steps <= 0": True}, main_path=False,
+    )
+    # K9 on the same field, with entries at and past the tile's edges in
+    # the first tiles and the host's entries elsewhere.
+    sentries = torch.from_numpy(pp.host_entries(stransfers.cpu().numpy()))
+    sentries[:, :5] = torch.tensor([-1, 0, 255, 511, 512], dtype=torch.int32)
+    sentries = sentries.to(device)
+    K.compare("parse_replay", lambda: pp.parse_replay(stiles, sentries),
+              lambda: pp.parse_replay_plain(stiles, sentries), [stiles.transpose(1, 2), sentries],
+              {"steps": [L, S], "steps <= 0": True, "entries": [-1, 0, 255, 511, 512]}, main_path=False)
 
     bf = encode_batch(encode_members(corpus), device)
     choice = bf["choice"].cpu().numpy()
@@ -1095,6 +1151,7 @@ def main(argv: list[str]) -> int:
     phase_wave_kernels(gz, device, K)
     phase_k1_edges(gz, device, K)
     phase_k2_edges(device, K)
+    phase_k3_edges(device, K)
     phase_resolve_kernels(gz, corpus, device, K)
     launches, timed_median_s = phase_main_path(corpus, gz, n_huff)
     if args.profile:

@@ -143,6 +143,44 @@ def test_stage_dc_matches_pallas(random_wave, k1):
     assert int(got_s[0, wp.ROW_OVERFLOW, 2]) == int(k1 < dp.W_P)
 
 
+@pytest.mark.parametrize("k1", (dp.K1_CHOICES[0], dp.W_P))
+def test_stage_dc_matches_pallas_at_edge_deltas(random_wave, k1):
+    """Deltas of 0 and below stop a cursor after its position; deltas of 60
+    and at the int32 limits leave the tile (the kernel adds its hop
+    unsigned, the references wrap in int32 or work in int64); dense EOB and
+    error sentinels; entries 0, 47, 48 (a dead tile) and 255. The first
+    lane's token counts are also held against a serial walk."""
+    _delta, token = random_wave
+    L, _, NT = token.shape
+    rng = np.random.default_rng(19)
+    delta = rng.integers(1, 49, (L, dp.W_P, NT)).astype(np.int64)
+    u = rng.random(delta.shape)
+    for lo, hi, value in ((0.00, 0.03, 0), (0.03, 0.06, -5), (0.06, 0.08, 60), (0.08, 0.10, 2**31 - 1),
+                          (0.10, 0.12, -(2**31)), (0.12, 0.20, 127), (0.20, 0.26, 255)):
+        delta[(u >= lo) & (u < hi)] = value
+    delta = delta.astype(np.int32)
+    entries = rng.integers(0, dp.E_WIN, (L, NT)).astype(np.int32)
+    entries[:, :4] = (0, 47, 48, 255)
+    got_t, got_s = dk.stage_dc(_t(delta), _t(token), _t(entries), k1=k1)
+    want_t, want_s = dp.stage_dc_pallas(
+        jnp.asarray(delta), jnp.asarray(token), jnp.asarray(entries), k1=k1, interpret=True
+    )
+    _eq(got_t, want_t)
+    _eq(got_s, want_s)
+    adv = {127: 4096, 255: 8192}
+    for t in range(NT):
+        cur, count = int(entries[0, t]), 0
+        cur = cur if cur < dp.E_WIN else dp.W_P
+        while 0 <= cur < dp.W_P:
+            d = int(delta[0, cur, t])
+            count += d < 127
+            a = adv.get(d, d)
+            if a <= 0:
+                break
+            cur += a
+        assert int(got_s[0, wp.ROW_COUNT, t]) == count
+
+
 def _compact_case(rng, L, M, density):
     tok = rng.integers(0, 1 << 20, (L, M)).astype(np.int32)
     tok[rng.random((L, M)) >= density] = -1

@@ -60,7 +60,11 @@ SIGNATURES = {
 }
 
 # Kernel launches per wrapper since process start (or the last reset): the
-# decode's kernels and the lane CRC, then the encoder's kernels.
+# decode's kernels and the lane CRC, then the encoder's kernels. Module
+# state shared by every caller in the process; not thread-safe: calls on
+# several threads count each other's launches, and so does
+# decode_v2.LAST_DECODE_STATS["launches"], which is taken from LAUNCHES by
+# difference.
 LAUNCHES = {
     "stage_a_tables": 0, "stage_a": 0, "stage_b": 0, "stage_dc": 0, "compact_flat": 0,
     "compact_any": 0, "expand": 0, "sweep": 0, "crc32_lanes": 0,

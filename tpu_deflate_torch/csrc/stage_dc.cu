@@ -37,7 +37,7 @@ __global__ void stage_dc_kernel(const int* __restrict__ delta, const int* __rest
   int cur = entry < E_WIN ? entry : W_P;  // dead tile: no position is reached
   int count = 0;
   uint32_t eob_pos = 0, eob_tok = 0, err_tok = 0, size_sum = 0, eob_hit = 0, err_hit = 0;
-  while (cur >= 0 && cur < W_P) {
+  while ((unsigned)cur < (unsigned)W_P) {
     const int dv = d[(size_t)cur * NT];
     const int tv = tk[(size_t)cur * NT];
     if (dv == SENT_EOB) {
@@ -53,8 +53,12 @@ __global__ void stage_dc_kernel(const int* __restrict__ delta, const int* __rest
       size_sum += (tv >= 0 && tv < 256) ? 1u : (uint32_t)((tv >> 16) & 0x3FF);
     }
     const int a = cursor_adv(dv);
-    cur += a;
     if (a <= 0) break;  // a cursor that does not advance freezes
+    // Unsigned, so a delta near 2^31 leaves the tile (cur < 512, a < 2^31:
+    // the sum does not wrap) where a signed sum would overflow.
+    const unsigned nx = (unsigned)cur + (unsigned)a;
+    if (nx >= (unsigned)W_P) break;
+    cur = (int)nx;
   }
   for (int j = count; j < k1; ++j) out[j] = -1;
 

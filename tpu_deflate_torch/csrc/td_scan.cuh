@@ -1,14 +1,11 @@
-// Block-wide inclusive scans of one int per thread, in thread order, for
-// blocks of 1024 threads: a shuffle scan inside each warp, one warp scans
-// the 32 warp totals in shared memory.
+// Warp and block scans of one int per thread, in thread order: a shuffle
+// scan inside each warp; for a block, one warp scans the warp totals in
+// shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace td {
-
-constexpr int SCAN_THREADS = 1024;
-constexpr int SCAN_WARPS = SCAN_THREADS / 32;
 
 struct Sum {
   __device__ int operator()(int a, int b) const { return a + b; }
@@ -28,23 +25,30 @@ __device__ __forceinline__ int warp_inclusive(int v, Op op) {
   return v;
 }
 
-// Inclusive scan of v over the block; *aggregate gets the whole block's
-// result. scratch: SCAN_WARPS ints of shared memory. Every thread of the
-// block must call it (it synchronises the block).
-template <class Op>
-__device__ __forceinline__ int block_inclusive(int v, Op op, int identity, int* scratch,
+// Exclusive scan of v over a block of THREADS threads (thread 0 gets
+// identity); *aggregate gets the whole block's result. scratch: THREADS /
+// 32 ints of shared memory that the block's previous call did not use
+// (callers alternate two buffers, which saves a third barrier). Every
+// thread of the block must call it (it synchronises the block twice).
+template <int THREADS, class Op>
+__device__ __forceinline__ int block_exclusive(int v, Op op, int identity, int* scratch,
                                                int* aggregate) {
+  constexpr int WARPS = THREADS / 32;
+  static_assert(THREADS % 32 == 0 && WARPS <= 32, "a block scan takes 32..1024 threads");
   const int lid = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   const int incl = warp_inclusive(v, op);
   if (lid == 31) scratch[wid] = incl;
   __syncthreads();
-  if (wid == 0) scratch[lid] = warp_inclusive(scratch[lid], op);
+  if (wid == 0) {
+    const int w = warp_inclusive(lid < WARPS ? scratch[lid] : identity, op);
+    if (lid < WARPS) scratch[lid] = w;
+  }
   __syncthreads();
-  const int res = op(wid ? scratch[wid - 1] : identity, incl);
-  *aggregate = scratch[SCAN_WARPS - 1];
-  __syncthreads();  // scratch is free for the next call
-  return res;
+  int excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lid == 0) excl = identity;
+  *aggregate = scratch[WARPS - 1];
+  return op(wid ? scratch[wid - 1] : identity, excl);
 }
 
 }  // namespace td
