@@ -18,10 +18,13 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    K2 again on edge deltas (one lane, one tile, a tile count that is not a
    multiple of its 32-tile strip, all 1, all 48, dense EOB / error
    sentinels, deltas of 0 and 60, hops of 64 and 200, the int32 limits),
-   K3 again on edge deltas (0, -5, 60, the int32 limits, dense sentinels;
-   entries 0, 47, 48 and 255) at every k1, the resolve kernels (K5 expand,
-   K6 sweep) and the lane CRC on the main path's two resolve batches (256
-   and 178 members x 65536 slots) built from the corpus's own tokens,
+   K3 again at every k1 on the main path's own 4-lane waves, on edge
+   deltas (0, -5, 60, the int32 limits, dense sentinels; entries 0, 47, 48
+   and 255) and on tiles of 512 one-bit deltas, the resolve kernels (K5
+   expand, K6 sweep) and the lane CRC on the main path's two resolve
+   batches (256 and 178 members x 65536 slots) built from the corpus's own
+   tokens, the lane CRC also on the encoder's first batch (64 x 64 KiB,
+   finished CRCs against zlib) and on random rows of 512 and 524288 bytes,
    K5/K6 on lanes at the resolve's edges (errors, an empty lane, regions
    past 32 KiB, output past 64 KiB, random far matches, only 258-runs,
    only literals), and K5/K6 once more with 32 KiB of history on the tiles
@@ -31,7 +34,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 4. the main path: ``engine.decompress`` of the 48 MiB corpus with the
    defaults (device resolve), byte-exact, every Huffman member resolved on
    the device and every main-path kernel launched, with each kernel's
-   bound per launch and summed over the run; 5 timed runs;
+   bound per launch and summed over the run (with --profile, each K3 and
+   lane CRC launch's device time beside its bound); 5 timed runs;
 5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
    byte-exact with the packed token pull (K7) launched, and 3 timed runs
    of it on the 48 MiB corpus for comparison;
@@ -188,24 +192,41 @@ def tensor_bytes(x) -> int:
 def recorded(*names):
     """Wrap each (module, function name) for the block; yields {name: [the
     bytes each call moves: its tensor arguments read once, its tensor
-    results written once]}, in call order."""
+    results written once]} and {name: [each call's first argument's shape
+    and keyword arguments]}, in call order."""
     calls = {name: [] for _module, name in names}
+    shapes = {name: [] for _module, name in names}
     saved = [(module, name, getattr(module, name)) for module, name in names]
 
     def wrap(name, fn):
         def wrapper(*args, **kwargs):
             out = fn(*args, **kwargs)
             calls[name].append(tensor_bytes(args) + tensor_bytes(out))
+            shapes[name].append(f"{list(args[0].shape)}{''.join(f' {k}={v}' for k, v in kwargs.items())}")
             return out
         return wrapper
 
     for module, name, fn in saved:
         setattr(module, name, wrap(name, fn))
     try:
-        yield calls
+        yield calls, shapes
     finally:
         for module, name, fn in saved:
             setattr(module, name, fn)
+
+
+# wrapper -> its kernel's name in a profile, for the per-launch bounds
+PROFILE_NAMES = {"stage_dc": "stage_dc_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel"}
+
+
+def launch_bounds(calls: dict, shapes: dict) -> dict:
+    """{profile kernel name: [(bytes bound in us, the call's shapes)] per
+    launch} of the wrappers in PROFILE_NAMES."""
+    return {
+        PROFILE_NAMES[name]: [(b / HBM_BYTES_PER_S * 1e6, sh) for b, sh in zip(nbytes, shapes[name])]
+        for name, nbytes in calls.items()
+        if name in PROFILE_NAMES
+    }
 
 
 def path_bounds(label: str, calls: dict) -> None:
@@ -529,16 +550,68 @@ def k3_edge_inputs():
     return delta, token, entries
 
 
-def phase_k3_edges(device, K: Kernels) -> None:
-    """K3 against its plain version on the edge deltas, at every k1."""
+def k3_chain_inputs():
+    """4 lanes x 128 tiles whose 512 positions are all 1-bit deltas, entered
+    at 0: every tile's chain has 512 links."""
+    import torch
+
+    delta = torch.ones((4, 512, 128), dtype=torch.int32)
+    token = (torch.arange(512, dtype=torch.int32) % 256).view(1, 512, 1).expand(4, 512, 128).contiguous()
+    return delta, token, torch.zeros((4, 128), dtype=torch.int32)
+
+
+def phase_k3_edges(gz: bytes, device, K: Kernels) -> None:
+    """K3 against its plain version at every k1: on the main path's own
+    waves of at most 4 lanes (their inputs taken from a run of the main
+    path's wave grouping), on the edge deltas and on 512-link chains."""
     from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import decode_v2 as pv2
     from tpu_deflate_torch.codec import wave_prep as wp
 
-    d, tk, e = (x.to(device) for x in k3_edge_inputs())
-    for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
-        K.compare("stage_dc", lambda: dk.stage_dc(d, tk, e, k1=k1), lambda: dk.stage_dc_plain(d, tk, e, k1),
-                  [d, tk, e], {"edge": "int32 limits, stops, sentinels", "delta": list(d.shape), "k1": k1},
-                  main_path=False)
+    small = []
+    stage_dc = dk.stage_dc
+
+    def capture(d, t, e, *, k1):
+        if d.shape[0] <= 4:
+            small.append((f"main-path wave L={d.shape[0]} NT={d.shape[2]} k1={k1}", d.clone(), t.clone(),
+                          e.clone()))
+        return stage_dc(d, t, e, k1=k1)
+
+    dk.stage_dc = capture
+    try:
+        pv2.single_block_tokens([p for _m, p in huffman_members(gz)], device)
+    finally:
+        dk.stage_dc = stage_dc
+    require(bool(small), "the main path has no wave of at most 4 lanes")
+    cases = small + [("int32 limits, stops, sentinels", *(x.to(device) for x in k3_edge_inputs())),
+                     ("512 one-bit deltas", *(x.to(device) for x in k3_chain_inputs()))]
+    for what, d, tk, e in cases:
+        for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
+            K.compare("stage_dc", lambda: dk.stage_dc(d, tk, e, k1=k1), lambda: dk.stage_dc_plain(d, tk, e, k1),
+                      [d, tk, e], {"edge": what, "delta": list(d.shape), "k1": k1}, main_path=False)
+
+
+def phase_crc_edges(corpus: bytes, device, K: Kernels) -> None:
+    """The lane CRC against its plain version on the encoder's first batch
+    (64 members of 64 KiB), whose finished CRCs must equal zlib's, and on
+    random rows of the narrowest and widest widths it takes."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    L = 64
+    rows = torch.frombuffer(bytearray(corpus[: L * MEMBER]), dtype=torch.uint8).view(L, MEMBER).to(device)
+    (raw,) = K.compare("crc32_lanes", lambda: cl.crc32_lanes_raw8(rows), lambda: cl.crc32_lanes_raw8_plain(rows),
+                       [rows], {"encode batch": [L, MEMBER]}, main_path=False)
+    crcs = cl.crc32_finish_leftaligned(raw.cpu().numpy(), np.full(L, MEMBER), MEMBER)
+    want = [zlib.crc32(corpus[i * MEMBER : (i + 1) * MEMBER]) for i in range(L)]
+    require([int(c) for c in crcs] == want, "lane CRCs of the encode batch differ from zlib")
+    g = torch.Generator(device="cpu").manual_seed(41)
+    for shape in ((L, 512), (4, 512 * 1024)):
+        r = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8).to(device)
+        K.compare("crc32_lanes", lambda: cl.crc32_lanes_raw8(r), lambda: cl.crc32_lanes_raw8_plain(r), [r],
+                  {"random rows": list(shape)}, main_path=False)
 
 
 def chain_depth(y0, src) -> tuple[int, float]:
@@ -719,7 +792,7 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as calls:
+    with recorded(*kernels) as (calls, shapes):
         dk.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
@@ -732,6 +805,7 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
     log(f"main path stats: {json.dumps(stats)}")
     log(f"launches in the main-path run: {json.dumps(launches)}")
     path_bounds("decode", calls)
+    bounds = launch_bounds(calls, shapes)
     for k, (_src, _tpu, path) in KERNELS.items():
         if path == "main":
             require(launches[k] > 0, f"kernel {k} was not launched on the main path")
@@ -742,7 +816,7 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
     log(f"main path {E2E_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e9:.4f} GB/s, "
         f"min {min(walls):.4f} s, max {max(walls):.4f} s")
     log(f"gpu: {gpu_name_power()}")
-    return launches, med
+    return launches, med, bounds
 
 
 def phase_off_route(corpus: bytes, gz: bytes) -> dict:
@@ -793,14 +867,16 @@ def phase_on_route(corpus: bytes) -> None:
     require(launches["expand"] > 0 and launches["sweep"] > 0, "the 'on' route launched no resolve")
 
 
-def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_median_s: float) -> None:
+def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_median_s: float,
+                  bounds: dict) -> None:
     """Device time per kernel (torch.profiler) and host time per function
     (cProfile) of one call of run() each, written into outdir as
     {prefix}_device.txt and {prefix}_host.txt. The device's busy share is
     read off the one profiled call: the summed duration of its device
     events (kernels and copies, one stream, so they do not overlap) over
     that same call's wall time; beside it, the same busy time over the
-    timed median of the unprofiled calls."""
+    timed median of the unprofiled calls. For the kernels in bounds, each
+    launch's device time stands beside its bytes bound (launch_bounds)."""
     import cProfile
     import io
     import pstats
@@ -832,6 +908,10 @@ def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_medi
         log(f"{label} {kernel}: {len(us)} launches, device {sum(us):.1f} us total, "
             f"per launch min {min(us):.1f} median {statistics.median(us):.1f} max {max(us):.1f} us"
             + (f", in order {[round(u, 1) for u in us]}" if len(us) <= 16 else ""))
+        if len(bounds.get(kernel, ())) == len(us):
+            for i, (u, (b, sh)) in enumerate(zip(us, bounds[kernel])):
+                log(f"{label} {kernel} launch {i} ({sh}): device {u:.1f} us, bound {b:.2f} us "
+                    f"({100 * b / u:.1f} % of it)")
     pr = cProfile.Profile()
     pr.enable()
     run()
@@ -1062,7 +1142,7 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     kernels = [(pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as calls:
+    with recorded(*kernels) as (calls, shapes):
         _build.reset_launches()
         t0 = time.monotonic()
         gz = engine.compress(corpus, engine="cuda")
@@ -1071,6 +1151,7 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
         launches = _build.all_launches()
     log(f"encode run 1: {wall:.3f} s, {len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
     path_bounds("encode", calls)
+    bounds = launch_bounds(calls, shapes)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
@@ -1092,7 +1173,7 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
     log(f"encode {ENCODE_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e6:.2f} MB/s, "
         f"min {min(walls):.4f} s, max {max(walls):.4f} s")
     log(f"gpu: {gpu_name_power()}")
-    return launches, med
+    return launches, med, bounds
 
 
 def phase_encode_cpu(corpus: bytes, device) -> None:
@@ -1151,21 +1232,22 @@ def main(argv: list[str]) -> int:
     phase_wave_kernels(gz, device, K)
     phase_k1_edges(gz, device, K)
     phase_k2_edges(device, K)
-    phase_k3_edges(device, K)
+    phase_k3_edges(gz, device, K)
     phase_resolve_kernels(gz, corpus, device, K)
-    launches, timed_median_s = phase_main_path(corpus, gz, n_huff)
+    phase_crc_edges(corpus, device, K)
+    launches, timed_median_s, bounds = phase_main_path(corpus, gz, n_huff)
     if args.profile:
         phase_profile(lambda: engine.decompress(gz, engine="cuda"), "decode", args.profile, "profile",
-                      PROFILE_KERNELS, timed_median_s)
+                      PROFILE_KERNELS, timed_median_s, bounds)
     off_launches = phase_off_route(corpus, gz)
     phase_on_route(corpus)
     phase_interop(corpus, gz, device)
 
     phase_encode_kernels(corpus, device, K)
-    enc_launches, enc_median_s = phase_encode_main(corpus)
+    enc_launches, enc_median_s, enc_bounds = phase_encode_main(corpus)
     if args.profile:
         phase_profile(lambda: engine.compress(corpus, engine="cuda"), "encode", args.profile,
-                      "profile_encode", ENCODE_PROFILE_KERNELS, enc_median_s)
+                      "profile_encode", ENCODE_PROFILE_KERNELS, enc_median_s, enc_bounds)
     phase_encode_cpu(corpus, device)
     path_launches = {"main": launches, "off": off_launches, "encode": enc_launches}
 

@@ -53,7 +53,7 @@ SIGNATURES = {
     "td_compact": [_P, _P, _P, _I, _I, _I, _P],
     "td_expand": [_P, _P, _P, _P, _I, _I, _P],
     "td_sweep": [_P, _P, _P, _P, _P, _I, _P],
-    "td_crc32_lanes": [_P, _P, _P, _I, _I, _I, _P],
+    "td_crc32_lanes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "td_parse_transfers": [_P, _P, _I, _I, _P],
     "td_parse_replay": [_P, _P, _P, _I, _I, _P],
     "td_emit_body": [_P] * 13 + [_I, _I, _P],

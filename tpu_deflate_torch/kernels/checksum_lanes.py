@@ -8,12 +8,15 @@ conditioning) of the whole row. The decode rows are left-aligned with a
 zero tail, so :func:`crc32_finish_leftaligned` strips the tail on the host
 with L^-8k and applies the standard init/final XORs.
 
-The kernel (``csrc/crc32_lanes.cu``) is a table CRC of each 512-byte chunk
-and a combine tree with the 32 x 32 GF(2) level matrices, kept as 32
-words each. The plain version is the reference's GF(2) algorithm: a
-bit-matrix product per chunk, then the same tree as bit-matrix products,
-in float64 (0/1 sums of at most 4096 terms are exact) with the parity
-taken as an integer.
+The kernel (``csrc/crc32_lanes.cu``) splits each row over a cluster of
+blocks (:func:`kernel_split`), folds 64-byte pieces per lane with table
+lookups and combines the lanes' registers with GF(2) operators kept as 32
+words each (:func:`kernel_tables`), then shifts each warp's register to the
+end of the row with an operator of its own (:func:`warp_ops`) before the
+XOR of all of them. The plain version is the reference's GF(2) algorithm:
+a bit-matrix product per chunk, then a tree of bit-matrix products with
+the level matrices, in float64 (0/1 sums of at most 4096 terms are exact)
+with the parity taken as an integer.
 """
 
 from __future__ import annotations
@@ -65,6 +68,76 @@ def level_ops(chunk_bytes: int, levels: int) -> np.ndarray:
     return out
 
 
+KERNEL_PIECES = (16, 64)  # bytes a lane folds a step: 16 for rows of 1 or 2 chunks, else 64
+KERNEL_WARPS = 8  # warps a block
+KERNEL_MIN_STEPS = 2  # warp steps a warp where the row has them: the second load overlaps the first fold
+KERNEL_MAX_CLUSTER = 8  # blocks a row
+KERNEL_TARGET_BLOCKS = 256  # blocks a launch should have
+
+
+def kernel_split(L: int, width: int) -> tuple[int, int, int, int]:
+    """How the kernel cuts a batch of L rows of ``width`` bytes: (P bytes a
+    lane folds a step, C blocks (one cluster) a row, wu warps a block, S
+    steps a warp). A warp step covers 32 P bytes. C doubles from 1 while the
+    launch has fewer than KERNEL_TARGET_BLOCKS blocks and each warp keeps
+    KERNEL_MIN_STEPS steps, up to 8: the decode's 256- and 178-row batches
+    of 64 KiB rows take C = 1 and 2, the encoder's 64-row batches C = 2."""
+    P = KERNEL_PIECES[1] if width >= 4 * CHUNK_BYTES else KERNEL_PIECES[0]
+    units = width // (32 * P)
+    C = 1
+    while (
+        C < KERNEL_MAX_CLUSTER
+        and L * C < KERNEL_TARGET_BLOCKS
+        and units // (2 * C) >= KERNEL_WARPS * KERNEL_MIN_STEPS
+    ):
+        C *= 2
+    per_block = units // C
+    wu = min(KERNEL_WARPS, per_block)
+    return P, C, wu, per_block // wu
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables() -> np.ndarray:
+    """The kernel's tables as one uint32 array: slice-by-8 (8, 256), T_k[b]
+    = the register after byte b and k zero bytes; then for each piece size
+    P in KERNEL_PIECES the shift past one warp step of 32 P bytes,
+    byte-sliced (4, 256), A[i][v] = the shift of v << 8 i, and the lane
+    operators (32 bits, 32 lanes), the image of bit b under the shift past
+    P (31 - lane) bytes."""
+    t8 = [_crc_table()]
+    for _ in range(7):
+        prev = t8[-1]
+        t8.append((prev >> np.uint32(8)) ^ t8[0][prev & np.uint32(0xFF)])
+    parts = [np.stack(t8).ravel()]
+    v = np.arange(256, dtype=np.uint32)
+    for piece in KERNEL_PIECES:
+        a_op = op_shift_n_bits(8 * 32 * piece)
+        parts.append(np.stack([op_apply(a_op, v << np.uint32(8 * i)) for i in range(4)]).ravel())
+        lane_ops = [op_shift_n_bits(8 * piece * (31 - j)) for j in range(32)]
+        parts.append(np.stack(lane_ops, axis=1).ravel())  # [bit][lane]
+    return np.concatenate(parts).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def warp_ops(width: int, P: int, C: int, wu: int, S: int) -> np.ndarray:
+    """(C wu, 32) uint32: for warp g of a row, the operator that shifts a
+    register at the end of the warp's span past the rest of the row,
+    width - (g + 1) S 32 P bytes (word b = the image of bit b)."""
+    return np.stack([op_shift_n_bits(8 * (width - (g + 1) * S * 32 * P)) for g in range(C * wu)])
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def _on_device(key, make, dev: torch.device) -> torch.Tensor:
+    """make() (a uint32 array) on the device, uploaded once per key."""
+    t = _DEVICE_TABLES.get((dev, key))
+    if t is None:
+        t = torch.from_numpy(make().view(np.int32)).to(dev)
+        _DEVICE_TABLES[(dev, key)] = t
+    return t
+
+
 def _levels(width: int) -> int:
     n_chunks = width // CHUNK_BYTES
     return max(1, int(n_chunks).bit_length() - 1)
@@ -108,13 +181,16 @@ def crc32_lanes_raw8(rows: torch.Tensor) -> torch.Tensor:
     if not _build.on_card(rows):
         return crc32_lanes_raw8_plain(rows)
     dev = rows.device
-    levels = _levels(W)
-    ops = torch.from_numpy(level_ops(CHUNK_BYTES, levels).view(np.int32)).to(dev)
+    if rows.data_ptr() % 16:
+        rows = rows.clone()  # the kernel reads 16 bytes a load
+    split = kernel_split(L, W)
+    tables = _on_device("tables", kernel_tables, dev)
+    ops = _on_device((W, *split), lambda: warp_ops(W, *split), dev)
     raw = torch.empty(L, dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.td_crc32_lanes(
-            rows.data_ptr(), ops.data_ptr(), raw.data_ptr(), L, W, levels, _build.stream(dev)
+            rows.data_ptr(), tables.data_ptr(), ops.data_ptr(), raw.data_ptr(), L, W, *split, _build.stream(dev)
         )
     _build.check(err, "td_crc32_lanes")
     LAUNCHES["crc32_lanes"] += 1
