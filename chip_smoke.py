@@ -20,24 +20,33 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    sentinels, deltas of 0 and 60, hops of 64 and 200, the int32 limits),
    K3 again at every k1 on the main path's own 4-lane waves, on edge
    deltas (0, -5, 60, the int32 limits, dense sentinels; entries 0, 47, 48
-   and 255) and on tiles of 512 one-bit deltas, the resolve kernels (K5
+   and 255) and on tiles of 512 one-bit deltas, K4 and K7 again on the
+   main path's own 4-lane waves (K3's tokens at k1 104 and 512) and on
+   edge lanes (every entry valid, none, only the last, only the last 300,
+   literal ranks 0 and 255 under random planes, match tokens of 256; M of
+   128, 1001, 4099, 5120 and 8228 at 7 and 672 lanes, and a row that is not
+   16-byte aligned), the resolve kernels (K5
    expand, K6 sweep) and the lane CRC on the main path's two resolve
    batches (256 and 178 members x 65536 slots) built from the corpus's own
    tokens, the lane CRC also on the encoder's first batch (64 x 64 KiB,
    finished CRCs against zlib) and on random rows of 512 and 524288 bytes,
    K5/K6 on lanes at the resolve's edges (errors, an empty lane, regions
    past 32 KiB, output past 64 KiB, random far matches, only 258-runs,
-   only literals), and K5/K6 once more with 32 KiB of history on the tiles
+   only literals), K6 on sources written directly (32768 back at every
+   step's edges, chains across steps, distance-1 chains, random sources up
+   to 32768 back) with a zero and a random tail, and K5/K6 once more with
+   32 KiB of history on the tiles
    of a 1 MiB multi-block stream. Outputs must be equal (the pipeline is integer-only, so the tolerance is exact equality; the sweep's round
    count, a diagnostic, is not compared); median times beside each
    kernel's bound;
 4. the main path: ``engine.decompress`` of the 48 MiB corpus with the
    defaults (device resolve), byte-exact, every Huffman member resolved on
    the device and every main-path kernel launched, with each kernel's
-   bound per launch and summed over the run (with --profile, each K3 and
-   lane CRC launch's device time beside its bound); 5 timed runs;
+   bound per launch and summed over the run (with --profile, each K3, K4,
+   K6 and lane CRC launch's device time beside its bound); 5 timed runs;
 5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
-   byte-exact with the packed token pull (K7) launched, and 3 timed runs
+   byte-exact with the packed token pull (K7) launched (with --profile,
+   each K4 and K7 launch's device time beside its bound), and 3 timed runs
    of it on the 48 MiB corpus for comparison;
 6. the ``device_resolve="on"`` route: a gzip -9 stream of 1 MiB in one
    member with the member index (multi-block, > 64 KiB), resolved on the
@@ -64,8 +73,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    short tail) encoded on the card and with the plain versions on the CPU
    at efforts 1, 2, 3 and 5 must be byte-identical.
 
-The last lines are a JSON record of the kernels, the card's name and
-power limit, and the JSON verdict. ``--profile DIR`` adds a torch.profiler
+The build phase prints each kernel's registers and shared memory (ptxas)
+and the resident blocks per SM of K4/K7's and K6's kernels. The last lines
+are a JSON record of the kernels, the card's name and power limit, and the
+JSON verdict. ``--profile DIR`` adds a torch.profiler
 pass (device time per kernel) and a cProfile pass (host time per
 function) of the decode's and of the encode's main path, written into DIR.
 """
@@ -74,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gzip
 import json
 import os
@@ -192,10 +204,12 @@ def tensor_bytes(x) -> int:
 def recorded(*names):
     """Wrap each (module, function name) for the block; yields {name: [the
     bytes each call moves: its tensor arguments read once, its tensor
-    results written once]} and {name: [each call's first argument's shape
-    and keyword arguments]}, in call order."""
+    results written once]}, {name: [each call's first argument's shape
+    and keyword arguments]}, in call order, and the names of all calls in
+    call order."""
     calls = {name: [] for _module, name in names}
     shapes = {name: [] for _module, name in names}
+    order = []
     saved = [(module, name, getattr(module, name)) for module, name in names]
 
     def wrap(name, fn):
@@ -203,30 +217,38 @@ def recorded(*names):
             out = fn(*args, **kwargs)
             calls[name].append(tensor_bytes(args) + tensor_bytes(out))
             shapes[name].append(f"{list(args[0].shape)}{''.join(f' {k}={v}' for k, v in kwargs.items())}")
+            order.append(name)
             return out
         return wrapper
 
     for module, name, fn in saved:
         setattr(module, name, wrap(name, fn))
     try:
-        yield calls, shapes
+        yield calls, shapes, order
     finally:
         for module, name, fn in saved:
             setattr(module, name, fn)
 
 
 # wrapper -> its kernel's name in a profile, for the per-launch bounds
-PROFILE_NAMES = {"stage_dc": "stage_dc_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel"}
+PROFILE_NAMES = {
+    "stage_dc": "stage_dc_kernel", "compact_flat": "compact_kernel", "compact_any": "compact_kernel",
+    "sweep": "sweep_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel",
+}
 
 
-def launch_bounds(calls: dict, shapes: dict) -> dict:
-    """{profile kernel name: [(bytes bound in us, the call's shapes)] per
-    launch} of the wrappers in PROFILE_NAMES."""
-    return {
-        PROFILE_NAMES[name]: [(b / HBM_BYTES_PER_S * 1e6, sh) for b, sh in zip(nbytes, shapes[name])]
-        for name, nbytes in calls.items()
-        if name in PROFILE_NAMES
-    }
+def launch_bounds(calls: dict, shapes: dict, order: list) -> dict:
+    """{profile kernel name: [(bytes bound in us, the wrapper and the call's
+    shapes)] per launch, in call order} of the wrappers in PROFILE_NAMES."""
+    out: dict = {}
+    seen = {name: 0 for name in calls}
+    for name in order:
+        i = seen[name]
+        seen[name] += 1
+        if name in PROFILE_NAMES:
+            out.setdefault(PROFILE_NAMES[name], []).append(
+                (calls[name][i] / HBM_BYTES_PER_S * 1e6, f"{name} {shapes[name][i]}"))
+    return out
 
 
 def path_bounds(label: str, calls: dict) -> None:
@@ -287,8 +309,19 @@ def phase_build() -> None:
     from tpu_deflate_torch import _build
 
     t0 = time.monotonic()
-    _build.load()
+    lib = _build.load()
     log(f"build: {_build.library_path()} in {time.monotonic() - t0:.1f} s")
+    for entry, variants in (("td_compact_occupancy", ("compact_kernel<4, map>", "compact_kernel<4, no map>",
+                                                      "compact_kernel<16, map>", "compact_kernel<16, no map>")),
+                            ("td_sweep_occupancy", ("sweep_kernel",))):
+        fn = getattr(lib, entry, None)
+        if fn is None:
+            log(f"occupancy: {entry} is not in this build")
+            continue
+        blocks = (ctypes.c_int * len(variants))()
+        require(fn(blocks) == 0, f"{entry} failed")
+        log("occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+            + ", ".join(f"{v} {b} blocks per SM" for v, b in zip(variants, blocks)))
     log_path = _build.library_path()[:-3] + ".log"
     if os.path.exists(log_path):
         with open(log_path) as f:
@@ -560,35 +593,112 @@ def k3_chain_inputs():
     return delta, token, torch.zeros((4, 128), dtype=torch.int32)
 
 
-def phase_k3_edges(gz: bytes, device, K: Kernels) -> None:
-    """K3 against its plain version at every k1: on the main path's own
-    waves of at most 4 lanes (their inputs taken from a run of the main
-    path's wave grouping), on the edge deltas and on 512-link chains."""
+def main_path_small_waves(gz: bytes, device) -> list:
+    """The main path's waves of at most 4 lanes, taken from a run of its
+    wave grouping: (what, K3's inputs delta, token and entries, the wave's
+    literal planes) each."""
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import decode_v2 as pv2
-    from tpu_deflate_torch.codec import wave_prep as wp
 
-    small = []
-    stage_dc = dk.stage_dc
+    small, pending = [], []
+    stage_dc, compact_flat = dk.stage_dc, dk.compact_flat
 
-    def capture(d, t, e, *, k1):
+    def capture_dc(d, t, e, *, k1):
         if d.shape[0] <= 4:
-            small.append((f"main-path wave L={d.shape[0]} NT={d.shape[2]} k1={k1}", d.clone(), t.clone(),
-                          e.clone()))
+            pending.append((f"main-path wave L={d.shape[0]} NT={d.shape[2]} k1={k1}", d.clone(), t.clone(),
+                            e.clone()))
         return stage_dc(d, t, e, k1=k1)
 
-    dk.stage_dc = capture
+    def capture_flat(tok, planes):
+        if tok.shape[0] <= 4:  # the wave's stage_dc came just before
+            small.append((*pending.pop(), planes.clone()))
+        return compact_flat(tok, planes)
+
+    dk.stage_dc, dk.compact_flat = capture_dc, capture_flat
     try:
         pv2.single_block_tokens([p for _m, p in huffman_members(gz)], device)
     finally:
-        dk.stage_dc = stage_dc
-    require(bool(small), "the main path has no wave of at most 4 lanes")
-    cases = small + [("int32 limits, stops, sentinels", *(x.to(device) for x in k3_edge_inputs())),
-                     ("512 one-bit deltas", *(x.to(device) for x in k3_chain_inputs()))]
+        dk.stage_dc, dk.compact_flat = stage_dc, compact_flat
+    require(bool(small) and not pending, "the main path has no wave of at most 4 lanes")
+    return small
+
+
+def phase_k3_edges(small: list, device, K: Kernels) -> None:
+    """K3 against its plain version at every k1: on the main path's own
+    waves of at most 4 lanes, on the edge deltas and on 512-link chains."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import wave_prep as wp
+
+    cases = [w[:4] for w in small] + [
+        ("int32 limits, stops, sentinels", *(x.to(device) for x in k3_edge_inputs())),
+        ("512 one-bit deltas", *(x.to(device) for x in k3_chain_inputs()))]
     for what, d, tk, e in cases:
         for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
             K.compare("stage_dc", lambda: dk.stage_dc(d, tk, e, k1=k1), lambda: dk.stage_dc_plain(d, tk, e, k1),
                       [d, tk, e], {"edge": what, "delta": list(d.shape), "k1": k1}, main_path=False)
+
+
+def compact_edge_lanes(M: int, reps: int, seed: int):
+    """(reps * 7, M) int32 entries and (reps * 7, 64) int32 random literal
+    planes, the lanes cycling through K4's and K7's edges: every entry
+    valid; none; only the last; only the last 300 (the last segment);
+    density 0.3; literal ranks 0 and 255 and tokens of 256; density 0.97.
+    Valid entries are literal ranks (0 and 255 among them) and match tokens
+    (>= 256, passed through unmapped), invalid ones -1, -2 and INT_MIN."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    L = 7 * reps
+    valid = np.where(rng.random((L, M)) < 0.5, rng.integers(0, 256, (L, M)),
+                     rng.integers(256, 1 << 27, (L, M)))
+    valid[:, : min(2, M)] = [0, 255][: min(2, M)]
+    invalid = rng.choice(np.array([-1, -1, -1, -2, -(2**31)]), (L, M))
+    keep = np.zeros((L, M), bool)
+    kind = np.arange(L) % 7
+    keep[kind == 0] = True
+    keep[kind == 2, M - 1] = True
+    keep[kind == 3, max(0, M - 300):] = True
+    keep[kind == 4] = rng.random((int((kind == 4).sum()), M)) < 0.3
+    keep[kind == 6] = rng.random((int((kind == 6).sum()), M)) < 0.97
+    r5 = kind == 5
+    valid[r5] = np.where(np.arange(M) % 3 == 0, 0, np.where(np.arange(M) % 3 == 1, 255, 256))
+    keep[r5] = np.arange(M) % 4 != 3
+    tok = np.where(keep, valid, invalid).astype(np.int32)
+    planes = rng.integers(-(2**31), 2**31, (L, 64), dtype=np.int64).astype(np.int32)
+    return tok, planes
+
+
+def phase_compact_edges(small: list, device, K: Kernels) -> None:
+    """K4 and K7 against their plain version on the main path's own waves of
+    at most 4 lanes (K3's tokens at k1 104 and 512, the wave's planes), and
+    on the edge lanes of compact_edge_lanes at M = 128, 1001, 4099, 5120 and
+    8228 (M not a multiple of 4 takes scalar loads; 7 lanes take 1024-entry
+    segments, 672 lanes 4096-entry ones) and once from a row that is not
+    16-byte aligned."""
+    import torch
+
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import wave_prep as wp
+
+    cases = []
+    for what, d, tk, e, planes in small:
+        L, _, NT = d.shape
+        for k1 in (104, wp.W_P):
+            tokc, _summ = dk.stage_dc(d, tk, e, k1=k1)
+            cases.append((f"{what.rsplit(' k1=', 1)[0]} tokens at k1={k1}", tokc.reshape(L, NT * k1), planes))
+    for M in (128, 1001, 4099, 5120, 8228):
+        for reps in (1, 96):
+            tok, planes = compact_edge_lanes(M, reps, seed=M + reps)
+            cases.append((f"edge lanes M={M}", torch.from_numpy(tok).to(device), torch.from_numpy(planes).to(device)))
+    tok, planes = compact_edge_lanes(5120, 1, seed=3)
+    flat = torch.empty(tok.size + 1, dtype=torch.int32, device=device)
+    cases.append(("edge lanes, a row not 16-byte aligned", flat[1:].view(tok.shape).copy_(torch.from_numpy(tok)),
+                  torch.from_numpy(planes).to(device)))
+    for what, tok, planes in cases:
+        K.compare("compact_flat", lambda: dk.compact_flat(tok, planes), lambda: dk.compact_plain(tok, planes),
+                  [tok, planes], {"edge": what, "tok": list(tok.shape)}, main_path=False)
+        K.compare("compact_any", lambda: dk.compact_any(tok), lambda: dk.compact_plain(tok, None), [tok],
+                  {"edge": what, "tok": list(tok.shape)}, main_path=False)
 
 
 def phase_crc_edges(corpus: bytes, device, K: Kernels) -> None:
@@ -695,6 +805,17 @@ def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels) -> None:
             proj=lambda out: (out[0], out[1][:, 0]),
         )
 
+    s_y0, s_src = (torch.from_numpy(a).to(device) for a in sweep_edge_inputs(N))
+    Ls = s_y0.shape[0]
+    for hist in (0, rs.TAIL):
+        s_tail = torch.randint(0, 256, (Ls, rs.TAIL), generator=rng, dtype=torch.int32).to(device)
+        s_tail = s_tail if hist else torch.zeros_like(s_tail)
+        K.compare(
+            "sweep", lambda: rs.sweep(s_tail, s_y0, s_src), lambda: rs.sweep_plain(s_tail, s_y0, s_src),
+            [s_tail, s_y0, s_src], {"edge sources": [Ls, N], "tail": "random" if hist else "zeros"},
+            main_path=False, proj=lambda out: (out[0], out[1][:, 0]),
+        )
+
     data = corpus[:FOREIGN_BYTES]
     raw_stream = foreign_raw(data)
     st = pv2.decode_deflate_streams_v2([raw_stream], device)[0]
@@ -751,6 +872,36 @@ def edge_tokens(n_pos: int, match_bit: int):
     return out
 
 
+def sweep_edge_inputs(n_pos: int):
+    """(5, n_pos) int32 y0 and src written directly (not by expand): a
+    literal lane whose positions at every 1024-position step's start,
+    middle and end take a source exactly 32768 back; sources 700 back (chains
+    that cross steps and run inside them) among 10 % literals; sources 1
+    back (in-step chains of up to 1023 links, a lane of distance-1 runs that
+    expand would have collapsed); random sources up to 32768 back among
+    half literals; chains that hop 600 back over each step's start, then
+    300 back inside the step."""
+    import numpy as np
+
+    rng = np.random.default_rng(43)
+    p = np.arange(n_pos)
+    lits = rng.integers(0, 256, (5, n_pos))
+    y0 = np.full((5, n_pos), -1, np.int64)
+    src = np.zeros((5, n_pos), np.int64)
+    edge = (p % 1024 == 0) | (p % 1024 == 512) | (p % 1024 == 1023)
+    y0[0] = np.where(edge, -1, lits[0])
+    src[0] = np.where(edge, p - 32768, p)
+    y0[1] = np.where((p < 700) | (rng.random(n_pos) < 0.1), lits[1], -1)
+    src[1] = p - 700
+    y0[2] = np.where(p % 5000 == 0, lits[2], -1)
+    src[2] = p - 1
+    y0[3] = np.where(rng.random(n_pos) < 0.5, lits[3], -1)
+    src[3] = p - rng.integers(1, 32769, n_pos)
+    y0[4] = np.where(p % 1024 < 8, lits[4], -1)
+    src[4] = np.where(p % 1024 < 600, p - 600, p - 300)
+    return y0.astype(np.int32), src.astype(np.int32)
+
+
 def foreign_raw(data: bytes) -> bytes:
     """The raw DEFLATE payload of a gzip -9 stream of data."""
     gz = gzip.compress(data, 9)
@@ -792,7 +943,7 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as (calls, shapes):
+    with recorded(*kernels) as (calls, shapes, order):
         dk.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
@@ -805,7 +956,7 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
     log(f"main path stats: {json.dumps(stats)}")
     log(f"launches in the main-path run: {json.dumps(launches)}")
     path_bounds("decode", calls)
-    bounds = launch_bounds(calls, shapes)
+    bounds = launch_bounds(calls, shapes, order)
     for k, (_src, _tpu, path) in KERNELS.items():
         if path == "main":
             require(launches[k] > 0, f"kernel {k} was not launched on the main path")
@@ -819,9 +970,11 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
     return launches, med, bounds
 
 
-def phase_off_route(corpus: bytes, gz: bytes) -> dict:
-    """The host-resolve route: K7 and the wave kernels at a smaller depth,
-    then timed at the main path's depth for comparison."""
+def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None) -> dict:
+    """The host-resolve route: K7 and the wave kernels at a smaller depth
+    (with a profile dir: then profiled, each K4 and K7 launch's device time
+    beside its bound), then timed at the main path's depth for
+    comparison."""
     import bench
     from tpu_deflate_torch import engine, native
     from tpu_deflate_torch.codec import decode_kernels as dk
@@ -831,9 +984,12 @@ def phase_off_route(corpus: bytes, gz: bytes) -> dict:
     off = DecoderConfig(device_resolve="off")
     small = bench.make_corpus(OFF_CORPUS_MB)
     gz_small = native.compress_members_native(small)
-    dk.reset_launches()
-    out = engine.decompress(gz_small, engine="cuda", config=off)
-    launches = dict(dk.LAUNCHES)
+    with recorded((dk, "compact_flat"), (dk, "compact_any")) as (calls, shapes, order):
+        dk.reset_launches()
+        t0 = time.monotonic()
+        out = engine.decompress(gz_small, engine="cuda", config=off)
+        wall = time.monotonic() - t0
+        launches = dict(dk.LAUNCHES)
     stats = dict(pv2.LAST_DECODE_STATS)
     require(out == small, "device_resolve='off' output differs")
     log(f"off route ({OFF_CORPUS_MB} MiB): byte-exact, stats {json.dumps(stats)}, "
@@ -841,6 +997,9 @@ def phase_off_route(corpus: bytes, gz: bytes) -> dict:
     for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any"):
         require(launches[k] > 0, f"kernel {k} was not launched on the off route")
     require(stats["device_resolved"] == 0 and launches["expand"] == 0, "off route resolved on device")
+    if profile_dir:
+        phase_profile(lambda: engine.decompress(gz_small, engine="cuda", config=off), "off route",
+                      profile_dir, "profile_off", ("compact_kernel",), wall, launch_bounds(calls, shapes, order))
     walls = timed_decode(gz, corpus, OFF_REPS, config=off)
     med = statistics.median(walls)
     log(f"off route ({CORPUS_MB} MiB) {OFF_REPS} timed runs: median {med:.4f} s = "
@@ -1142,7 +1301,7 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     kernels = [(pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as (calls, shapes):
+    with recorded(*kernels) as (calls, shapes, order):
         _build.reset_launches()
         t0 = time.monotonic()
         gz = engine.compress(corpus, engine="cuda")
@@ -1151,7 +1310,7 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
         launches = _build.all_launches()
     log(f"encode run 1: {wall:.3f} s, {len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
     path_bounds("encode", calls)
-    bounds = launch_bounds(calls, shapes)
+    bounds = launch_bounds(calls, shapes, order)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
@@ -1232,14 +1391,16 @@ def main(argv: list[str]) -> int:
     phase_wave_kernels(gz, device, K)
     phase_k1_edges(gz, device, K)
     phase_k2_edges(device, K)
-    phase_k3_edges(gz, device, K)
+    small = main_path_small_waves(gz, device)
+    phase_k3_edges(small, device, K)
+    phase_compact_edges(small, device, K)
     phase_resolve_kernels(gz, corpus, device, K)
     phase_crc_edges(corpus, device, K)
     launches, timed_median_s, bounds = phase_main_path(corpus, gz, n_huff)
     if args.profile:
         phase_profile(lambda: engine.decompress(gz, engine="cuda"), "decode", args.profile, "profile",
                       PROFILE_KERNELS, timed_median_s, bounds)
-    off_launches = phase_off_route(corpus, gz)
+    off_launches = phase_off_route(corpus, gz, args.profile)
     phase_on_route(corpus)
     phase_interop(corpus, gz, device)
 

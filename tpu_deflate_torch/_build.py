@@ -50,9 +50,11 @@ SIGNATURES = {
     "td_stage_a": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "td_stage_b": [_P, _P, _I, _I, _P],
     "td_stage_dc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "td_compact": [_P, _P, _P, _I, _I, _I, _P],
+    "td_compact": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "td_compact_occupancy": [_P],
     "td_expand": [_P, _P, _P, _P, _I, _I, _P],
     "td_sweep": [_P, _P, _P, _P, _P, _I, _P],
+    "td_sweep_occupancy": [_P],
     "td_crc32_lanes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "td_parse_transfers": [_P, _P, _I, _I, _P],
     "td_parse_replay": [_P, _P, _P, _I, _I, _P],

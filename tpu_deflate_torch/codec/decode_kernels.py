@@ -519,6 +519,8 @@ def stage_dc(
 # Level-2 compaction (K4; K7 is its no-map mode)
 # ---------------------------------------------------------------------------
 
+COMPACT_MIN_SEGMENT = 1024  # entries of the smaller segment of csrc/compact.cu
+
 
 def map_literals_plain(tok: torch.Tensor, lit_planes: torch.Tensor) -> torch.Tensor:
     """Literal rank (< 256) -> byte through the lane's 8 bit planes."""
@@ -555,11 +557,14 @@ def _compact(tok: torch.Tensor, lit_planes: torch.Tensor | None) -> torch.Tensor
     if not on_card:
         return compact_plain(tok, lit_planes)
     out = torch.empty_like(tok)
+    # Each (lane, segment)'s look-back status word, then the segments'
+    # ticket counter, sized for the smallest segment.
+    scratch = torch.zeros(L * -(-M // COMPACT_MIN_SEGMENT) + 1, dtype=torch.int64, device=tok.device)
     lib = _build.load()
     with torch.cuda.device(tok.device):
         err = lib.td_compact(
             tok.data_ptr(), 0 if lit_planes is None else lit_planes.data_ptr(), out.data_ptr(),
-            L, M, int(lit_planes is not None), _build.stream(tok.device),
+            scratch.data_ptr(), L, M, int(lit_planes is not None), _build.stream(tok.device),
         )
     _build.check(err, "td_compact")
     LAUNCHES["compact_flat" if lit_planes is not None else "compact_any"] += 1

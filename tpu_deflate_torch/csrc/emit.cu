@@ -44,6 +44,7 @@
 // any other slot, or more bits than the buffer, is placed slot by slot with
 // atomicOr into device memory once its first bit is known.
 #include "td_common.cuh"
+#include "td_lookback.cuh"
 #include "td_scan.cuh"
 
 namespace {
@@ -58,7 +59,6 @@ constexpr int E_THREADS = 512;
 constexpr int E_WARPS = E_THREADS / 32;
 constexpr int GROUP = SEG / 2;                  // a thread's group g holds GROUP g + 4 tid + {0..3}
 constexpr int BUF_WORDS = SEG * 48 / 32 + 1;    // + 1: the funnel shift reads one past the end
-constexpr unsigned long long FLAG_AGG = 1ull << 32, FLAG_PREFIX = 2ull << 32;
 
 struct Fields {
   const int *sym, *flags, *leb, *lev, *dsym, *deb, *dev;
@@ -114,40 +114,6 @@ __device__ __forceinline__ void or_slot(uint32_t* dst, int limit, int off, uint3
 
 __device__ __forceinline__ int comp(const int4& v, int k) {
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
-}
-
-// The segment's first bit in its lane: publish this segment's aggregate,
-// add the predecessors' aggregates back to the nearest inclusive prefix (32
-// segments per round, one per thread of the warp), publish the inclusive
-// prefix. Run by one whole warp.
-__device__ int look_back(unsigned long long* status, int seg, int agg, int hdr) {
-  const int lid = threadIdx.x & 31;
-  if (seg == 0) {
-    if (lid == 0) atomicExch(&status[0], FLAG_PREFIX | (uint32_t)(hdr + agg));
-    return hdr;
-  }
-  if (lid == 0) atomicExch(&status[seg], FLAG_AGG | (uint32_t)agg);
-  int excl = 0;
-  for (int top = seg - 1;; top -= 32) {
-    const int j = top - lid;
-    unsigned long long v = FLAG_PREFIX;  // before segment 0: nothing to add
-    if (j >= 0) {
-      // Segment j's block runs already (its ticket came first), so it
-      // publishes; a fault that kept it from doing so traps, not hangs.
-      const volatile unsigned long long* p = status + j;
-      for (unsigned spins = 0; (v = *p) >> 32 == 0; ++spins)
-        if (spins > (1u << 28)) __trap();
-    }
-    const unsigned prefix = __ballot_sync(0xffffffffu, (v >> 32) == 2);
-    const int stop = prefix ? __ffs(prefix) - 1 : 31;  // nearest prefix in this round
-    int x = lid <= stop ? (int)(uint32_t)v : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    excl += x;
-    if (prefix) break;
-  }
-  if (lid == 0) atomicExch(&status[seg], FLAG_PREFIX | (uint32_t)(excl + agg));
-  return excl;
 }
 
 __device__ __forceinline__ int4 ld4(const int* p) { return __ldg(reinterpret_cast<const int4*>(p)); }
