@@ -30,6 +30,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    batches (256 and 178 members x 65536 slots) built from the corpus's own
    tokens, the lane CRC also on the encoder's first batch (64 x 64 KiB,
    finished CRCs against zlib) and on random rows of 512 and 524288 bytes,
+   crc32_device and adler32_device against zlib at four sizes,
    K5/K6 on lanes at the resolve's edges (errors, an empty lane, regions
    past 32 KiB, output past 64 KiB, random far matches, only 258-runs,
    only literals), K6 on sources written directly (32768 back at every
@@ -50,7 +51,21 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    of it on the 48 MiB corpus for comparison;
 6. the ``device_resolve="on"`` route: a gzip -9 stream of 1 MiB in one
    member with the member index (multi-block, > 64 KiB), resolved on the
-   device in chained tiles;
+   device in chained tiles; then the big members (the counterpart of the
+   reference's ``kernel_only_bench_big``): 16 zlib -9 members of 1 MiB and
+   a single-block member of 256 KiB through ``engine.decompress`` with the
+   defaults, byte-exact, every member on the device route (tokens kept on
+   the card, tile split, chained K5/K6 and lane CRC) with every kernel of
+   the route launched and K7 not, each kernel's bound per launch, and each
+   kernel against its plain version on the arguments the route gave it
+   (its block waves, a first and a chained step of each tile group, the
+   CRC at each group's rows); its device memory peak; the split on the
+   card equal to ``split_tokens_tiles`` and each chained CRC equal to zlib
+   on the same tokens, with the split's memory a token; under a 512 KiB
+   batch bound the 1 MiB members on the host route and the 256 KiB one on
+   the device route; 3 timed runs against 3 of the "off" route (with
+   --profile, the route's device time by kernel beside each launch's
+   bound, the split's, and its idle share);
 7. interop and errors: a foreign gzip stream without the member index,
    a foreign raw multi-block DEFLATE stream through the wave kernels, and a
    corrupted member raising the same Reason on the "auto" and "off" routes;
@@ -230,6 +245,34 @@ def recorded(*names):
             setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def captured(*names, per_key: int = 2):
+    """Wrap each (module, function name) for the block; yields {name:
+    [(args, kwargs)]}: copies of the arguments of the first ``per_key``
+    calls for each lane count (the first argument's first dimension) and
+    keyword arguments, for replaying them against the plain versions."""
+    caps = {name: [] for _module, name in names}
+    seen: dict = {}
+    saved = [(module, name, getattr(module, name)) for module, name in names]
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            key = (name, args[0].shape[0], tuple(sorted(kwargs.items())))
+            if seen.get(key, 0) < per_key:
+                seen[key] = seen.get(key, 0) + 1
+                caps[name].append((tuple(a.clone() if hasattr(a, "clone") else a for a in args), dict(kwargs)))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for module, name, fn in saved:
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield caps
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
 # wrapper -> its kernel's name in a profile, for the per-launch bounds
 PROFILE_NAMES = {
     "stage_dc": "stage_dc_kernel", "compact_flat": "compact_kernel", "compact_any": "compact_kernel",
@@ -253,10 +296,10 @@ def launch_bounds(calls: dict, shapes: dict, order: list) -> dict:
 
 def path_bounds(label: str, calls: dict) -> None:
     """Print each wrapper's bytes bound per launch and summed over one run of
-    a main path (us at the card's memory rate)."""
+    a path (us at the card's memory rate)."""
     for name, nbytes in calls.items():
         us = [b / HBM_BYTES_PER_S * 1e6 for b in nbytes]
-        log(f"{label} main-path bound of {name}: {len(us)} launches, {sum(nbytes)} bytes, "
+        log(f"{label} bound of {name}: {len(us)} launches, {sum(nbytes)} bytes, "
             f"per launch {[round(u, 2) for u in us]} us, summed {sum(us):.2f} us (bytes)")
 
 
@@ -704,7 +747,8 @@ def phase_compact_edges(small: list, device, K: Kernels) -> None:
 def phase_crc_edges(corpus: bytes, device, K: Kernels) -> None:
     """The lane CRC against its plain version on the encoder's first batch
     (64 members of 64 KiB), whose finished CRCs must equal zlib's, and on
-    random rows of the narrowest and widest widths it takes."""
+    random rows of the narrowest and widest widths it takes; crc32_device
+    and adler32_device against zlib."""
     import numpy as np
     import torch
 
@@ -717,6 +761,14 @@ def phase_crc_edges(corpus: bytes, device, K: Kernels) -> None:
     crcs = cl.crc32_finish_leftaligned(raw.cpu().numpy(), np.full(L, MEMBER), MEMBER)
     want = [zlib.crc32(corpus[i * MEMBER : (i + 1) * MEMBER]) for i in range(L)]
     require([int(c) for c in crcs] == want, "lane CRCs of the encode batch differ from zlib")
+    for n in (1, 1000, MEMBER + 7, 3 * FOREIGN_BYTES + 5):
+        buf = corpus[n : 2 * n]
+        require(cl.crc32_device(buf) == zlib.crc32(buf) and cl.adler32_device(buf) == zlib.adler32(buf),
+                f"crc32_device / adler32_device of {n} bytes differ from zlib")
+        require(cl.crc32_device(buf[n // 2 :], zlib.crc32(buf[: n // 2])) == zlib.crc32(buf),
+                f"crc32_device with an init value ({n} bytes) differs from zlib")
+    log("crc32_device and adler32_device on the card equal zlib at 1, 1000, 65543 and 3145733 bytes "
+        "(and crc32_device chained across a split)")
     g = torch.Generator(device="cpu").manual_seed(41)
     for shape in ((L, 512), (4, 512 * 1024)):
         r = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8).to(device)
@@ -955,7 +1007,7 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
     log(f"main path run 1: {wall:.3f} s, {len(corpus) / wall / 1e9:.4f} GB/s, {len(gz)} compressed bytes")
     log(f"main path stats: {json.dumps(stats)}")
     log(f"launches in the main-path run: {json.dumps(launches)}")
-    path_bounds("decode", calls)
+    path_bounds("decode main-path", calls)
     bounds = launch_bounds(calls, shapes, order)
     for k, (_src, _tpu, path) in KERNELS.items():
         if path == "main":
@@ -1026,8 +1078,221 @@ def phase_on_route(corpus: bytes) -> None:
     require(launches["expand"] > 0 and launches["sweep"] > 0, "the 'on' route launched no resolve")
 
 
+BIG_MEMBER = 1 << 20
+BIG_OFFSETS_MIB = tuple(range(8)) + tuple(range(12, 20))  # 8 MiB of the text section, 8 of the records
+BIG_SINGLE = (24 << 20, 256 << 10)  # 256 KiB of the runs section: one zlib -9 block
+BIG_REPS = 3
+SPLIT_REPS = 5
+
+
+def big_members(corpus: bytes) -> tuple[bytes, list[bytes], list[bytes]]:
+    """The big-members stream: 16 TD members, each a zlib -9 raw stream of
+    1 MiB of the corpus (several blocks, 16 tiles each), then one
+    single-block member of 256 KiB (4 tiles). Returns (stream, each
+    member's output, each member's payload)."""
+    chunks = [corpus[o << 20 : (o << 20) + BIG_MEMBER] for o in BIG_OFFSETS_MIB]
+    chunks.append(corpus[BIG_SINGLE[0] : BIG_SINGLE[0] + BIG_SINGLE[1]])
+    payloads = []
+    for c in chunks:
+        co = zlib.compressobj(9, zlib.DEFLATED, -15)
+        payloads.append(co.compress(c) + co.flush())
+    require(payloads[-1][0] & 1 == 1 and (payloads[-1][0] >> 1) & 3 == 2, "the 256 KiB member is not one block")
+    gz = b"".join(td_member(p, len(c), zlib.crc32(c)) for p, c in zip(payloads, chunks))
+    return gz, chunks, payloads
+
+
+BIG_KERNELS = ("stage_a_tables", "stage_a", "stage_b", "stage_dc", "compact_flat", "expand", "sweep", "crc32_lanes")
+
+
+def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels) -> dict:
+    """Big and multi-block members on the card (the counterpart of the
+    reference's kernel_only_bench_big): every member through
+    engine.decompress with the defaults, byte-exact, each resolved on the
+    device route (the block waves' tokens stay on the card, tile split,
+    chained K5/K6 and the lane CRC) and none through K7, with each
+    kernel's bound per launch and each kernel held against its plain
+    version on the arguments the route gave it; the route's device memory
+    peak; then the split on the card against split_tokens_tiles and each
+    member's chained CRC against zlib on the same tokens; the batch bound's
+    routing; timed against the "off" route in this process. Returns the
+    route's launches."""
+    import torch
+
+    from tpu_deflate_torch import engine
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.codec import resolve as rs
+    from tpu_deflate_torch.config import DecoderConfig
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    gz, chunks, payloads = big_members(corpus)
+    data = b"".join(chunks)
+    n_huff = len(payloads)
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+    with recorded(*kernels) as (calls, shapes, order), captured(*kernels) as caps:
+        dk.reset_launches()
+        t0 = time.monotonic()
+        out = engine.decompress(gz, engine="cuda")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(dk.LAUNCHES)
+    stats = dict(pv2.LAST_DECODE_STATS)
+    require(out == data, "big-members output differs")
+    log(f"big members: {n_huff} members, {len(data)} bytes ({len(gz)} compressed) byte-exact in {wall:.3f} s; "
+        f"{stats.get('chained_tiles')} tiles in {stats.get('chained_groups')} groups, {stats['waves']} waves; "
+        f"stats {json.dumps(stats)}")
+    log(f"launches in the big-members run: {json.dumps(launches)}")
+    require(stats["device_resolved"] == n_huff and stats["host_resolved"] == 0,
+            "a big member did not resolve on the device route")
+    for k in BIG_KERNELS:
+        require(launches[k] > 0, f"kernel {k} was not launched on the big-members route")
+    require(launches["compact_any"] == 0, "the big-members route launched K7")
+    path_bounds("big-members route", calls)
+    bounds = launch_bounds(calls, shapes, order)
+    replay_big_calls(caps, K)
+    del caps
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    require(engine.decompress(gz, engine="cuda") == data, "big-members output differs (second run)")
+    torch.cuda.synchronize()
+    log(f"big members: device memory peak {torch.cuda.max_memory_allocated() - mem0} bytes above the {mem0} "
+        "held before the run (torch.cuda.max_memory_allocated)")
+
+    # The split and the chained CRC on the route's own tokens.
+    N = rs.N_POS
+    states = pv2.decode_deflate_streams_v2(payloads, device, device_caps=[len(c) for c in chunks])
+    by_t: dict = {}
+    for st, chunk in zip(states, chunks):
+        require(not st.err and all(isinstance(s, torch.Tensor) for s in st.tokens), "tokens left the card")
+        by_t.setdefault(-(-st.out_total // N), []).append((st, chunk))
+    for T, pairs in sorted(by_t.items()):
+        group = [st for st, _c in pairs]
+        segs = [torch.cat(st.tokens) for st in group]
+        tok = torch.nn.utils.rnn.pad_sequence(segs, batch_first=True, padding_value=-1)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tiles = rs.split_tiles_device(tok, T)
+        torch.cuda.synchronize()
+        split_peak = torch.cuda.max_memory_allocated() - mem0
+        n_tok = int((tok >= 0).sum())
+        for i, seg in enumerate(segs):
+            host = torch.from_numpy(rs.split_tokens_tiles(seg.cpu().numpy())).to(device)
+            require(host.shape[0] == T and torch.equal(tiles[i], host), "the split on the card differs")
+        y8, summs, raws = rs.resolve_tiles_crc(tiles)
+        totals = [st.out_total for st in group]
+        crcs = cl.crc32_fold_tiles(raws.cpu().numpy(), totals, N)
+        y_h = y8.cpu().numpy()
+        want = [zlib.crc32(y_h[i, :n].tobytes()) for i, n in enumerate(totals)]
+        require([int(c) for c in crcs] == want, "a chained CRC differs from zlib")
+        require(all(y_h[i, :n].tobytes() == c for i, (n, (_st, c)) in enumerate(zip(totals, pairs))),
+                "the chained bytes differ from the members")
+        split_ms = median_ms(lambda: rs.split_tiles_device(tok, T), SPLIT_REPS)
+        log(f"big members, T={T}: {len(group)} lanes x {tok.shape[1]} token slots: split on the card equals "
+            f"split_tokens_tiles, chained CRCs equal zlib; split {split_ms:.4f} ms (CUDA events, median of "
+            f"{SPLIT_REPS}), summary rows 3 (residue) {int(summs[:, :, 3].sum())}; the split's device memory "
+            f"peak {split_peak} bytes for {n_tok} tokens ({split_peak / max(n_tok, 1):.1f} bytes a token, "
+            f"its output of {tiles.numel() * 4} bytes included)")
+
+    # With the batch bound below 1 MiB, the 1 MiB members take the host
+    # route (K7 pull, C-core resolve) and the 256 KiB member the device
+    # route, in one stream.
+    bound = pv2.BIG_BATCH_POSITIONS
+    pv2.BIG_BATCH_POSITIONS = 512 << 10
+    try:
+        dk.reset_launches()
+        out = engine.decompress(gz, engine="cuda")
+        mixed = dict(pv2.LAST_DECODE_STATS)
+        require(out == data, "big members under a 512 KiB batch bound differ")
+    finally:
+        pv2.BIG_BATCH_POSITIONS = bound
+    require((mixed["device_resolved"], mixed["host_resolved"]) == (1, n_huff - 1)
+            and dk.LAUNCHES["compact_any"] > 0, "members above the batch bound did not take the host route")
+    log(f"big members under a 512 KiB batch bound: byte-exact, 1 member on the device route, {n_huff - 1} on "
+        f"the host route (K7 launched {dk.LAUNCHES['compact_any']} times)")
+
+    # A member of 1- and 2-bit literal codes overflows its wave's k1: the
+    # k1 = 512 rerun's tokens stay on the card too.
+    runs01 = bytes([0, 1]) * 40000
+    co = zlib.compressobj(9, zlib.DEFLATED, -15, 9, zlib.Z_HUFFMAN_ONLY)
+    member = td_member(co.compress(runs01) + co.flush(), len(runs01), zlib.crc32(runs01))
+    require(engine.decompress(member, engine="cuda") == runs01, "the k1-overflow member differs")
+    require(pv2.LAST_DECODE_STATS["device_resolved"] == 1, "the k1-overflow member left the device route")
+    log("big members: a k1-overflow member (1- and 2-bit codes, 80000 bytes) byte-exact on the device route")
+
+    off = DecoderConfig(device_resolve="off")
+    walls = {"auto": [], "off": []}
+    for _ in range(BIG_REPS):
+        for mode, cfg in (("auto", None), ("off", off)):
+            t0 = time.monotonic()
+            out = engine.decompress(gz, engine="cuda", config=cfg)
+            torch.cuda.synchronize()
+            walls[mode].append(time.monotonic() - t0)
+            require(out == data, f"big members on {mode} differ (timed run)")
+    for mode, w in walls.items():
+        med = statistics.median(w)
+        log(f"big members {mode} route {BIG_REPS} timed runs: median {med:.4f} s = {len(data) / med / 1e9:.4f} GB/s, "
+            f"min {min(w):.4f} s, max {max(w):.4f} s")
+    log(f"gpu: {gpu_name_power()}")
+    if profile_dir:
+        split = rs.split_tiles_device
+
+        def annotated(*a, **kw):
+            with torch.profiler.record_function("split_tiles_device"):
+                return split(*a, **kw)
+
+        rs.split_tiles_device = annotated
+        try:
+            averages = phase_profile(lambda: engine.decompress(gz, engine="cuda"), "big members", profile_dir,
+                                     "profile_big", ("expand_kernel", "sweep_kernel", "crc32_lanes_kernel"),
+                                     statistics.median(walls["auto"]), bounds)
+        finally:
+            rs.split_tiles_device = split
+        for e in averages:
+            if e.key == "split_tiles_device":
+                dev_us = getattr(e, "device_time_total", None)
+                dev_us = e.cuda_time_total if dev_us is None else dev_us
+                what = ("its kernels summed" if e.self_cpu_time_total > 0
+                        else "the device span of its annotation, idle gaps included")
+                log(f"big members split_tiles_device: {e.count} calls, device {dev_us:.1f} us ({what}; profiler)")
+    return launches
+
+
+def replay_big_calls(caps: dict, K: Kernels) -> None:
+    """Each kernel of the big-members route against its plain version on
+    the arguments it was given there (captured: the first two calls of
+    each lane count, so the block waves, step 0 and a chained step of each
+    tile group, and the CRC at each group's rows)."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import resolve as rs
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    # wrapper -> (its kernel's name in the kernels line, module, plain version, projection)
+    plains = {
+        "stage_a_tables": ("stage_a_tables", dk, dk.stage_a_tables_plain, None),
+        "stage_a": ("stage_a", dk, dk.stage_a_plain, None),
+        "stage_b": ("stage_b", dk, dk.stage_b_plain, None),
+        "stage_dc": ("stage_dc", dk, lambda d, t, e, *, k1: dk.stage_dc_plain(d, t, e, k1), None),
+        "compact_flat": ("compact_flat", dk, dk.compact_plain, None),
+        "expand": ("expand", rs, lambda tok, *, hist=0: rs.expand_plain(tok, hist), None),
+        "sweep": ("sweep", rs, rs.sweep_plain, lambda out: (out[0], out[1][:, 0])),
+        "crc32_lanes_raw8": ("crc32_lanes", cl, cl.crc32_lanes_raw8_plain, None),
+    }
+    for wrapper, calls in caps.items():
+        kname, module, plain, proj = plains[wrapper]
+        fn = getattr(module, wrapper)
+        require(bool(calls), f"no {wrapper} call captured on the big-members route")
+        for args, kw in calls:
+            K.compare(kname, lambda: fn(*args, **kw), lambda: plain(*args, **kw),
+                      [a for a in args if hasattr(a, "element_size")],
+                      {"big members": list(args[0].shape), **kw}, main_path=False, proj=proj)
+        calls.clear()
+
+
 def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_median_s: float,
-                  bounds: dict) -> None:
+                  bounds: dict):
     """Device time per kernel (torch.profiler) and host time per function
     (cProfile) of one call of run() each, written into outdir as
     {prefix}_device.txt and {prefix}_host.txt. The device's busy share is
@@ -1081,6 +1346,7 @@ def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_medi
     with open(os.path.join(outdir, f"{prefix}_host.txt"), "w") as f:
         f.write(s.getvalue())
     log(f"profile of one {label} (host cumulative):\n" + "\n".join(s.getvalue().splitlines()[:70]))
+    return averages
 
 
 def phase_interop(corpus: bytes, gz: bytes, device) -> None:
@@ -1309,7 +1575,7 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
         wall = time.monotonic() - t0
         launches = _build.all_launches()
     log(f"encode run 1: {wall:.3f} s, {len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
-    path_bounds("encode", calls)
+    path_bounds("encode main-path", calls)
     bounds = launch_bounds(calls, shapes, order)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
@@ -1402,6 +1668,7 @@ def main(argv: list[str]) -> int:
                       PROFILE_KERNELS, timed_median_s, bounds)
     off_launches = phase_off_route(corpus, gz, args.profile)
     phase_on_route(corpus)
+    big_launches = phase_big_members(corpus, device, args.profile, K)
     phase_interop(corpus, gz, device)
 
     phase_encode_kernels(corpus, device, K)
@@ -1410,7 +1677,7 @@ def main(argv: list[str]) -> int:
         phase_profile(lambda: engine.compress(corpus, engine="cuda"), "encode", args.profile,
                       "profile_encode", ENCODE_PROFILE_KERNELS, enc_median_s, enc_bounds)
     phase_encode_cpu(corpus, device)
-    path_launches = {"main": launches, "off": off_launches, "encode": enc_launches}
+    path_launches = {"main": launches, "off": off_launches, "big": big_launches, "encode": enc_launches}
 
     kernels = [
         {
@@ -1420,6 +1687,7 @@ def main(argv: list[str]) -> int:
             "replaces": tpu,
             "path": path,
             "launches": path_launches[path][name],
+            "launches_by_path": {p: n[name] for p, n in path_launches.items() if name in n},
             "max_abs_err": K.rec[name]["max_abs_err"],
             "ms": K.rec[name]["ms"],
             "plain_ms": K.rec[name]["plain_ms"],

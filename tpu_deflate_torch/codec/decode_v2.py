@@ -10,13 +10,28 @@ device and resolve to bytes there (``resolve``: expand (K5), sweep (K6)),
 the lane CRC-32 kernel checksums each row, and only the small per-lane
 vectors and the final bytes cross to the host.
 
-Other members (multi-block, larger, or a lane the device hands back) take
-the host route: the host walks each raw DEFLATE stream's block chain,
-every wave of Huffman blocks runs through :func:`run_wave`, the packed
-token pull (:func:`pack_tokens`, K7) brings the tokens back and the shared
-C core resolves them, checking the CRC on the host. With
-``device_resolve="on"`` those tokens go back to the device and resolve in
-chained 64 KiB tiles (``resolve.resolve_big_streams``).
+Every other Huffman member (several blocks, more than 64 KiB, or a lane
+the main path hands back) walks its raw DEFLATE block chain on the host,
+one block of each lane per wave through :func:`run_wave`. On the device
+route (:func:`_decode_chained_device`) each block's tokens stay on the
+device, each lane's segments concatenate there, split into 64 KiB tiles
+(``resolve.split_tiles_device``) and resolve and CRC in chained tiles with
+32 KiB tails (``resolve.resolve_tiles_crc``); one byte pull per group of
+lanes. Its batches hold members whose trailers claim at most
+``BIG_BATCH_POSITIONS`` bytes together, which bounds its device memory.
+On the host route the packed token pull (:func:`pack_tokens`, K7) brings
+each block's tokens back, the shared C core resolves them and the host
+checks the CRC; a member claiming more than that bound, and a lane the
+device route hands back (a stage error, a size other than its ISIZE, a
+residue, an error position), take it.
+
+``device_resolve`` picks the routes: "auto" (the default) takes the main
+path and the device route when the device is CUDA, and the host route
+otherwise; "on" takes them on any device (the CPU tests); "off" takes the
+host route for every Huffman member. The reference keeps its big members
+on its host route under "auto", because its tokens reach the host anyway
+and a re-upload over its link is pure loss; here the tokens never leave
+the device, so "auto" keeps them there.
 
 Every function takes an explicit ``device``; on a CPU device the kernels'
 plain versions run (the CPU tests), on a CUDA device the kernels do.
@@ -207,10 +222,16 @@ class LaneState:
     bitpos: int = 0
     done: bool = False
     err: int = 0  # Reason code (reason_to_code), 0 = ok
-    tokens: list = field(default_factory=list)  # np.int32 arrays per block
+    # The token stream's segments in stream order: np.int32 arrays (stored
+    # blocks, and every block on the host route) and int32 tensors on the
+    # decode device (Huffman blocks on the device route).
+    tokens: list = field(default_factory=list)
     out_total: int = 0
     window: int = W_CAP_INIT  # payload bytes per block on the device (grows on demand)
     bitpos_advanced: bool = False  # this wave's block reached its EOB
+    # Device route: Huffman blocks' tokens stay on the device (no K7 pull)
+    # while out_total is at most this; None = host route.
+    device_cap: int | None = None
 
     @property
     def bits(self) -> int:
@@ -274,7 +295,11 @@ def _advance_host(st: LaneState):
 
 
 def decode_deflate_streams_v2(
-    payloads: list[bytes], device: torch.device, stats: dict | None = None
+    payloads: list[bytes],
+    device: torch.device,
+    stats: dict | None = None,
+    *,
+    device_caps: list[int] | None = None,
 ) -> list[LaneState]:
     """Decode raw DEFLATE streams (any block chain) with the wave kernels
     on ``device``.
@@ -282,11 +307,17 @@ def decode_deflate_streams_v2(
     Returns one LaneState per stream with its token stream (stored-block
     bytes inlined as literal tokens, so the LZ77 window carries across
     blocks at resolve time), its exact output size and the Reason code of
-    its first failure (0 = clean). ``stats["waves"]``, when given, counts
-    the device waves run.
+    its first failure (0 = clean). With ``device_caps`` each Huffman
+    block's tokens stay on ``device`` (a copy of the lane's row of the
+    wave) while stream i's output is at most ``device_caps[i]``; a stream
+    that passes its cap (longer than its trailer claims) has its tokens
+    pulled to the host. Without, the packed pull (K7) brings every block's
+    tokens to the host. ``stats["waves"]``, when given, counts the device
+    waves run.
     """
     assert len(payloads) <= V2_LANE_BATCH, "batch the lanes (V2_LANE_BATCH)"
-    lanes = [LaneState(p) for p in payloads]
+    caps = [None] * len(payloads) if device_caps is None else device_caps
+    lanes = [LaneState(p, device_cap=c) for p, c in zip(payloads, caps)]
     while True:
         wave = []  # (lane, bfinal) whose next block is Huffman
         for st in lanes:
@@ -391,9 +422,11 @@ def _dispatch_block_stages(wave, rows, row_bits, hp, truncated, device, stats):
     tokens, *rest = run_wave(w)
     if stats is not None:
         stats["waves"] = stats.get("waves", 0) + 1
+    if wave[0].device_cap is not None:  # one route for every lane of a chain batch
+        return wave, shift2, truncated, w, ("device", tokens), pack_small(*rest)
     bitmap, lit8, match32, nlit = pack_tokens(tokens)
     small = pack_small(*rest, nlit=nlit)
-    return wave, shift2, truncated, w, (bitmap, lit8, match32), small
+    return wave, shift2, truncated, w, ("packed", bitmap, lit8, match32), small
 
 
 def _round_cols(k: int, width: int, bucket: int) -> int:
@@ -402,18 +435,23 @@ def _round_cols(k: int, width: int, bucket: int) -> int:
 
 
 def _apply_small(wave, shift2, truncated, w, packed, small):
-    """Pull a wave's per-lane results, then only the token columns in use."""
+    """Pull a wave's per-lane results, then only the token columns in use
+    (none where the tokens stay on the device)."""
     small_h = small.cpu().numpy()
     if small_h[5, 0]:
         # Some tile held more than k1 tokens (degenerate short-code
         # stream): rerun the wave with k1 = 512, which cannot overflow,
-        # and pull the raw token array.
+        # and take the raw token array.
         tokens, *rest = run_wave(w, k1=W_P)
         small_h = pack_small(*rest).cpu().numpy()
+        if packed[0] == "device":
+            return wave, shift2, truncated, ("device", tokens), small_h
         kmax = int(small_h[0, : len(wave)].max()) if wave else 0
         k = _round_cols(max(kmax, 1), tokens.shape[1], 4096)
         return wave, shift2, truncated, ("raw", tokens[:, :k].cpu().numpy()), small_h
-    bitmap, lit8, match32 = packed
+    if packed[0] == "device":
+        return wave, shift2, truncated, packed, small_h
+    bitmap, lit8, match32 = packed[1:]
     n = len(wave)
     counts = small_h[0, :n]
     nlit = small_h[6, :n]
@@ -444,8 +482,21 @@ def _lane_tokens(payload, small_h, i: int, count: int) -> np.ndarray:
     return tok
 
 
+def _device_segments(tokens: torch.Tensor, take: np.ndarray) -> list:
+    """Row i's first take[i] tokens of a wave's (L, M) tokens, as views of
+    one compact copy on the tokens' device (so the wave tensor is freed),
+    or None where take[i] is 0."""
+    n = len(take)
+    want = torch.from_numpy(take).to(tokens.device)
+    mask = torch.arange(tokens.shape[1], device=tokens.device).view(1, -1) < want.view(n, 1)
+    flat = tokens[:n][mask]
+    parts = iter(flat.split([int(c) for c in take if c]))
+    return [next(parts) if c else None for c in take]
+
+
 def _apply_tokens(wave, shift2, truncated, payload, small_h) -> None:
     counts_h, has_eob_h, eob_exit_h, err_h, total_h = small_h[:5]
+    take = np.zeros(len(wave), np.int64)
     for i, st in enumerate(wave):
         # A window-truncated row can only produce a spurious
         # UNEXPECTED_END or a missing EOB: grow the window and redo the
@@ -454,7 +505,7 @@ def _apply_tokens(wave, shift2, truncated, payload, small_h) -> None:
             st.window *= 4
             continue
         if counts_h[i]:
-            st.tokens.append(_lane_tokens(payload, small_h, i, int(counts_h[i])))
+            take[i] = counts_h[i]
             st.out_total += int(total_h[i])
         if err_h[i]:
             st.err = int(err_h[i])
@@ -464,6 +515,17 @@ def _apply_tokens(wave, shift2, truncated, payload, small_h) -> None:
             st.bitpos_advanced = True
         else:
             st.err = _ERR_END  # ran off the payload without reaching EOB
+    if payload[0] != "device":
+        for i, st in enumerate(wave):
+            if take[i]:
+                st.tokens.append(_lane_tokens(payload, small_h, i, int(take[i])))
+        return
+    segs = _device_segments(payload[1], take) if take.any() else [None] * len(wave)
+    for st, seg in zip(wave, segs):
+        if seg is not None:
+            st.tokens.append(seg)
+        if st.out_total > st.device_cap:  # past its trailer's size: no longer held on the device
+            st.tokens = [s.cpu().numpy() if isinstance(s, torch.Tensor) else s for s in st.tokens]
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +542,8 @@ def _resolve_lane(st: LaneState, cap: int | None) -> bytes:
     order: a bad back-reference comes earlier in the stream than any
     pending stage error, so resolve runs first and the stage error is
     raised only if resolution succeeds."""
-    tokens = (np.concatenate(st.tokens) if st.tokens else np.zeros(0, np.int32)).astype(np.int32)
+    parts = [s.cpu().numpy() if isinstance(s, torch.Tensor) else s for s in st.tokens]
+    tokens = (np.concatenate(parts) if parts else np.zeros(0, np.int32)).astype(np.int32)
     want = cap if (cap is not None and not st.err) else st.out_total + 1
     try:
         out = native.resolve_tokens(tokens, max(want, 1))
@@ -602,6 +665,90 @@ def _decode_single_block_device(
 
 
 # ---------------------------------------------------------------------------
+# Device resolve of every other Huffman member: chained tiles
+# ---------------------------------------------------------------------------
+
+BIG_BATCH_POSITIONS = 1 << 26
+"""Output bytes (positions) that the members of one block-chain batch on
+the device route may claim together in their trailers (ISIZE). It bounds
+what the route holds on the device for a batch: its tokens (int32, at most
+one a position), their padded copy, the tile split's int64 temporaries
+(PERF.md gives their measured bytes a token) and the tiles (4 bytes a
+position) with their byte buffer (1). Members are batched in stream order under it; a member
+that claims more (more than 64 MiB of output) takes the host route (K7
+token pull, C-core resolve), as "auto" sent every such member before the
+device route existed. A lane whose output passes its own ISIZE during the
+block chain has its tokens pulled to the host (it fails the size check
+there)."""
+
+
+def _chain_batches(huff: list, batch_n: int, on_device: bool):
+    """Consecutive runs of ``huff``'s (index, member) pairs for the block-
+    chain driver, in stream order, each with its route (True: the device
+    route): at most ``batch_n`` members a run; on the device route members
+    claiming at most BIG_BATCH_POSITIONS bytes together; a member claiming
+    more, or every member without ``on_device``, on the host route."""
+    batch, claimed, dev = [], 0, False
+    for im in huff:
+        isize = im[1].isize
+        d = on_device and isize <= BIG_BATCH_POSITIONS
+        if batch and (len(batch) == batch_n or d != dev or (d and claimed + isize > BIG_BATCH_POSITIONS)):
+            yield batch, dev
+            batch, claimed = [], 0
+        batch.append(im)
+        claimed += isize
+        dev = d
+    if batch:
+        yield batch, dev
+
+
+def _decode_chained_device(
+    states: list[LaneState], isizes: list[int], verify_crc: bool, device: torch.device, stats: dict
+) -> list[tuple[bytes, int | None] | None]:
+    """Resolve and CRC the lanes of one device-route batch on ``device``.
+
+    Each lane that finished with no stage error and exactly its trailer's
+    size (``isizes``; the host route fails any other, and stops resolving
+    at the ISIZE) concatenates its token segments on the device; its tile
+    count is T = ceil(out_total / N_POS). Lanes group by T and each group
+    runs the tile split (:func:`resolve.split_tiles_device`), T chained
+    steps of K5, K6 and the lane CRC (:func:`resolve.resolve_tiles_crc`),
+    then the host folds each lane's CRC from its T raw registers. The
+    summaries and registers come to the host first, the bytes after.
+    Returns per lane (its bytes, its CRC-32 or None without
+    ``verify_crc``), or None where the lane takes the host route: a stage
+    error, no tokens, another size, a residue or an error position in any
+    tile (the reference's reasons, and the size)."""
+    N = rs.N_POS
+    outs: list = [None] * len(states)
+    bygroup: dict[int, list[int]] = {}
+    for j, st in enumerate(states):
+        if st.err or not st.tokens or st.out_total != isizes[j]:
+            continue
+        parts = [s if isinstance(s, torch.Tensor) else torch.from_numpy(s).to(device) for s in st.tokens]
+        st.tokens = [torch.cat(parts) if len(parts) > 1 else parts[0]]
+        bygroup.setdefault(-(-st.out_total // N), []).append(j)
+    for T, grp in sorted(bygroup.items()):
+        tok = torch.nn.utils.rnn.pad_sequence([states[j].tokens[0] for j in grp], batch_first=True, padding_value=-1)
+        y8, summs, raws = rs.resolve_tiles_crc(rs.split_tiles_device(tok, T))
+        del tok
+        summ_h, raw_h = summs.cpu().numpy(), raws.cpu().numpy()
+        stats["chained_groups"] = stats.get("chained_groups", 0) + 1
+        stats["chained_tiles"] = stats.get("chained_tiles", 0) + len(grp) * T
+        totals = np.array([states[j].out_total for j in grp], np.int64)
+        crcs = cl.crc32_fold_tiles(raw_h, totals, N) if verify_crc else None
+        ok = (summ_h[:, :, 3].sum(1) == 0) & (summ_h[:, :, 0] >= N).all(1)
+        if not ok.any():
+            continue
+        y_h = y8.cpu().numpy()
+        for r, j in enumerate(grp):
+            if ok[r]:
+                outs[j] = (y_h[r, : totals[r]].tobytes(), None if crcs is None else int(crcs[r]))
+                states[j].tokens = []
+    return outs
+
+
+# ---------------------------------------------------------------------------
 # Front door
 # ---------------------------------------------------------------------------
 
@@ -624,12 +771,17 @@ def gzip_decompress_v2(
 
     Stored members decode on the host. ``device_resolve``: "auto" sends
     every single-block Huffman member of at most 64 KiB through the main
-    path when ``device`` is CUDA, and everything else through the host
-    route; "on" does so on any device and also resolves the host route's
-    tokens on the device in chained tiles; "off" takes the host route for
-    every Huffman member. ``lane_batch`` caps members per host-route batch
-    (at most V2_LANE_BATCH). A stream without the TD member index decodes
-    member by member in the shared C core.
+    path and every other Huffman member through the device route (tokens
+    kept on the device, chained 64 KiB tiles, CRC on the device) when
+    ``device`` is CUDA, and everything through the host route otherwise;
+    "on" does the same on any device; "off" takes the host route (K7
+    token pull, C-core resolve, host CRC) for every Huffman member. Unlike
+    the reference, "auto" sends big and multi-block members to the device,
+    since their tokens are already there. On both, a member whose trailer
+    claims more than BIG_BATCH_POSITIONS bytes (64 MiB) takes the host
+    route. ``lane_batch`` caps members per block-chain batch (at most
+    V2_LANE_BATCH). A stream without the TD member index decodes member by
+    member in the shared C core.
     """
     if device_resolve not in ("auto", "on", "off"):
         raise ValueError(f"device_resolve={device_resolve!r}: expected 'auto', 'off' or 'on'")
@@ -652,7 +804,8 @@ def gzip_decompress_v2(
     stats.update(members=len(members), stored=len(members) - len(huff), waves=0)
     launches0 = dict(dk.LAUNCHES)
     device_resolved = 0
-    if huff and (device_resolve == "on" or (device_resolve == "auto" and device.type == "cuda")):
+    on_device = device_resolve == "on" or (device_resolve == "auto" and device.type == "cuda")
+    if huff and on_device:
         elig = [(i, m) for i, m in huff if _single_block_eligible(buf, m)]
         if elig:
             outs = _decode_single_block_device(
@@ -670,29 +823,21 @@ def gzip_decompress_v2(
             huff = [(i, m) for i, m in huff if i not in done]
             device_resolved = len(done)
 
-    # "on" also resolves the host route's members (multi-block, larger
-    # than 64 KiB, handed back) on the device: their tokens tile-split
-    # and resolve with chained 32 KiB tails.
+    # The other members (multi-block, larger than 64 KiB, handed back)
+    # walk their block chains through the wave kernels; on the device
+    # route their tokens stay on the device, tile-split and resolve with
+    # chained 32 KiB tails, CRC included.
     batch_n = min(lane_batch or V2_LANE_BATCH, V2_LANE_BATCH)
-    for base in range(0, len(huff), batch_n):
-        batch = huff[base : base + batch_n]
+    for batch, dev_route in _chain_batches(huff, batch_n, on_device):
         payloads = [buf[m.payload_start : m.end - 8].tobytes() for _, m in batch]
-        states = decode_deflate_streams_v2(payloads, device, stats)
-        douts: list[bytes | None] = [None] * len(batch)
-        if device_resolve == "on":
-            clean = [(j, st) for j, st in enumerate(states) if not st.err and st.tokens]
-            if clean:
-                outs_b, resid = rs.resolve_big_streams(
-                    [np.concatenate(st.tokens).astype(np.int32) for _, st in clean], device
-                )
-                for (j, _st), o, r in zip(clean, outs_b, resid):
-                    if r == 0:
-                        douts[j] = o.tobytes()
+        isizes = [m.isize for _, m in batch] if dev_route else None
+        states = decode_deflate_streams_v2(payloads, device, stats, device_caps=isizes)
+        douts = _decode_chained_device(states, isizes, verify_crc, device, stats) if dev_route else [None] * len(batch)
         for j, ((i, m), st) in enumerate(zip(batch, states)):
-            out = douts[j] if douts[j] is not None else _resolve_lane(st, m.isize)
+            out, crc = douts[j] if douts[j] is not None else (_resolve_lane(st, m.isize), None)
             if len(out) != m.isize:
                 raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
-            if verify_crc and native.crc32(out) != m.crc32:
+            if verify_crc and (native.crc32(out) if crc is None else crc) != m.crc32:
                 raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
             out_parts[i] = out
         device_resolved += sum(o is not None for o in douts)

@@ -39,6 +39,7 @@ import torch
 
 from .. import _build
 from .._build import LAUNCHES
+from ..kernels import checksum_lanes as cl
 
 N_POS = 65536  # tile output space
 TOKEN_MATCH_BIT = 1 << 26
@@ -246,19 +247,99 @@ def split_tokens_tiles(tokens: np.ndarray) -> np.ndarray:
     return out
 
 
+def split_tiles_device(tokens: torch.Tensor, T: int) -> torch.Tensor:
+    """Split (L, K) int32 token streams into N_POS output tiles on their
+    device, -1 entries ignored wherever they stand -> (L, T, N_POS) int32,
+    -1 padded: tile t holds the second half of the match straddling from
+    tile t-1, if any, then the tokens that start in t, in stream order; a
+    straddling match keeps its distance with run ``cut - start`` before the
+    seam and ``end - cut`` after it. Tokens past tile T-1 are dropped.
+    Bit-identical to the reference's ``resolve_pallas.split_tiles_device``
+    (which sorts each tile) and to :func:`split_tokens_tiles`.
+
+    One pass: each token's end (a cumulative sum in int64: a stream may
+    pass 2**31 bytes), its start and first tile t0, and its rank among the
+    valid tokens of t0 (plus one where the match straddling into t0 heads
+    it) give its slot; one scatter places the first parts, another the
+    straddlers' second halves at slot 0 of the next tile. Runs are at most
+    1023 < N_POS, so a token spans at most two tiles; a slot past N_POS,
+    which only runs of 0 could reach, is dropped as the reference drops it.
+    """
+    L, K = tokens.shape
+    dev = tokens.device
+    if K == 0:
+        return torch.full((L, T, N_POS), -1, dtype=torch.int32, device=dev)
+    # Each int64 temporary is freed once it is dead: together they set the
+    # split's device memory a token.
+    x = tokens.to(torch.int64)
+    valid = x >= 0
+    is_m = valid & ((x & TOKEN_MATCH_BIT) != 0)
+    runs = torch.where(valid, torch.where(is_m, (x >> 16) & 0x3FF, 1), 0)
+    ends = runs.cumsum(1)
+    starts = ends - runs
+    del runs
+    t0 = starts // N_POS  # nondecreasing along a lane, -1 entries included
+    cut = (t0 + 1) * N_POS
+    dist_m1 = x & 0xFFFF
+    first = torch.where(is_m, TOKEN_MATCH_BIT | ((torch.minimum(ends, cut) - starts) << 16) | dist_m1, x)
+    first = first.to(torch.int32)
+    del x, starts
+    # The straddler's second half heads tile t0 + 1.
+    head_at = torch.where(is_m & (ends > cut) & (t0 + 1 < T), t0 + 1, T)
+    heads = torch.full((L, T + 1), -1, dtype=torch.int64, device=dev)
+    heads.scatter_(1, head_at, torch.where(head_at < T, TOKEN_MATCH_BIT | ((ends - cut) << 16) | dist_m1, -1))
+    del is_m, ends, cut, dist_m1, head_at
+    has_head = heads >= 0
+    # Valid tokens before each tile's first position (t0 is sorted).
+    n_before = valid.cumsum(1) - valid.to(torch.int64)
+    tiles = torch.arange(T + 1, device=dev).expand(L, T + 1).contiguous()
+    first_pos = torch.searchsorted(t0, tiles)
+    tile_base = torch.where(
+        first_pos < K, n_before.gather(1, first_pos.clamp(max=K - 1)), valid.sum(1, keepdim=True)
+    )
+    t = torch.where(valid & (t0 < T), t0, T)
+    del t0, valid
+    rank = n_before - tile_base.gather(1, t) + has_head.gather(1, t).to(torch.int64)
+    del n_before
+    keep = (t < T) & (rank < N_POS)
+    out = torch.full((L, T * N_POS + 1), -1, dtype=torch.int32, device=dev)
+    out.scatter_(1, torch.where(keep, t * N_POS + rank, T * N_POS), torch.where(keep, first, -1))
+    out = out[:, : T * N_POS].view(L, T, N_POS)
+    out[:, :, 0] = torch.where(has_head[:, :T], heads[:, :T].to(torch.int32), out[:, :, 0])
+    return out
+
+
+def resolve_tiles_crc(tiles: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Resolve (L, T, N_POS) int32 tile-split token streams and CRC them
+    on their device, step by step: step t resolves tile t of every lane
+    (expand, sweep) against the previous step's last 32 KiB (none at step
+    0, the streams' start), writes its bytes into one uint8 buffer and runs
+    the lane CRC on them. Only one step's int32 bytes live at a time.
+
+    Returns (bytes (L, T N_POS) uint8, summaries (L, T, 8) int32 with the
+    sweep's residue in row 3, raw CRC registers (L, T) int64 of each tile's
+    bytes)."""
+    L, T, N = tiles.shape
+    out = torch.empty((L, T * N), dtype=torch.uint8, device=tiles.device)
+    summs, raws = [], []
+    tail = None
+    for t in range(T):
+        y, summ = resolve_tokens_device(tiles[:, t].contiguous(), tail=tail)
+        y8 = y.to(torch.uint8)
+        raws.append(cl.crc32_lanes_raw8(y8))
+        out[:, t * N : (t + 1) * N] = y8
+        summs.append(summ)
+        tail = y[:, N - TAIL :].contiguous()
+    return out, torch.stack(summs, 1), torch.stack(raws, 1)
+
+
 def resolve_tokens_tiled(tiles: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Resolve (L, T, N_POS) int32 tile-split token streams on their
-    device: step t resolves tile t of every lane in one batch, with the
-    previous step's last 32 KiB (kept on the device) as its tail. Returns
-    (y (L, T, N_POS) int32, summaries (L, T, 8))."""
-    ys, summs = [], []
-    tail = None
-    for t in range(tiles.shape[1]):
-        y, summ = resolve_tokens_device(tiles[:, t].contiguous(), tail=tail)
-        ys.append(y)
-        summs.append(summ)
-        tail = y[:, N_POS - TAIL :].contiguous()
-    return torch.stack(ys, 1), torch.stack(summs, 1)
+    device (:func:`resolve_tiles_crc`: step t resolves tile t of every lane
+    with the previous step's last 32 KiB as its tail). Returns (y (L, T,
+    N_POS) int32 bytes, summaries (L, T, 8))."""
+    y8, summs, _raws = resolve_tiles_crc(tiles)
+    return y8.view(tiles.shape).to(torch.int32), summs
 
 
 def _stream_total(tokens: np.ndarray) -> int:
@@ -270,26 +351,26 @@ def _stream_total(tokens: np.ndarray) -> int:
 def resolve_big_streams(
     token_arrays: list[np.ndarray], device: torch.device
 ) -> tuple[list[np.ndarray], np.ndarray]:
-    """Resolve token streams of any length on ``device``: each splits into
-    N_POS tiles, streams group by tile count, and each group resolves
-    tile step by tile step with chained 32 KiB tails.
+    """Resolve token streams of any length on ``device``: streams group by
+    tile count T, and each group uploads, splits into N_POS tiles on the
+    device (:func:`split_tiles_device`) and resolves tile step by tile step
+    with chained 32 KiB tails (:func:`resolve_tiles_crc`).
 
     Returns (per stream the bytes as np.uint8 trimmed to its total output,
     per stream the residue plus the tiles that flagged an error; nonzero
     means the caller must resolve that stream on the host)."""
-    tiles = [split_tokens_tiles(np.asarray(t, np.int32)) for t in token_arrays]
     totals = [_stream_total(t) for t in token_arrays]
-    outs: list = [None] * len(tiles)
-    resid = np.zeros(len(tiles), np.int64)
+    outs: list = [None] * len(token_arrays)
+    resid = np.zeros(len(token_arrays), np.int64)
     bygroup: dict[int, list[int]] = {}
-    for i, tl in enumerate(tiles):
-        bygroup.setdefault(tl.shape[0], []).append(i)
+    for i, n in enumerate(totals):
+        bygroup.setdefault(max(1, -(-n // N_POS)), []).append(i)
     for T, idxs in sorted(bygroup.items()):
-        batch = torch.from_numpy(np.stack([tiles[i] for i in idxs], axis=0)).to(device)
-        ys, summs = resolve_tokens_tiled(batch)
-        ys = ys.to(torch.uint8).cpu().numpy().reshape(len(idxs), T * N_POS)
-        summs = summs.cpu().numpy()
+        segs = [torch.from_numpy(np.array(token_arrays[i], np.int32)).to(device) for i in idxs]
+        tok = torch.nn.utils.rnn.pad_sequence(segs, batch_first=True, padding_value=-1)
+        y8, summs, _raws = resolve_tiles_crc(split_tiles_device(tok, T))
+        y8, summs = y8.cpu().numpy(), summs.cpu().numpy()
         for j, i in enumerate(idxs):
-            outs[i] = ys[j, : totals[i]]
+            outs[i] = y8[j, : totals[i]]
             resid[i] = int(summs[j, :, 3].sum()) + int((summs[j, :, 0] < N_POS).sum())
     return outs, resid

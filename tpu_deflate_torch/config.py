@@ -11,7 +11,7 @@ class DecoderConfig:
     verify_crc: bool = True
     # members per device batch (capped at wave_prep.V2_LANE_BATCH)
     lane_batch: int = 256
-    # LZ77 resolve and CRC-32 on the device: "auto" (on when the decode
-    # device is CUDA), "on" (also multi-block and > 64 KiB members, and on
-    # a CPU device with the plain versions) or "off" (host resolve)
+    # LZ77 resolve and CRC-32 on the device for every Huffman member:
+    # "auto" (when the decode device is CUDA), "on" (on any device, the
+    # CPU with the plain versions) or "off" (host resolve)
     device_resolve: str = "auto"

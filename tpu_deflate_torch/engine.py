@@ -45,7 +45,12 @@ def compress(data: bytes, *, engine: str = "cuda", effort: int = 2, metadata=Non
 def decompress(data: bytes, *, engine: str = "cuda", config=None) -> bytes:
     """Decompress gzip. ``config`` is any object with ``verify_crc``,
     ``lane_batch`` and ``device_resolve`` (the port's DecoderConfig, or the
-    JAX package's), or one holding such an object as ``.decoder``."""
+    JAX package's), or one holding such an object as ``.decoder``. With
+    ``device_resolve="auto"`` (the default) or "on", every Huffman member
+    resolves and is CRC-checked on the card: single-block members of at
+    most 64 KiB on the main path, the rest in chained 64 KiB tiles (the
+    JAX package keeps these on its host route unless "on"); "off" resolves
+    on the host."""
     device = _cuda(engine)
     cfg = DecoderConfig() if config is None else getattr(config, "decoder", config)
     from .codec.decode_v2 import gzip_decompress_v2

@@ -220,6 +220,84 @@ def crc32_finish_leftaligned(raw: np.ndarray, lengths: np.ndarray, width: int) -
     return r ^ shifted ^ np.uint32(0xFFFFFFFF)
 
 
+def crc32_fold_tiles(raws: np.ndarray, lengths: np.ndarray, width: int) -> np.ndarray:
+    """Final CRC-32 of each lane from the raw registers of its T tiles:
+    raws (L, T), raws[i, t] the register of tile t of lane i, each tile
+    ``width`` bytes, the lane's bytes tile 0 .. tile T-1 with zeros after
+    its first ``lengths[i]``. Folds ``acc = L^{8 width}(acc) ^ raw_t`` in
+    tile order, then strips the zero tail (:func:`crc32_finish_leftaligned`
+    over T width bytes). Host arithmetic on T words a lane; returns (L,)
+    uint32."""
+    raws = np.asarray(raws, np.uint32)
+    shift = op_shift_n_bits(8 * width)
+    acc = raws[:, 0]
+    for t in range(1, raws.shape[1]):
+        acc = op_apply(shift, acc) ^ raws[:, t]
+    return crc32_finish_leftaligned(acc, lengths, raws.shape[1] * width)
+
+
+ROW_BYTES_MAX = CHUNK_BYTES * 1024  # the widest row the lane CRC takes
+
+
+def _device(device) -> torch.device:
+    """The device a one-buffer checksum runs on: CUDA unless the caller
+    names another; raises where CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("crc32_device/adler32_device need a CUDA device, and none is available")
+    return dev
+
+
+def _as_bytes(data) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(data, np.uint8)
+    return np.asarray(data, np.uint8).ravel()
+
+
+def crc32_device(data, value: int = 0, *, device=None) -> int:
+    """zlib-compatible CRC-32 of one buffer with the lane CRC (counterpart
+    of ``checksum_jax.crc32_device``): the bytes go to ``device`` (CUDA by
+    default) as rows of a power-of-two width up to 512 KiB, zero after the
+    last byte; the host folds the rows' registers (:func:`crc32_fold_tiles`)
+    and then the init ``value``, whose register the n bytes shift by 8n
+    bits."""
+    buf = _as_bytes(data)
+    n = buf.size
+    if n == 0:
+        return value & 0xFFFFFFFF
+    dev = _device(device)
+    width = min(max(CHUNK_BYTES, 1 << (n - 1).bit_length()), ROW_BYTES_MAX)
+    L = -(-n // width)
+    rows = torch.zeros(L * width, dtype=torch.uint8, device=dev)
+    rows[:n] = torch.from_numpy(buf.copy()).to(dev)
+    raw = crc32_lanes_raw8(rows.view(L, width)).cpu().numpy()
+    crc = crc32_fold_tiles(raw[None], np.array([n]), width)[0]
+    return int(crc ^ op_apply(op_shift_n_bits(8 * n), np.uint32(value & 0xFFFFFFFF)))
+
+
+ADLER_MOD = 65521
+
+
+def adler32_device(data, value: int = 1, *, device=None) -> int:
+    """zlib-compatible Adler-32 of one buffer with its two sums reduced on
+    ``device`` (CUDA by default) in plain PyTorch, as the reference's
+    ``checksum_jax.adler32_device`` reduces them in XLA: the byte sum and
+    the sum of each byte times (n - index) mod 65521, each product below
+    2**24, so the int64 sums are exact for any buffer below 2**39 bytes."""
+    buf = _as_bytes(data)
+    n = buf.size
+    if n == 0:
+        return value & 0xFFFFFFFF
+    a, b = value & 0xFFFF, (value >> 16) & 0xFFFF
+    d = torch.from_numpy(buf.copy()).to(_device(device)).to(torch.int64)
+    w = (n - torch.arange(n, device=d.device)) % ADLER_MOD
+    s = int(d.sum()) % ADLER_MOD
+    ws = int((d * w).sum()) % ADLER_MOD
+    b = (b + n * a + ws) % ADLER_MOD
+    a = (a + s) % ADLER_MOD
+    return (b << 16) | a
+
+
 def crc32_members(rows: torch.Tensor, lengths: np.ndarray) -> np.ndarray:
     """Final CRC-32 of each member row (counterpart of
     ``checksum_jax.crc32_members``): rows (L, W) uint8 hold each member's
