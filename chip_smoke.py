@@ -86,14 +86,31 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    kernel's bound per launch and summed over the run; 3 timed runs;
 10. the card against the CPU: five members (text, random, runs, zeros, a
    short tail) encoded on the card and with the plain versions on the CPU
-   at efforts 1, 2, 3 and 5 must be byte-identical.
+   at efforts 1, 2, 3 and 5 must be byte-identical;
+11. continuous-encode kernels: K8, K9 and K10 against their plain
+   versions on the first batch of the continuous encode (64 lanes x 98304
+   columns: a 32 KiB halo before each 64 KiB block) and on a batch whose
+   head lane starts with 50 zero bytes (the reference's F1);
+12. the continuous encode's main path: ``engine.compress`` of the 48 MiB
+   corpus at effort 4, one member of 768 blocks, byte-exact through
+   ``gzip.decompress`` and the port's decode on the card (one member on the
+   device route, K7 not launched), K8-K10 and the lane CRC launched (the
+   CRC against its plain version on the rows the path gave it), each
+   kernel's bound per launch and summed, the device memory peak, the ratio
+   beside effort 2's and zlib -9's, timed runs of the encode and one timed
+   decode with its waves;
+13. the continuous encode on the card against the CPU, byte-identical: 256
+   KiB at efforts 4 and 5, 50 zero bytes before text (F1) and 300,000
+   7-bit random bytes in blocks of 128 KiB (F2).
 
 The build phase prints each kernel's registers and shared memory (ptxas)
 and the resident blocks per SM of K4/K7's and K6's kernels. The last lines
 are a JSON record of the kernels, the card's name and power limit, and the
 JSON verdict. ``--profile DIR`` adds a torch.profiler
 pass (device time per kernel) and a cProfile pass (host time per
-function) of the decode's and of the encode's main path, written into DIR.
+function) of the decode's, the encode's and the continuous encode's main
+paths and of the decode of the continuous encode's member, written into
+DIR.
 """
 
 from __future__ import annotations
@@ -295,12 +312,15 @@ def launch_bounds(calls: dict, shapes: dict, order: list) -> dict:
 
 
 def path_bounds(label: str, calls: dict) -> None:
-    """Print each wrapper's bytes bound per launch and summed over one run of
-    a path (us at the card's memory rate)."""
+    """Print each wrapper's bytes bound per launch (their min, median and
+    max past 24 launches) and summed over one run of a path (us at the
+    card's memory rate)."""
     for name, nbytes in calls.items():
         us = [b / HBM_BYTES_PER_S * 1e6 for b in nbytes]
+        each = ([round(u, 2) for u in us] if len(us) <= 24 else
+                f"min {min(us):.2f} median {statistics.median(us):.2f} max {max(us):.2f}")
         log(f"{label} bound of {name}: {len(us)} launches, {sum(nbytes)} bytes, "
-            f"per launch {[round(u, 2) for u in us]} us, summed {sum(us):.2f} us (bytes)")
+            f"per launch {each} us, summed {sum(us):.2f} us (bytes)")
 
 
 class Kernels:
@@ -1598,7 +1618,7 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
     log(f"encode {ENCODE_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e6:.2f} MB/s, "
         f"min {min(walls):.4f} s, max {max(walls):.4f} s")
     log(f"gpu: {gpu_name_power()}")
-    return launches, med, bounds
+    return launches, med, bounds, len(gz)
 
 
 def phase_encode_cpu(corpus: bytes, device) -> None:
@@ -1623,6 +1643,180 @@ def phase_encode_cpu(corpus: bytes, device) -> None:
         require(gzip.decompress(card) == data, f"{what}, effort {effort}: round trip")
         log(f"{what}, effort {effort}: card and CPU byte-identical, {len(card)} bytes, routes "
             f"{json.dumps(member_routes(card)[1])}; card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+
+
+CONT_FIRST_RUN_LIMIT_S = 30  # the continuous encode's run 1 above this: time 1 more run, not 3
+F1_PREFIX = bytes(50)  # leading zeros: the reference's RLE lanes matched its head lane's padding (F1)
+F2_BYTES, F2_BLOCK = 300_000, 131072  # 7-bit random blocks that overflow the emit grid (F2)
+
+
+def continuous_batch(data: bytes, device) -> dict:
+    """The first lane batch of data as the continuous encode builds it at
+    effort 4 (64 lanes of [32 KiB halo | 64 KiB payload], lazy parse,
+    quality 1): the parse's step tiles, the host entries, K10's inputs and
+    each lane's first real column."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch.codec import continuous as pc
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
+
+    flat = np.frombuffer(data, np.uint8)
+    count = min(pe.ENC_LANE_BATCH, -(-flat.size // MEMBER))
+    rows, hstart, pay_lens, final = pc.lane_rows(flat, 0, count, MEMBER)
+    dd = torch.from_numpy(rows).to(device)
+    pend = pc.dispatch_lanes(dd, torch.from_numpy(hstart).to(device), pay_lens, True, 1)
+    args, tiles, entries, _choice = pe.emit_inputs(pend, final)
+    return {"tiles": tiles, "entries": entries, "emit": em.body_args(args), "hstart": hstart}
+
+
+def phase_continuous_kernels(corpus: bytes, device, K: Kernels) -> None:
+    """K8, K9 and K10 against their plain versions on the continuous
+    encode's first batch (64 x 98304: a third of each row is history), and
+    on a batch whose head lane starts with F1's zeros; the parse's chain
+    reaches each lane's first payload column."""
+    from tpu_deflate_torch.codec import continuous as pc
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import parse as pp
+
+    for what, data in (("continuous batch", corpus), ("F1 head lane", F1_PREFIX + corpus)):
+        b = continuous_batch(data, device)
+        L, _T, NT = b["tiles"].shape
+        S = NT * pp.T_P
+        steps = b["tiles"].transpose(1, 2)
+        K.compare("parse_transfers", lambda: pp.parse_transfers(b["tiles"]),
+                  lambda: pp.parse_transfers_plain(b["tiles"]), [steps],
+                  {what: [L, S], "out": [L, NT, pp.E_P]}, main_path=False)
+        (tok,) = K.compare("parse_replay", lambda: pp.parse_replay(b["tiles"], b["entries"]),
+                           lambda: pp.parse_replay_plain(b["tiles"], b["entries"]), [steps, b["entries"]],
+                           {what: [L, S], "entries": [L, NT]}, main_path=False)
+        args = b["emit"]
+        _w, body_end = K.compare("emit_body", lambda: em.emit_body(*args), lambda: em.emit_body_plain(*args),
+                                 list(args), {what: [L, S], "words": [L, em.EMIT_WORDS]}, main_path=False)
+        require(bool(tok[:, pc.HALO_COLS].all()), f"{what}: the parse chain misses a payload start")
+        log(f"{what}: {L} lanes x {S} columns (hstart of lane 0: {int(b['hstart'][0])}), "
+            f"{int(tok.sum())} chain positions, body bits per lane min {int(body_end.min())} "
+            f"max {int(body_end.max())}")
+
+
+def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | None, K: Kernels):
+    """engine.compress of the corpus at effort 4 (one member of 768 blocks
+    of 64 KiB with continuous history): byte-exact through gzip and the
+    port's decode on the card, every kernel of the path launched, its
+    bounds, memory peak, ratio and times, the lane CRC against its plain
+    version on the rows the path gave it; then the decode of its output.
+    Returns the encode's and the decode's launches."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch import _build, engine
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import decode_np
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import parse as pp
+    from tpu_deflate_torch.codec import resolve as rs
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    def encode():
+        return engine.compress(corpus, engine="cuda", effort=4)
+
+    kernels = [(pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded(*kernels) as (calls, shapes, order), captured((cl, "crc32_lanes_raw8"), per_key=1) as caps:
+        _build.reset_launches()
+        t0 = time.monotonic()
+        gz = encode()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = _build.all_launches()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    for (rows,), _kw in caps["crc32_lanes_raw8"]:
+        K.compare("crc32_lanes", lambda: cl.crc32_lanes_raw8(rows), lambda: cl.crc32_lanes_raw8_plain(rows),
+                  [rows], {"continuous member CRC": list(rows.shape)}, main_path=False)
+    log(f"continuous encode run 1: {wall:.3f} s, {len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
+    log(f"continuous encode: device memory peak {peak} bytes above the {mem0} held before the run "
+        "(torch.cuda.max_memory_allocated)")
+    path_bounds("continuous encode", calls)
+    bounds = launch_bounds(calls, shapes, order)
+    for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the continuous encode")
+    require(gzip.decompress(gz) == corpus, "gzip.decompress of the continuous encode differs")
+    members = decode_np.split_members(np.frombuffer(gz, np.uint8))
+    require(members is not None and len(members) == 1, "the continuous encode is not one member")
+
+    dec_kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+                   (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+    with recorded(*dec_kernels) as (dec_calls, _shapes, _order):
+        _build.reset_launches()
+        t0 = time.monotonic()
+        out = engine.decompress(gz, engine="cuda")
+        torch.cuda.synchronize()
+        dec_wall = time.monotonic() - t0
+        dec_launches = dict(_build.LAUNCHES)
+    stats = dict(pv2.LAST_DECODE_STATS)
+    require(out == corpus, "the port's decode of the continuous encode differs")
+    require(stats["device_resolved"] == 1 and stats["host_resolved"] == 0,
+            "the continuous member did not resolve on the device route")
+    require(dec_launches["compact_any"] == 0, "the continuous member's decode launched K7")
+    log(f"continuous decode: {dec_wall:.3f} s ({len(corpus) / dec_wall / 1e9:.4f} GB/s), {stats['waves']} waves, "
+        f"stats {json.dumps(stats)}, launches {json.dumps(dec_launches)}")
+    path_bounds("continuous decode", dec_calls)
+
+    t0 = time.monotonic()
+    z9 = len(zlib.compress(corpus, 9))
+    log(f"continuous encode: {len(corpus)} -> {len(gz)} bytes, ratio {len(gz) / len(corpus):.4f}; effort 2's "
+        f"members {effort2_bytes / len(corpus):.4f}; zlib.compress(corpus, 9) {z9 / len(corpus):.4f} "
+        f"({time.monotonic() - t0:.1f} s on the host); byte-exact through gzip.decompress and engine.decompress")
+    reps = 1 if wall > CONT_FIRST_RUN_LIMIT_S else ENCODE_REPS
+    walls = []
+    for _ in range(reps):
+        t0 = time.monotonic()
+        again = encode()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        require(again == gz, "continuous encode output differs between runs")
+    med = statistics.median(walls)
+    log(f"continuous encode timed: median of {reps} run{'s' if reps > 1 else ''} (run 1 took {wall:.1f} s, "
+        f"{'above' if wall > CONT_FIRST_RUN_LIMIT_S else 'at most'} {CONT_FIRST_RUN_LIMIT_S} s) {med:.4f} s = "
+        f"{len(corpus) / med / 1e6:.2f} MB/s, min {min(walls):.4f} s, max {max(walls):.4f} s")
+    log(f"gpu: {gpu_name_power()}")
+    if profile_dir:
+        phase_profile(encode, "continuous encode", profile_dir, "profile_continuous", ENCODE_PROFILE_KERNELS,
+                      med, bounds)
+        phase_profile(lambda: engine.decompress(gz, engine="cuda"), "continuous decode", profile_dir,
+                      "profile_continuous_decode", PROFILE_KERNELS, dec_wall, {})
+    return launches, dec_launches
+
+
+def phase_continuous_cpu(corpus: bytes, device) -> None:
+    """The continuous encode on the card and with the plain versions on
+    the CPU, byte-identical: 256 KiB of the corpus (4 blocks) at efforts 4
+    and 5, F1's leading zeros before text, and 7-bit random bytes at blocks
+    of 128 KiB (F2: lanes whose bits overflow the emit grid are stored)."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch.codec import continuous as pc
+
+    rand7 = np.random.default_rng(2).integers(0, 128, F2_BYTES, dtype=np.uint8).tobytes()
+    cases = [("256 KiB", corpus[: 4 * MEMBER], 4, MEMBER), ("256 KiB", corpus[: 4 * MEMBER], 5, MEMBER),
+             ("F1 zeros + text", F1_PREFIX + corpus[:17000], 4, MEMBER),
+             ("F2 7-bit random", rand7, 4, F2_BLOCK)]
+    for what, data, effort, block in cases:
+        t0 = time.monotonic()
+        card = pc.compress_continuous(data, device=device, effort=effort, block_data=block)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        cpu = pc.compress_continuous(data, device=torch.device("cpu"), effort=effort, block_data=block)
+        t2 = time.monotonic()
+        require(card == cpu, f"continuous {what}, effort {effort}: card and CPU outputs differ")
+        require(gzip.decompress(card) == data, f"continuous {what}, effort {effort}: round trip")
+        log(f"continuous {what}, effort {effort}, blocks of {block}: card and CPU byte-identical, "
+            f"{len(card)} bytes; card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
 
 
 def main(argv: list[str]) -> int:
@@ -1672,12 +1866,17 @@ def main(argv: list[str]) -> int:
     phase_interop(corpus, gz, device)
 
     phase_encode_kernels(corpus, device, K)
-    enc_launches, enc_median_s, enc_bounds = phase_encode_main(corpus)
+    enc_launches, enc_median_s, enc_bounds, effort2_bytes = phase_encode_main(corpus)
     if args.profile:
         phase_profile(lambda: engine.compress(corpus, engine="cuda"), "encode", args.profile,
                       "profile_encode", ENCODE_PROFILE_KERNELS, enc_median_s, enc_bounds)
     phase_encode_cpu(corpus, device)
-    path_launches = {"main": launches, "off": off_launches, "big": big_launches, "encode": enc_launches}
+
+    phase_continuous_kernels(corpus, device, K)
+    cont_launches, cont_dec_launches = phase_continuous_main(corpus, effort2_bytes, args.profile, K)
+    phase_continuous_cpu(corpus, device)
+    path_launches = {"main": launches, "off": off_launches, "big": big_launches, "encode": enc_launches,
+                     "continuous": cont_launches, "continuous_decode": cont_dec_launches}
 
     kernels = [
         {

@@ -136,7 +136,21 @@ def test_engine_compress_raises_without_cuda(monkeypatch):
         engine.compress(b"abc", engine="tpu")
 
 
-@pytest.mark.parametrize("kw", [{"effort": 4}, {"effort": 5}, {"metadata": object()}])
-def test_engine_compress_not_ported(kw):
+@pytest.mark.parametrize("effort", [4, 5])
+def test_engine_continuous_raises_without_cuda(monkeypatch, effort):
+    """The continuous-history encode needs CUDA, and never runs on the CPU."""
+    from tpu_deflate_torch.codec import continuous
+
+    def on_the_cpu(*args, **kwargs):
+        raise AssertionError("the continuous encode ran without CUDA")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(continuous, "compress_continuous", on_the_cpu)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.compress(b"abc", effort=effort)
+
+
+def test_engine_compress_not_ported():
+    """The sharded encode (mesh=) is still to port."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.compress(b"abc", **kw)
+        engine.compress(b"abc", effort=4, mesh=object())

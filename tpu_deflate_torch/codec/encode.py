@@ -25,8 +25,11 @@ All of it is PyTorch on the given device, apart from the kernels:
   framing for stored-routed lanes.
 
 ``compress_members`` runs the three stages as the reference's loop over
-batches of ``ENC_LANE_BATCH`` lanes: batch k+1's phase 1 is enqueued before
-batch k is planned and emitted, and batch k-1 is assembled after.
+batches of ``ENC_LANE_BATCH`` lanes (``run_pipeline``): batch k+1's phase 1
+is enqueued before batch k is planned and emitted, and batch k-1 is
+assembled after. The continuous-history encode (``continuous.py``) runs the
+same stages on halo rows, with the history masks of ``_match_find`` and
+each lane's bfinal from ``_plan_codes``.
 
 Every value is integer, and the output is byte-identical to
 ``encode_jax.compress_members_tpu`` at the same effort. uint32 arithmetic
@@ -136,7 +139,10 @@ def _word_eqlen(x: torch.Tensor) -> torch.Tensor:
 def _bucket_best(h: torch.Tensor, w32i: torch.Tensor, K: int, nwords: int) -> torch.Tensor:
     """Best (match length, candidate position) per position among the K
     nearest earlier positions of the same hash, packed as
-    ``cand + 1 | min(len, 4 nwords) << 18`` (int32, position order).
+    ``cand + 1 | min(len, 4 nwords) << 32`` (int64, position order;
+    :func:`_unpack_best` unpacks it). The reference packs an int32 with the
+    length at bit 18, which a candidate past column 2**18 - 2 runs into
+    (F11).
 
     A stable sort groups equal hashes with positions ascending, so the
     k-th previous occurrence is a shift by k of the sorted arrays; the
@@ -174,8 +180,15 @@ def _bucket_best(h: torch.Tensor, w32i: torch.Tensor, K: int, nwords: int) -> to
         better = lc > blen
         blen = torch.where(better, lc, blen)
         bcand = torch.where(better, cand, bcand)
-    p1 = ((bcand + 1) | (blen.clamp(max=cap).to(torch.int64) << 18)).to(_I32)
+    p1 = (bcand + 1) | (blen.clamp(max=cap).to(torch.int64) << 32)
     return torch.empty_like(p1).scatter_(1, order, p1)
+
+
+def _unpack_best(q: torch.Tensor, idx: torch.Tensor):
+    """:func:`_bucket_best`'s packing -> (match length, distance; 0 where
+    there is no candidate), int32."""
+    cand = (q & _M32) - 1
+    return (q >> 32).to(_I32), torch.where(cand >= 0, idx - cand, 0).to(_I32)
 
 
 def _suffix_runlen(eq: torch.Tensor) -> torch.Tensor:
@@ -191,15 +204,25 @@ def _suffix_runlen(eq: torch.Tensor) -> torch.Tensor:
     return r.clamp(max=258)
 
 
-def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: int = 0):
+def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: int = 0,
+                hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
     """Match find: data (L, S) uint8, lengths (L,) int32 -> (use, dist,
     step, valid), the chosen run per position (0 = literal or deferred),
-    its distance, the parse step and the in-member mask."""
+    its distance, the parse step and the mask of the positions that may be
+    tokens.
+
+    ``hist`` and ``hstart`` (L,) int32 are the continuous-history rows'
+    (``continuous.py``): columns before ``hist`` are the 32 KiB history,
+    match candidates but never tokens (their steps are 1, so the parse
+    chain from column 0 lands on ``hist``), and columns before ``hstart``
+    are row padding, neither. None: the whole row is the member."""
     q = _QUALITY[quality]
     L, S = data.shape
     devc = data.device
     idx = torch.arange(S, dtype=_I32, device=devc).expand(L, S)
     valid = idx < lengths[:, None]
+    if hstart is not None:
+        valid &= idx >= hstart[:, None]
     w32 = _u32_windows(data)
     w32i = wrap_int32(w32).to(_I32)
 
@@ -207,12 +230,8 @@ def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: 
     # 3-byte hash: run-3 matches and windows broken in their fourth byte.
     q3 = _bucket_best(_hash(w32 & 0xFFFFFF, valid), w32i, q["K3"], q["W3"])
     limit = (lengths[:, None] - idx).clamp(max=258)
-    c1 = (q1 & 0x3FFFF) - 1
-    l1 = q1 >> 18
-    c3 = (q3 & 0x3FFFF) - 1
-    l3 = q3 >> 18
-    d1 = torch.where(c1 >= 0, idx - c1, 0)
-    d3 = torch.where(c3 >= 0, idx - c3, 0)
+    l1, d1 = _unpack_best(q1, idx)
+    l3, d3 = _unpack_best(q3, idx)
     take3 = (l3 > l1) | ((l3 == l1) & (l3 > 0) & (d3 < d1))
     run = torch.minimum(torch.where(take3, l3, l1), limit)
     dist = torch.where(take3, d3, d1)
@@ -222,20 +241,24 @@ def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: 
         ext6 = torch.cat([data, data.new_zeros((L, 6))], dim=1).to(torch.int64)
         b45 = ext6[:, 4 : S + 4] | (ext6[:, 5 : S + 5] << 8)
         q6 = _bucket_best(_hash(w32 ^ _mul32(b45, _H6_MUL), valid), w32i, q["K6"], q["W6"])
-        c6 = (q6 & 0x3FFFF) - 1
-        l6 = torch.minimum(q6 >> 18, limit)
-        d6 = torch.where(c6 >= 0, idx - c6, 0)
+        l6, d6 = _unpack_best(q6, idx)
+        l6 = torch.minimum(l6, limit)
         take6 = (l6 > run) | ((l6 == run) & (l6 > 0) & (d6 < dist))
         run = torch.where(take6, l6, run)
         dist = torch.where(take6, d6, dist)
 
     # Arithmetic RLE lanes: exact match lengths at distances 1..4; ascending
-    # d with strict > keeps the smallest distance on ties.
+    # d with strict > keeps the smallest distance on ties. A position whose
+    # byte d back is row padding has no match there (the reference compares
+    # with the padding's zeros, F1).
     d32 = data.to(_I32)
     rle_run = torch.zeros((L, S), dtype=_I32, device=devc)
     rle_dist = torch.zeros((L, S), dtype=_I32, device=devc)
     for d in range(1, 5):
-        rl = torch.minimum(_suffix_runlen(d32 == _shr(d32, d, -1)), limit)
+        eq = d32 == _shr(d32, d, -1)
+        if hstart is not None:
+            eq &= idx >= hstart[:, None] + d
+        rl = torch.minimum(_suffix_runlen(eq), limit)
         better = rl > rle_run
         rle_run = torch.where(better, rl, rle_run)
         rle_dist = torch.where(better, d, rle_dist)
@@ -250,6 +273,11 @@ def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: 
     if lazy:  # defer a match when the next position starts a longer one
         nxt_run = torch.cat([use[:, 1:], use.new_zeros((L, 1))], dim=1)
         use = torch.where((use > 0) & (nxt_run > use), 0, use)
+    if hist is not None:
+        in_payload = idx >= hist[:, None]
+        use = torch.where(in_payload, use, 0)
+        dist = torch.where(in_payload, dist, 0)
+        valid &= in_payload
     step = torch.where(use > 0, use, 1)
     return use, dist, step, valid
 
@@ -284,9 +312,10 @@ def _finish_analysis(data, use, dist, is_token):
     }
 
 
-def analyze_phase1(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, quality: int = 0):
+def analyze_phase1(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, quality: int = 0,
+                   hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
     """Match find + the parse's tile transfer maps (K8)."""
-    use, dist, step, valid = _match_find(data, lengths, lazy, quality)
+    use, dist, step, valid = _match_find(data, lengths, lazy, quality, hist, hstart)
     tiles = pp.step_tiles(step)
     return {"use": use, "dist": dist, "tiles": tiles, "valid": valid,
             "transfers": pp.parse_transfers(tiles)}
@@ -297,10 +326,12 @@ def analyze_phase2(data, use, dist, tiles, valid, entries):
     return _finish_analysis(data, use, dist, pp.parse_replay(tiles, entries) & valid)
 
 
-def analyze(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, quality: int = 0):
+def analyze(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, quality: int = 0,
+            hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
     """Both phases with the host walk between them: the analysis of one
-    batch, keyed as ``encode_jax.analyze_device``'s."""
-    p1 = analyze_phase1(data, lengths, lazy, quality)
+    batch, keyed as ``encode_jax.analyze_device``'s (with the same
+    ``hist``/``hstart``)."""
+    p1 = analyze_phase1(data, lengths, lazy, quality, hist, hstart)
     entries = pp.host_entries(p1["transfers"].cpu().numpy())
     ent = torch.from_numpy(entries).to(data.device)
     return analyze_phase2(data, p1["use"], p1["dist"], p1["tiles"], p1["valid"], ent)
@@ -339,14 +370,16 @@ def route_strategies(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths):
 
 
 def _apply_route(choice, ll_codes, d_codes, header_vals, header_bits, eob_val, eob_bits, fix_ll,
-                 fix_d):
+                 fix_d, final=None):
     """Swap the fixed-Huffman codes, header (bfinal, btype 01) and EOB into
-    lanes routed FIXED."""
+    lanes routed FIXED. ``final`` (L,) 0/1 is each lane's bfinal (None:
+    every lane is final)."""
     f = (choice == ROUTE_FIXED)[:, None]
+    fin = 1 if final is None else final.to(header_vals.dtype)
     ll = torch.where(f, fix_ll, ll_codes)
     dd = torch.where(f, fix_d, d_codes)
     hv = torch.where(f, 0, header_vals)
-    hv[:, 0] = torch.where(f[:, 0], 3, header_vals[:, 0])
+    hv[:, 0] = torch.where(f[:, 0], fin | 2, header_vals[:, 0])
     hb = torch.where(f, 0, header_bits)
     hb[:, 0] = torch.where(f[:, 0], 3, header_bits[:, 0])
     ev = torch.where(f[:, 0], 0, eob_val)
@@ -361,10 +394,12 @@ def _fixed_code_tables() -> tuple[np.ndarray, np.ndarray]:
     return fl, fd
 
 
-def _plan_codes(a: dict, lengths: np.ndarray):
+def _plan_codes(a: dict, lengths: np.ndarray, final: np.ndarray | None = None):
     """Pull the histograms, plan lengths, codes and headers on the host,
-    route each lane on the device. Returns the emit's code and header
-    tensors (on the histograms' device) and the route choice."""
+    route each lane on the device. ``lengths`` are the bytes each lane
+    codes (its stored cost), ``final`` (L,) 0/1 each lane's bfinal (None:
+    all final). Returns the emit's code and header tensors (on the
+    histograms' device) and the route choice."""
     devc = a["litlen_hist"].device
 
     def put(x: np.ndarray) -> torch.Tensor:
@@ -376,7 +411,7 @@ def _plan_codes(a: dict, lengths: np.ndarray):
     d_lengths = huffman_lengths_batch(dist_hist, MAX_CODE_BITS)
     ll_codes = pack_codes(ll_lengths, MAX_CODE_BITS)
     d_codes = pack_codes(d_lengths, MAX_CODE_BITS)
-    header_vals, header_bits = build_headers(ll_lengths, d_lengths)
+    header_vals, header_bits = build_headers(ll_lengths, d_lengths, final)
     choice, _dyn, _fx, _st = route_strategies(
         a["litlen_hist"], a["dist_hist"], put(ll_lengths.astype(np.int32)),
         put(d_lengths.astype(np.int32)), put(header_bits.sum(axis=1).astype(np.int32)),
@@ -386,7 +421,7 @@ def _plan_codes(a: dict, lengths: np.ndarray):
     routed = _apply_route(
         choice, put(ll_codes), put(d_codes), put(header_vals.astype(np.int64)), put(header_bits),
         put((ll_codes[:, 256] & 0xFFFF).astype(np.int64)), put(ll_codes[:, 256] >> 16),
-        put(fl), put(fd),
+        put(fl), put(fd), None if final is None else put(np.asarray(final, np.int64)),
     )
     return (*routed, choice)
 
@@ -396,10 +431,24 @@ def _plan_codes(a: dict, lengths: np.ndarray):
 # ---------------------------------------------------------------------------
 
 
+def dispatch_phase1(dd: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: int,
+                    hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
+    """Stage 1 of an uploaded batch: enqueue phase 1 and the copy of its
+    transfer maps to the host -> (phase 1's dict, the host maps, the event
+    that marks them copied or None on the CPU)."""
+    p1 = analyze_phase1(dd, lengths, lazy, quality, hist, hstart)
+    if dd.device.type != "cuda":
+        return p1, p1["transfers"], None
+    host = torch.empty(p1["transfers"].shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(p1["transfers"], non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return p1, host, done
+
+
 def _dispatch_analyze(chunk: np.ndarray, lazy: bool, quality: int, device: torch.device):
     """Stage 1: one lane batch (a lane per member, the last one zero
-    padded), uploaded; enqueue phase 1 and the copy of its transfer maps to
-    the host."""
+    padded), uploaded, then :func:`dispatch_phase1`."""
     n = chunk.size
     L = -(-n // MEMBER_DATA)
     lengths = np.full(L, MEMBER_DATA, dtype=np.int32)
@@ -407,27 +456,22 @@ def _dispatch_analyze(chunk: np.ndarray, lazy: bool, quality: int, device: torch
     padded = np.zeros((L, MEMBER_DATA), dtype=np.uint8)
     padded.reshape(-1)[:n] = chunk
     dd = torch.from_numpy(padded).to(device)
-    p1 = analyze_phase1(dd, torch.from_numpy(lengths).to(device), lazy, quality)
-    if device.type == "cuda":
-        host = torch.empty(p1["transfers"].shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(p1["transfers"], non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-    else:
-        host, done = p1["transfers"], None
+    p1, host, done = dispatch_phase1(dd, torch.from_numpy(lengths).to(device), lazy, quality)
     return dd, p1, host, done, padded, lengths
 
 
-def emit_inputs(pend):
+def emit_inputs(pend, final: np.ndarray | None = None):
     """The host walk, phase 2 and planning of one dispatched batch ->
     (the arguments of ``emit_device``, the parse's step tiles, the entries,
-    the route choice)."""
-    dd, p1, host, done, _padded, lengths = pend
+    the route choice). ``pend`` is (rows on the device, :func:`dispatch_phase1`'s
+    three results, the caller's, the bytes each lane codes); ``final`` as
+    :func:`_plan_codes` takes it."""
+    dd, p1, host, done, _caller, lengths = pend
     if done is not None:
         done.synchronize()
     entries = torch.from_numpy(pp.host_entries(host.numpy())).to(dd.device)
     a = analyze_phase2(dd, p1["use"], p1["dist"], p1["tiles"], p1["valid"], entries)
-    ll_c, d_c, hv, hb, ev, eb, choice = _plan_codes(a, lengths)
+    ll_c, d_c, hv, hb, ev, eb, choice = _plan_codes(a, lengths, final)
     flags = a["is_token"].to(_I32) | (a["is_match"].to(_I32) << 1)
     args = (a["litlen_sym"], flags, a["len_eb"], a["len_ev"], a["dist_sym"], a["dist_eb"],
             a["dist_ev"], ll_c, d_c, hv, hb, ev, eb)
@@ -483,14 +527,22 @@ def compress_members(data: bytes, *, device: torch.device, effort: int = 2) -> b
     step = ENC_LANE_BATCH * MEMBER_DATA
     chunks = [buf[base : base + step] for base in range(0, n, step)]
     out = bytearray()
-    pend = _dispatch_analyze(chunks[0], lazy, quality, device)
-    ready = None
-    for i in range(len(chunks)):
-        cur = pend
-        pend = _dispatch_analyze(chunks[i + 1], lazy, quality, device) if i + 1 < len(chunks) else None
-        em = _plan_and_emit(cur)
-        if ready is not None:
-            out += _assemble_members(ready)
-        ready = em
-    out += _assemble_members(ready)
+    run_pipeline(chunks, lambda c: _dispatch_analyze(c, lazy, quality, device), _plan_and_emit,
+                 lambda em: out.extend(_assemble_members(em)))
     return bytes(out)
+
+
+def run_pipeline(batches: list, dispatch, emit, assemble) -> None:
+    """The three stages over ``batches`` in order: batch k+1's
+    ``dispatch`` (stage 1) is enqueued before batch k's ``emit`` (stage 2),
+    and batch k-1's ``assemble`` (stage 3) runs after it."""
+    pend = dispatch(batches[0])
+    ready = None
+    for i in range(len(batches)):
+        cur = pend
+        pend = dispatch(batches[i + 1]) if i + 1 < len(batches) else None
+        em = emit(cur)
+        if ready is not None:
+            assemble(ready)
+        ready = em
+    assemble(ready)

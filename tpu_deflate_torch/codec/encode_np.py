@@ -118,12 +118,16 @@ def pack_codes(lengths: np.ndarray, nbits: int) -> np.ndarray:
     return ((lengths.astype(np.int64) << 16) | rev).astype(np.int32)
 
 
-def build_headers(litlen_lengths: np.ndarray, dist_lengths: np.ndarray):
+def build_headers(litlen_lengths: np.ndarray, dist_lengths: np.ndarray,
+                  final: np.ndarray | None = None):
     """Per-lane dynamic block header slots: (vals (L, H) uint32, bits (L, H)
     int32). The header is bfinal(1) btype=10(2) hlit(5) hdist(5) hclen(4),
-    hclen*3-bit clen lengths, then the RLE-coded code-length stream; every
-    lane is a final block (the member-parallel profile)."""
+    hclen*3-bit clen lengths, then the RLE-coded code-length stream.
+    ``final`` (L,) 0/1 is each lane's bfinal; None makes every lane a final
+    block (the member-parallel profile)."""
     L = litlen_lengths.shape[0]
+    if final is None:
+        final = np.ones(L, np.int32)
     H = MAX_HEADER_SLOTS
     vals = np.zeros((L, H), dtype=np.uint32)
     bits = np.zeros((L, H), dtype=np.int32)
@@ -157,7 +161,7 @@ def build_headers(litlen_lengths: np.ndarray, dist_lengths: np.ndarray):
         num_clen = 19
         while num_clen > 4 and reordered[num_clen - 1] == 0:
             num_clen -= 1
-        slots = [(1, 1), (2, 2), (hi - 257, 5), (hi_d - 1, 5), (num_clen - 4, 4)]
+        slots = [(int(final[l]), 1), (2, 2), (hi - 257, 5), (hi_d - 1, 5), (num_clen - 4, 4)]
         for i in range(num_clen):
             slots.append((int(reordered[i]), 3))
         ei = iter(extras)

@@ -1,9 +1,16 @@
-"""Decode knobs of the port (the decode fields of
-``tpu_deflate.config.DecoderConfig``)."""
+"""Encode and decode knobs of the port (the device fields of
+``tpu_deflate.config.EncoderConfig`` and ``DecoderConfig``)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    effort: int = 2
+    # bytes per block of the continuous-history encode (effort >= 4)
+    lookahead: int = 64 * 1024
 
 
 @dataclass(frozen=True)

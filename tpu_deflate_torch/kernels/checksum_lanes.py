@@ -260,16 +260,22 @@ def crc32_device(data, value: int = 0, *, device=None) -> int:
     default) as rows of a power-of-two width up to 512 KiB, zero after the
     last byte; the host folds the rows' registers (:func:`crc32_fold_tiles`)
     and then the init ``value``, whose register the n bytes shift by 8n
-    bits."""
-    buf = _as_bytes(data)
-    n = buf.size
+    bits. A uint8 tensor's bytes are taken where they lie, ``device``
+    ignored (no upload)."""
+    if isinstance(data, torch.Tensor):
+        _build.require(data.dtype == torch.uint8, f"data: dtype {data.dtype}, expected torch.uint8")
+        src = data.reshape(-1)
+        dev = src.device
+    else:
+        src = torch.from_numpy(_as_bytes(data).copy())
+        dev = _device(device)
+    n = src.numel()
     if n == 0:
         return value & 0xFFFFFFFF
-    dev = _device(device)
     width = min(max(CHUNK_BYTES, 1 << (n - 1).bit_length()), ROW_BYTES_MAX)
     L = -(-n // width)
     rows = torch.zeros(L * width, dtype=torch.uint8, device=dev)
-    rows[:n] = torch.from_numpy(buf.copy()).to(dev)
+    rows[:n] = src.to(dev)
     raw = crc32_lanes_raw8(rows.view(L, width)).cpu().numpy()
     crc = crc32_fold_tiles(raw[None], np.array([n]), width)[0]
     return int(crc ^ op_apply(op_shift_n_bits(8 * n), np.uint32(value & 0xFFFFFFFF)))
