@@ -101,7 +101,21 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    decode with its waves;
 13. the continuous encode on the card against the CPU, byte-identical: 256
    KiB at efforts 4 and 5, 50 zero bytes before text (F1) and 300,000
-   7-bit random bytes in blocks of 128 KiB (F2).
+   7-bit random bytes in blocks of 128 KiB (F2);
+14. the mesh (``phase_mesh``): 4 shards of the card. The mesh path is
+   ``engine.decompress(corpus's members, mesh=)`` (byte-exact, every
+   Huffman member resolved on the device) then ``engine.compress(corpus,
+   effort=4, mesh=)`` (byte-identical to phase 12's member), every kernel
+   but K7 launched, and each kernel call of that run (captured: the first
+   two of each shard shape) held against its plain version, exact
+   equality; the decode again over ``make_codec_mesh()``;
+   ``sharded_resolve`` on phase 3's first resolve batch and
+   ``sharded_analyze_emit`` on phase 8's first encode batch, equal to
+   their unsharded outputs; ``sharded_continuous_compress`` of 8 MiB
+   through gzip; ``init_distributed`` with one NCCL rank and the four
+   collectives over a pod mesh whose host axis is that rank, equal to the
+   in-process mesh's; ``dist.dryrun.dryrun_multichip(4)``. Each result's
+   wall time is printed beside the card's name and power limit.
 
 The build phase prints each kernel's registers and shared memory (ptxas)
 and the resident blocks per SM of K4/K7's and K6's kernels. The last lines
@@ -813,11 +827,12 @@ def chain_depth(y0, src) -> tuple[int, float]:
     return int(depth.max()), float(depth.sum()) / max(n_match, 1)
 
 
-def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels) -> None:
+def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels):
     """K5, K6 and the lane CRC on the main path's two resolve batches of the
     corpus's own tokens (hist 0; 256 and 178 lanes), then K5/K6 on edge
     lanes and with 32 KiB of history on tiles 1.. of a 1 MiB multi-block
-    stream."""
+    stream. Returns the first batch's tokens and its resolve (y, summary
+    with the residue in row 3), for the sharded resolve of phase_mesh."""
     import numpy as np
     import torch
 
@@ -844,6 +859,8 @@ def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels) -> None:
             [tail, y0, src], {"y0": [L, N], "tail": [L, rs.TAIL]}, main_path=main,
             proj=lambda out: (out[0], out[1][:, 0]),
         )
+        if main:
+            first = (T, y, torch.cat([summ[:, :3], status[:, :1], summ[:, 4:]], dim=1))
         dmax, dmean = chain_depth(y0, src)
         log(f"sweep: residue {int(status[:, 0].sum())}, rounds per lane (kernel) max "
             f"{int(status[:, 1].max())}; src chain depth on the corpus: max {dmax}, mean {dmean:.3f} "
@@ -907,6 +924,7 @@ def phase_resolve_kernels(gz: bytes, corpus: bytes, device, K: Kernels) -> None:
         [tails, y0h, srch], {"y0": [Lt, N], "tail": [Lt, rs.TAIL]}, main_path=False,
         proj=lambda out: (out[0], out[1][:, 0]),
     )
+    return first
 
 
 def edge_tokens(n_pos: int, match_bit: int):
@@ -1170,7 +1188,7 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
     require(launches["compact_any"] == 0, "the big-members route launched K7")
     path_bounds("big-members route", calls)
     bounds = launch_bounds(calls, shapes, order)
-    replay_big_calls(caps, K)
+    replay_calls(caps, K, "big members")
     del caps
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
@@ -1280,12 +1298,16 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
     return launches
 
 
-def replay_big_calls(caps: dict, K: Kernels) -> None:
-    """Each kernel of the big-members route against its plain version on
-    the arguments it was given there (captured: the first two calls of
-    each lane count, so the block waves, step 0 and a chained step of each
-    tile group, and the CRC at each group's rows)."""
+def replay_calls(caps: dict, K: Kernels, label: str) -> None:
+    """Each kernel of a path against its plain version, with exact
+    equality, on the arguments the path gave it (captured: the first two
+    calls of each lane count; on the big-members route the block waves,
+    step 0 and a chained step of each tile group, and the CRC at each
+    group's rows; on the mesh path each shard shape of the waves, the
+    resolve, the CRC and the encode's K8-K10)."""
     from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import parse as pp
     from tpu_deflate_torch.codec import resolve as rs
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
@@ -1299,15 +1321,19 @@ def replay_big_calls(caps: dict, K: Kernels) -> None:
         "expand": ("expand", rs, lambda tok, *, hist=0: rs.expand_plain(tok, hist), None),
         "sweep": ("sweep", rs, rs.sweep_plain, lambda out: (out[0], out[1][:, 0])),
         "crc32_lanes_raw8": ("crc32_lanes", cl, cl.crc32_lanes_raw8_plain, None),
+        "parse_transfers": ("parse_transfers", pp, pp.parse_transfers_plain, None),
+        "parse_replay": ("parse_replay", pp, pp.parse_replay_plain, None),
+        "emit_body": ("emit_body", em, em.emit_body_plain, None),
     }
     for wrapper, calls in caps.items():
         kname, module, plain, proj = plains[wrapper]
         fn = getattr(module, wrapper)
-        require(bool(calls), f"no {wrapper} call captured on the big-members route")
+        require(bool(calls), f"no {wrapper} call captured on the {label} path")
+        log(f"{label}: {wrapper} captured at {[list(args[0].shape) for args, _kw in calls]}")
         for args, kw in calls:
             K.compare(kname, lambda: fn(*args, **kw), lambda: plain(*args, **kw),
                       [a for a in args if hasattr(a, "element_size")],
-                      {"big members": list(args[0].shape), **kw}, main_path=False, proj=proj)
+                      {label: list(args[0].shape), **kw}, main_path=False, proj=proj)
         calls.clear()
 
 
@@ -1414,7 +1440,8 @@ def encode_members(corpus: bytes) -> bytes:
 def encode_batch(data: bytes, device) -> dict:
     """One lane batch of data as the encoder builds it at effort 2 (lazy
     parse, quality 0): the parse's step tiles, the host entries, K10's
-    inputs and the route."""
+    inputs, the route, the emit's whole arguments and the batch's rows
+    and lengths."""
     import numpy as np
 
     from tpu_deflate_torch.codec import emit as em
@@ -1422,15 +1449,17 @@ def encode_batch(data: bytes, device) -> dict:
 
     pend = pe._dispatch_analyze(np.frombuffer(data, np.uint8), True, 0, device)
     args, tiles, entries, choice = pe.emit_inputs(pend)
-    return {"tiles": tiles, "entries": entries, "choice": choice, "emit": em.body_args(args)}
+    return {"tiles": tiles, "entries": entries, "choice": choice, "emit": em.body_args(args),
+            "args": args, "rows": pend[0], "lengths": pend[5]}
 
 
-def phase_encode_kernels(corpus: bytes, device, K: Kernels) -> None:
+def phase_encode_kernels(corpus: bytes, device, K: Kernels):
     """K8, K9 and K10 on the first batch of the encode's main path (64
     members), then at the edges: step fields of all 1, all 250 and random
     1..250, K8 and K9 on steps <= 0 and at the int32 limits (K9 with entries
     off the tile), a batch with a lane routed FIXED, and a lane whose bits
-    overflow the word grid."""
+    overflow the word grid. Returns the first batch's rows, lengths, emit
+    arguments and emitted (words, total_bits), for phase_mesh."""
     import numpy as np
     import torch
 
@@ -1538,6 +1567,7 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels) -> None:
         log(f"emit segments, {what}: {int(inside.sum())} of {starts.shape[0]} lanes have a segment "
             "starting inside a word")
         require(bool(inside.all()) or not every, f"emit {what}: a lane whose segments all start on a word")
+    return b["rows"], b["lengths"], b["args"], em.emit_device(*b["args"])
 
 
 def segment_starts(args):
@@ -1789,7 +1819,7 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
                       med, bounds)
         phase_profile(lambda: engine.decompress(gz, engine="cuda"), "continuous decode", profile_dir,
                       "profile_continuous_decode", PROFILE_KERNELS, dec_wall, {})
-    return launches, dec_launches
+    return launches, dec_launches, gz
 
 
 def phase_continuous_cpu(corpus: bytes, device) -> None:
@@ -1817,6 +1847,150 @@ def phase_continuous_cpu(corpus: bytes, device) -> None:
         require(gzip.decompress(card) == data, f"continuous {what}, effort {effort}: round trip")
         log(f"continuous {what}, effort {effort}, blocks of {block}: card and CPU byte-identical, "
             f"{len(card)} bytes; card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+
+
+MESH_SHARDS = 4  # shards of the mesh on the one card
+MESH_DECODE_REPS = 3
+MESH_CONT_BYTES = 8 << 20  # sharded_continuous_compress's input: the corpus's first 8 MiB
+MESH_PATH_KERNELS = tuple(k for k, (_src, _tpu, path) in KERNELS.items() if path != "off")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_first, cont_gz: bytes, device,
+               K: Kernels) -> dict:
+    """The distribution over a mesh of MESH_SHARDS shards of the card
+    (``make_codec_mesh(devices=[cuda] * 4)``): the mesh path (the corpus
+    decoded with ``mesh=``, then ``engine.compress(corpus, effort=4,
+    mesh=)``, the launch counts read around both) against the earlier
+    phases' single-device results, and each kernel call of that run held
+    against its plain version on the shard's own arguments (captured, the
+    first two calls of each shard shape); the decode over ``make_codec_mesh()``
+    (the real devices); the sharded resolve and the sharded analysis and
+    emit on the main path's first batches; the sharded C-core encode
+    through gzip; ``init_distributed`` with one NCCL rank and the four
+    collectives over it; ``dryrun_multichip``. Returns the mesh path's
+    launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from tpu_deflate_torch import _build, engine
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import parse as pp
+    from tpu_deflate_torch.codec import resolve as rs
+    from tpu_deflate_torch.dist import dryrun
+    from tpu_deflate_torch.dist import sharded as ds
+    from tpu_deflate_torch.dist.mesh import init_distributed, make_codec_mesh, make_pod_mesh
+
+    card = gpu_name_power()
+    cuda = device
+    mesh = make_codec_mesh(devices=[cuda] * MESH_SHARDS)
+    real = make_codec_mesh()
+    log(f"mesh: {MESH_SHARDS} shards of {cuda}; make_codec_mesh(): {real.size} device(s) "
+        f"{[str(d) for d in real.devices.reshape(-1)]}")
+
+    def timed(what: str, fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        log(f"mesh {what}: {time.monotonic() - t0:.4f} s wall ({card})")
+        return out
+
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"), (dk, "compact_flat"),
+               (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"),
+               (pp, "parse_replay"), (em, "emit_body")]
+    with captured(*kernels) as caps:
+        _build.reset_launches()
+        out = timed(f"decode of the corpus over {MESH_SHARDS} shards (argument copies for the replay included)",
+                    lambda: engine.decompress(gz, engine="cuda", mesh=mesh))
+        stats = dict(pv2.LAST_DECODE_STATS)
+        member = timed(f"engine.compress(corpus, effort=4) over {MESH_SHARDS} shards (argument copies for the "
+                       "replay included)", lambda: engine.compress(corpus, engine="cuda", effort=4, mesh=mesh))
+        launches = _build.all_launches()
+    replay_calls(caps, K, "mesh")
+    del caps
+    require(out == corpus, "the sharded decode differs from the corpus")
+    require(stats["device_resolved"] == n_huff and stats["host_resolved"] == 0,
+            f"device_resolved {stats['device_resolved']} != {n_huff} Huffman members over the mesh")
+    require(member == cont_gz, "the sharded continuous encode differs from the one-device member")
+    log(f"mesh decode stats {json.dumps(stats)}")
+    log(f"launches on the mesh path (decode, then the effort-4 encode): {json.dumps(launches)}")
+    for k in MESH_PATH_KERNELS:
+        require(launches[k] > 0, f"kernel {k} was not launched on the mesh path")
+
+    walls = []
+    for _ in range(MESH_DECODE_REPS):
+        t0 = time.monotonic()
+        require(engine.decompress(gz, engine="cuda", mesh=mesh) == corpus, "the sharded decode differs (timed)")
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    log(f"mesh decode {MESH_DECODE_REPS} timed runs: median {statistics.median(walls):.4f} s, min {min(walls):.4f} s, "
+        f"max {max(walls):.4f} s ({card})")
+    again = timed(f"engine.compress(corpus, effort=4) over {MESH_SHARDS} shards, timed",
+                  lambda: engine.compress(corpus, engine="cuda", effort=4, mesh=mesh))
+    require(again == cont_gz, "the sharded continuous encode differs from the one-device member (timed)")
+    again = timed("decode of the corpus over make_codec_mesh()", lambda: engine.decompress(gz, engine="cuda", mesh=real))
+    require(again == corpus, "the decode over the real devices' mesh differs from the corpus")
+
+    T, y1, summ1 = resolve_first
+    ys, summs = timed(f"sharded_resolve of the first resolve batch {list(T.shape)}",
+                      lambda: ds.sharded_resolve(mesh)(T))
+    require(torch.equal(ys, y1) and torch.equal(summs, summ1), "sharded resolve differs from K5/K6 unsharded")
+    log(f"resolve of the first resolve batch, CUDA-event median of {KERNEL_REPS}: sharded over {MESH_SHARDS} "
+        f"{median_ms(lambda: ds.sharded_resolve(mesh)(T), KERNEL_REPS):.4f} ms, unsharded "
+        f"{median_ms(lambda: rs.resolve_tokens_device(T), KERNEL_REPS):.4f} ms ({card})")
+
+    rows, lengths, args, (w1, b1) = encode_first
+    w, b = timed(f"sharded_analyze_emit of the first encode batch {list(rows.shape)}",
+                 lambda: ds.sharded_analyze_emit(mesh)(rows, lengths, *args[7:]))
+    require(torch.equal(w, w1) and torch.equal(b, b1), "sharded analyze+emit differs from the unsharded batch")
+
+    part = corpus[:MESH_CONT_BYTES]
+    sgz = timed(f"sharded_continuous_compress of {len(part)} bytes", lambda: ds.sharded_continuous_compress(part, mesh))
+    require(gzip.decompress(sgz) == part, "sharded_continuous_compress does not round-trip through gzip")
+    log(f"sharded_continuous_compress: {len(part)} -> {len(sgz)} bytes (ratio {len(sgz) / len(part):.4f})")
+
+    backend = "nccl" if cuda.type == "cuda" else "gloo"
+    ok = timed(f"init_distributed (one {backend} rank)", lambda: init_distributed(
+        coordinator_address=f"tcp://localhost:{free_port()}", num_processes=1, process_id=0, device=cuda.type))
+    require(ok and tdist.get_backend() == backend, f"init_distributed did not bring up {backend}")
+    try:
+        pod = make_pod_mesh(1, MESH_SHARDS, devices=[cuda] * MESH_SHARDS)
+        require(pod.rank_axis == "host", "the pod mesh's host axis is not the ranks")
+        axes = ("host", "data")
+        rng = np.random.default_rng(12)
+        shards = rng.integers(0, 256, (2 * MESH_SHARDS, 40000), dtype=np.uint8)
+        word = b"dictionary" * 500
+        pd = timed(f"broadcast_preset_dict over {backend}", lambda: ds.broadcast_preset_dict(word, pod))
+        require(torch.equal(pd[cuda], ds.broadcast_preset_dict(word, mesh)[cuda]), "broadcast differs")
+        h = timed(f"halo_exchange over {backend}", lambda: ds.halo_exchange(shards, pod, axes, preset_dict=pd))
+        require(torch.equal(h, ds.halo_exchange(shards, mesh, preset_dict=pd)), "halo exchange differs")
+        vals = rng.integers(-1000, 1000, (3 * MESH_SHARDS, 5)).astype(np.int32)
+        p = timed(f"psum_stats over {backend}", lambda: ds.psum_stats(vals, pod, axes))
+        require(torch.equal(p, ds.psum_stats(vals, mesh)), "psum differs")
+        payload = rng.integers(0, 256, (MESH_SHARDS, 300), dtype=np.uint8)
+        lens = rng.integers(0, 300, MESH_SHARDS).astype(np.int32)
+        g = timed(f"ordered_ragged_gather over {backend}", lambda: ds.ordered_ragged_gather(payload, lens, pod, axes))
+        want = ds.ordered_ragged_gather(payload, lens, mesh)
+        require(all(np.array_equal(a, b) for a, b in zip(g, want)), "ordered ragged gather differs")
+    finally:
+        tdist.destroy_process_group()
+
+    timed(f"dryrun_multichip({MESH_SHARDS})", lambda: dryrun.dryrun_multichip(MESH_SHARDS, devices=[cuda] * MESH_SHARDS))
+    log(f"gpu: {card}")
+    return launches
 
 
 def main(argv: list[str]) -> int:
@@ -1854,7 +2028,7 @@ def main(argv: list[str]) -> int:
     small = main_path_small_waves(gz, device)
     phase_k3_edges(small, device, K)
     phase_compact_edges(small, device, K)
-    phase_resolve_kernels(gz, corpus, device, K)
+    resolve_first = phase_resolve_kernels(gz, corpus, device, K)
     phase_crc_edges(corpus, device, K)
     launches, timed_median_s, bounds = phase_main_path(corpus, gz, n_huff)
     if args.profile:
@@ -1865,7 +2039,7 @@ def main(argv: list[str]) -> int:
     big_launches = phase_big_members(corpus, device, args.profile, K)
     phase_interop(corpus, gz, device)
 
-    phase_encode_kernels(corpus, device, K)
+    encode_first = phase_encode_kernels(corpus, device, K)
     enc_launches, enc_median_s, enc_bounds, effort2_bytes = phase_encode_main(corpus)
     if args.profile:
         phase_profile(lambda: engine.compress(corpus, engine="cuda"), "encode", args.profile,
@@ -1873,10 +2047,11 @@ def main(argv: list[str]) -> int:
     phase_encode_cpu(corpus, device)
 
     phase_continuous_kernels(corpus, device, K)
-    cont_launches, cont_dec_launches = phase_continuous_main(corpus, effort2_bytes, args.profile, K)
+    cont_launches, cont_dec_launches, cont_gz = phase_continuous_main(corpus, effort2_bytes, args.profile, K)
     phase_continuous_cpu(corpus, device)
+    mesh_launches = phase_mesh(corpus, gz, n_huff, resolve_first, encode_first, cont_gz, device, K)
     path_launches = {"main": launches, "off": off_launches, "big": big_launches, "encode": enc_launches,
-                     "continuous": cont_launches, "continuous_decode": cont_dec_launches}
+                     "continuous": cont_launches, "continuous_decode": cont_dec_launches, "mesh": mesh_launches}
 
     kernels = [
         {

@@ -254,17 +254,17 @@ def test_route_memory_bound(monkeypatch):
     gz += _member9(_copies(2 * N - 1000, 48)) + _member9(_structured(49, 2 * N - 7))
     monkeypatch.setattr(pv2, "BIG_BATCH_POSITIONS", 2 * N)
     batches, pulls = [], []
-    chain, pack = pv2.decode_deflate_streams_v2, pv2.pack_tokens
+    chain, pack = pv2._decode_streams, pv2.pack_tokens
 
-    def chain_spy(payloads, device, stats=None, *, device_caps=None):
+    def chain_spy(payloads, runner, stats, device_caps):
         batches.append((len(payloads), device_caps is not None))
-        return chain(payloads, device, stats, device_caps=device_caps)
+        return chain(payloads, runner, stats, device_caps)
 
     def pack_spy(tokens):
         pulls.append(batches[-1][1])
         return pack(tokens)
 
-    monkeypatch.setattr(pv2, "decode_deflate_streams_v2", chain_spy)
+    monkeypatch.setattr(pv2, "_decode_streams", chain_spy)
     monkeypatch.setattr(pv2, "pack_tokens", pack_spy)
     got = pv2.gzip_decompress_v2(gz, device=CPU, device_resolve="on")
     stats = pv2.LAST_DECODE_STATS
@@ -309,7 +309,7 @@ def test_lane_past_its_isize_leaves_the_device(monkeypatch):
     data = _copies(200_000, 46)
     gz = _td_member(_raw9(data), 5000, zlib.crc32(data))
     seen = []
-    chain = pv2.decode_deflate_streams_v2
+    chain = pv2._decode_streams
 
     def chain_spy(*a, **kw):
         states = chain(*a, **kw)
@@ -319,7 +319,7 @@ def test_lane_past_its_isize_leaves_the_device(monkeypatch):
     def no_resolve(tiles):
         raise AssertionError("the chained resolve ran on a lane past its ISIZE")
 
-    monkeypatch.setattr(pv2, "decode_deflate_streams_v2", chain_spy)
+    monkeypatch.setattr(pv2, "_decode_streams", chain_spy)
     monkeypatch.setattr(rs, "resolve_tiles_crc", no_resolve)
     got = _reason(lambda b: pv2.gzip_decompress_v2(b, device=CPU, device_resolve="on"), gz)
     want = _reason(lambda b: v2.gzip_decompress_tpu_v2(b, device_resolve="on"), gz)
@@ -394,7 +394,7 @@ def test_error_position_in_a_late_tile_hands_back():
         st = pv2.LaneState(b"", tokens=[torch.from_numpy(arr[:5000]), arr[5000:]], device_cap=1 << 20)
         st.out_total = int(np.where((arr & MATCH) != 0, (arr >> 16) & 0x3FF, 1).sum())
         states.append(st)
-    outs = pv2._decode_chained_device(states, [st.out_total for st in states], True, CPU, {})
+    outs = pv2._decode_chained_device(states, [st.out_total for st in states], True, pv2.WaveRunner.on(CPU), {})
     want = rp.resolve_reference(np.array(clean, np.int64))
     assert outs[0] == (want, zlib.crc32(want)) and outs[1] is None
     # one stream a call: the reference's resolve keeps the one-lane shape it compiled for the route

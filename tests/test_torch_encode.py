@@ -150,7 +150,17 @@ def test_engine_continuous_raises_without_cuda(monkeypatch, effort):
         engine.compress(b"abc", effort=effort)
 
 
-def test_engine_compress_not_ported():
-    """The sharded encode (mesh=) is still to port."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.compress(b"abc", effort=4, mesh=object())
+def test_engine_compress_not_ported(monkeypatch):
+    """The sharded encode (mesh=) is ported: over a CPU mesh (the device
+    the engine asks for monkeypatched to the CPU) it writes the unsharded
+    member, and a mesh of other devices than the call's is refused."""
+    from tpu_deflate_torch.codec import continuous
+    from tpu_deflate_torch.dist.mesh import make_codec_mesh
+
+    mesh = make_codec_mesh(devices=[CPU] * 2)
+    monkeypatch.setattr(engine, "_cuda", lambda name: CPU)
+    data = b"abc" * 3000
+    assert engine.compress(data, effort=4, mesh=mesh) == continuous.compress_continuous(data, device=CPU)
+    monkeypatch.setattr(engine, "_cuda", lambda name: torch.device("cuda"))
+    with pytest.raises(ValueError, match="mesh"):
+        engine.compress(b"abc", effort=4, mesh=mesh)

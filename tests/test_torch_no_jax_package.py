@@ -37,7 +37,9 @@ def _port_modules() -> list[str]:
 def test_port_modules_import_no_jax_package():
     mods = _port_modules()
     assert {"tpu_deflate_torch.codec.resolve", "tpu_deflate_torch.kernels.checksum_lanes",
-            "tpu_deflate_torch.native", "tpu_deflate_torch.engine"} <= set(mods)
+            "tpu_deflate_torch.native", "tpu_deflate_torch.engine", "tpu_deflate_torch.cli",
+            "tpu_deflate_torch.dist", "tpu_deflate_torch.dist.mesh", "tpu_deflate_torch.dist.sharded",
+            "tpu_deflate_torch.dist.dryrun"} <= set(mods)
     _run([f"import {m}" for m in mods])
 
 

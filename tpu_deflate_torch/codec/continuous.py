@@ -17,7 +17,14 @@ taken on the card from the rows' payload columns (the lane CRC, through
 
 Lanes are independent given their halos, which come from the input, so the
 batches run in the member encoder's three-stage pipeline
-(``encode.run_pipeline``); only the splice is serial.
+(``encode.run_pipeline``); only the splice is serial. With a mesh
+(``dist.mesh``) each batch's lanes pad to a multiple of the shard count
+with 1-byte lanes that are never final (the reference's padding) and cut
+into contiguous shards; each shard runs the match finder, K8, K9, K10 and
+its part of the member CRC on its own device, and the padding lanes are
+dropped before the splice. The member is byte-identical to the unsharded
+one. Across ranks the encode is replicated: each rank encodes the whole
+input over its own devices.
 
 The output is byte-identical to ``encode_jax.compress_continuous_tpu`` at
 the same effort and ``block_data``, except where the reference's faults
@@ -33,9 +40,12 @@ fire; there it decodes correctly:
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from ..dist.mesh import LaneSharding, lane_sharding, pad_lanes
 from ..kernels.checksum_lanes import crc32_device
 from ..native import _EMPTY_MEMBER
 from .emit import EMIT_CHUNK, EMIT_WORDS, emit_device
@@ -74,6 +84,19 @@ class BitSplicer:
         self.bitpos += nbits
         del self.out[(self.bitpos + 7) // 8 :]
 
+    def append_aligned(self, sb: bytes, nbits: int) -> None:
+        """Append ``nbits`` bits that were encoded to start at bit
+        ``bitpos % 8`` of ``sb``'s first byte (its bits below that are zero),
+        so stored blocks among them sit at their true alignment."""
+        r = self.bitpos & 7
+        if r:
+            self.out[-1] |= sb[0]
+            self.out += sb[1:]
+        else:
+            self.out += sb
+        self.bitpos += nbits
+        del self.out[(self.bitpos + 7) // 8 :]
+
     def append_stored(self, data: bytes, final: bool) -> None:
         """``data`` as stored blocks of at most 65535 bytes (one empty
         block for no data); bfinal on the last block if ``final``."""
@@ -92,16 +115,19 @@ class BitSplicer:
         return bytes(self.out)
 
 
-def lane_rows(flat: np.ndarray, first: int, count: int, block_data: int):
+def lane_rows(flat: np.ndarray, first: int, count: int, block_data: int, lanes: int | None = None):
     """Host rows of lanes first .. first + count - 1 of ``flat``: (rows
-    (count, S) uint8, hstart, pay_lens, final, each (count,) int32), S the
-    smallest multiple of ROW_ALIGN that holds HALO_COLS + block_data."""
+    (lanes, S) uint8, hstart, pay_lens, final, each (lanes,) int32), S the
+    smallest multiple of ROW_ALIGN that holds HALO_COLS + block_data. The
+    ``lanes - count`` rows past them (none by default) are padding lanes:
+    zero rows of one payload byte, no history, never final."""
     n = flat.size
+    lanes = count if lanes is None else lanes
     S = -(-(HALO_COLS + block_data) // ROW_ALIGN) * ROW_ALIGN
-    rows = np.zeros((count, S), np.uint8)
-    hstart = np.empty(count, np.int32)
-    pay_lens = np.empty(count, np.int32)
-    final = np.empty(count, np.int32)
+    rows = np.zeros((lanes, S), np.uint8)
+    hstart = np.full(lanes, HALO_COLS, np.int32)
+    pay_lens = np.ones(lanes, np.int32)
+    final = np.zeros(lanes, np.int32)
     for i in range(count):
         p0 = (first + i) * block_data
         h = min(HALO_COLS, p0)
@@ -136,15 +162,27 @@ def continuous_encode_lanes(rows: torch.Tensor, hstart: torch.Tensor, pay_lens: 
     return _emit_lanes(dispatch_lanes(rows, hstart, pay_lens, lazy, quality), final)
 
 
-def compress_continuous(data: bytes, *, device: torch.device, effort: int = 4,
+def _on(dev: torch.device):
+    """The device's context (a shard's events and copies go to its stream)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def compress_continuous(data: bytes, *, device: torch.device | None = None, mesh=None, effort: int = 4,
                         block_data: int = MEMBER_DATA, lane_batch: int = ENC_LANE_BATCH) -> bytes:
     """Encode ``data`` as one gzip member of ``block_data`` blocks with
     continuous 32 KiB history, on ``device`` (kernels on a CUDA device,
-    their plain versions on the CPU), ``lane_batch`` lanes a batch. The
-    parse is lazy; effort >= 5 takes the deepest candidate set."""
+    their plain versions on the CPU) or with each batch's lanes cut over
+    ``mesh`` (``dist.mesh.CodecMesh``; pass one of the two), ``lane_batch``
+    lanes a batch before the padding. The parse is lazy; effort >= 5 takes
+    the deepest candidate set. A mesh across ranks gives its process's part
+    (``CodecMesh.local``) the whole input: every rank encodes every batch
+    over its own devices and returns the same member."""
+    if (device is None) == (mesh is None):
+        raise ValueError("pass a device or a mesh")
     n = len(data)
     if n == 0:
         return _EMPTY_MEMBER
+    sh = LaneSharding.one(device) if mesh is None else lane_sharding(mesh.local(), None)
     quality = 2 if effort >= 5 else 1
     flat = np.frombuffer(data, np.uint8)
     nlanes = -(-n // block_data)
@@ -152,22 +190,34 @@ def compress_continuous(data: bytes, *, device: torch.device, effort: int = 4,
     crc = 0
 
     def dispatch(first):
-        rows, hstart, pay_lens, final = lane_rows(flat, first, min(lane_batch, nlanes - first), block_data)
-        pend = dispatch_lanes(torch.from_numpy(rows).to(device), torch.from_numpy(hstart).to(device),
-                              pay_lens, True, quality)
-        return pend, first, final
+        count = min(lane_batch, nlanes - first)
+        rows, hstart, pay_lens, final = lane_rows(flat, first, count, block_data, pad_lanes(count, sh.n))
+        shards = []  # (pending stage 1, first lane, its finals, its real lanes), in lane order
+        for dev, (a, b) in zip(sh.devices, sh.bounds(rows.shape[0], real=count)):
+            with _on(dev):
+                pend = dispatch_lanes(torch.from_numpy(rows[a:b]).to(dev), torch.from_numpy(hstart[a:b]).to(dev),
+                                      pay_lens[a:b], True, quality)
+            shards.append((pend, first + a, final[a:b], min(b, count) - a))
+        return shards
 
-    def emit(d):
-        pend, first, final = d
-        return (*_emit_lanes(pend, final), pend[0], first, pend[-1], final)
+    def emit(shards):
+        out = []
+        for pend, first, final, real in shards:
+            with _on(pend[0].device):
+                out.append((*_emit_lanes(pend, final), pend[0], first, pend[-1], final, real))
+        return out
 
     def splice(em):
+        for shard in em:
+            splice_shard(*shard)
+
+    def splice_shard(words, total_bits, choice, rows, first, pay_lens, final, real):
         nonlocal crc
-        words, total_bits, choice, rows, first, pay_lens, final = em
-        payload = rows[:, HALO_COLS : HALO_COLS + block_data].reshape(-1)[: int(pay_lens.sum())]
+        pay_lens = pay_lens[:real]
+        payload = rows[:real, HALO_COLS : HALO_COLS + block_data].reshape(-1)[: int(pay_lens.sum())]
         crc = crc32_device(payload, crc)
-        total_bits = total_bits.cpu().numpy()
-        choice = choice.cpu().numpy()
+        total_bits = total_bits[:real].cpu().numpy()
+        choice = choice[:real].cpu().numpy()
         ln = pay_lens.astype(np.int64)
         stored_bits = 8 * (ln + 5 * (-(-ln // MAX_STORED_BLOCK)) + 1)
         # The device's route, with the emitted size as a backstop in bits (the
@@ -175,8 +225,8 @@ def compress_continuous(data: bytes, *, device: torch.device, effort: int = 4,
         # word grid (F2).
         huff = (choice != ROUTE_STORED) & (total_bits < stored_bits) & (total_bits <= 32 * EMIT_WORDS)
         mw = max(-(-int(total_bits[huff].max(initial=0)) // 32), 1)
-        wbytes = words[:, :mw].contiguous().cpu().numpy().view(np.uint8)
-        for i in range(len(pay_lens)):
+        wbytes = words[:real, :mw].contiguous().cpu().numpy().view(np.uint8)
+        for i in range(real):
             nb = int(total_bits[i])
             if huff[i]:
                 sp.append(wbytes[i, : (nb + 7) // 8].tobytes(), nb)

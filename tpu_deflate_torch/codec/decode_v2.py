@@ -35,6 +35,18 @@ the device, so "auto" keeps them there.
 
 Every function takes an explicit ``device``; on a CPU device the kernels'
 plain versions run (the CPU tests), on a CUDA device the kernels do.
+
+With a mesh (``dist.mesh``), a :class:`WaveRunner` cuts each wave's lane
+axis into the mesh's shards, contiguous in lane order and padded to a
+multiple of their count, and each shard runs K1-K4 (K7 on the host route)
+on its own device; the main path's rows resolve (K5, K6) and CRC on the
+device of the shard that decoded them, and each batch of the device route
+is cut into shards that resolve and CRC on their own devices. Every shard
+is launched before the first pull to the host. The host loop, its wave
+order and its error order are the single-device path's, which is the case
+of one shard. Across ranks (a mesh whose host axis is the ranks) the
+members split into one contiguous share a rank, which decodes its share
+over its own devices; the bytes join in stream order.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..dist.mesh import LaneSharding, pad_lanes
 from ..format.errors import (
     DataFormatError,
     OutputCapacityError,
@@ -209,6 +222,43 @@ def pack_tokens(tokens: torch.Tensor):
     return bitmap, lit_c.to(torch.uint8), match_c, nlit
 
 
+class WaveRunner:
+    """The decode's lane axis cut over a ``dist.mesh.LaneSharding`` (the
+    counterpart of the reference's ``sharded_decode`` runner): shard d of D
+    takes lanes [d L / D, (d + 1) L / D) of L lanes, and a wave's L is
+    padded to a multiple of D (``lane_multiple``). :meth:`on` is the
+    single-device path, one shard. A device may repeat: its shards then run
+    on it in turn. The front doors build one runner a call, and everything
+    below them takes it."""
+
+    def __init__(self, sharding: LaneSharding):
+        self.sharding = sharding
+        self.devices = sharding.devices
+        self.lane_multiple = sharding.n
+
+    @classmethod
+    def on(cls, device: torch.device) -> "WaveRunner":
+        return cls(LaneSharding.one(device))
+
+    def lanes(self, n: int) -> int:
+        """Lanes of a wave of n members: its lane bucket, padded to a
+        multiple of the shards."""
+        return pad_lanes(_bucket(n, V2_L_BUCKETS), self.lane_multiple)
+
+    def shards(self, lanes: int, real: int) -> list[tuple[torch.device, int, int]]:
+        """(device, first lane, end lane) of each shard of ``lanes`` (a
+        multiple of ``lane_multiple``) that holds one of the first ``real``
+        lanes, in lane order: a shard of padding lanes only does not run."""
+        return [(dev, a, b) for dev, (a, b) in zip(self.devices, self.sharding.bounds(lanes, real))]
+
+    def dispatch(self, w: dict, n: int) -> list[tuple[int, int, dict]]:
+        """Upload the shards of wave ``w`` (NumPy, lanes leading) that hold
+        one of its first n (real) lanes: (first lane, end lane, the shard's
+        wave dict of tensors on its device), in lane order."""
+        return [(a, b, wave_to_tensors({k: v if k.startswith("_") else v[a:b] for k, v in w.items()}, dev))
+                for dev, a, b in self.shards(w["grid"].shape[0], n)]
+
+
 # ---------------------------------------------------------------------------
 # Host loop: block-chained decode of raw DEFLATE streams
 # ---------------------------------------------------------------------------
@@ -296,13 +346,16 @@ def _advance_host(st: LaneState):
 
 def decode_deflate_streams_v2(
     payloads: list[bytes],
-    device: torch.device,
+    device=None,
     stats: dict | None = None,
     *,
     device_caps: list[int] | None = None,
+    mesh=None,
 ) -> list[LaneState]:
     """Decode raw DEFLATE streams (any block chain) with the wave kernels
-    on ``device``.
+    on ``device``, or with each wave's lanes cut over ``mesh``
+    (``dist.mesh.CodecMesh``; pass one of the two; across ranks, every rank
+    walks every stream on its own devices).
 
     Returns one LaneState per stream with its token stream (stored-block
     bytes inlined as literal tokens, so the LZ77 window carries across
@@ -315,6 +368,12 @@ def decode_deflate_streams_v2(
     tokens to the host. ``stats["waves"]``, when given, counts the device
     waves run.
     """
+    return _decode_streams(payloads, _runner(device, mesh), stats, device_caps)
+
+
+def _decode_streams(payloads: list[bytes], runner: WaveRunner, stats: dict | None,
+                    device_caps: list[int] | None) -> list[LaneState]:
+    """:func:`decode_deflate_streams_v2` on a runner."""
     assert len(payloads) <= V2_LANE_BATCH, "batch the lanes (V2_LANE_BATCH)"
     caps = [None] * len(payloads) if device_caps is None else device_caps
     lanes = [LaneState(p, device_cap=c) for p, c in zip(payloads, caps)]
@@ -326,16 +385,28 @@ def decode_deflate_streams_v2(
                 wave.append((st, bool(nxt[0] & 1)))
         if not wave:
             break
-        _decode_huffman_wave([st for st, _ in wave], device, stats)
+        _decode_huffman_wave([st for st, _ in wave], runner, stats)
         for st, bfinal in wave:
             if not st.err and bfinal and st.bitpos_advanced:
                 st.done = True
     return lanes
 
 
-def _lane_cap(P: int) -> int:
-    """Largest lane bucket whose padded wave stays under WAVE_BYTES_CAP."""
-    cap = max(WAVE_BYTES_CAP // max(P, 1), V2_L_BUCKETS[0])
+def _runner(device, mesh) -> WaveRunner:
+    """The runner of a front door's ``device`` or ``mesh`` (one of them)."""
+    if (device is None) == (mesh is None):
+        raise ValueError("pass a device or a mesh")
+    if mesh is None:
+        return WaveRunner.on(device)
+    from ..dist.sharded import sharded_decode
+
+    return sharded_decode(mesh, None)
+
+
+def _lane_cap(P: int, lane_multiple: int = 1) -> int:
+    """Largest lane bucket whose padded wave stays under WAVE_BYTES_CAP
+    (at least the shard count)."""
+    cap = max(WAVE_BYTES_CAP // max(P, 1), lane_multiple, V2_L_BUCKETS[0])
     pick = V2_L_BUCKETS[0]
     for b in V2_L_BUCKETS:
         if b <= cap:
@@ -343,7 +414,7 @@ def _lane_cap(P: int) -> int:
     return pick
 
 
-def _decode_huffman_wave(wave: list[LaneState], device: torch.device, stats) -> None:
+def _decode_huffman_wave(wave: list[LaneState], runner: WaveRunner, stats) -> None:
     """Decode each lane's current Huffman block, grouped by padded-payload
     bucket and k1 (one oversized or short-code lane must not widen every
     other lane's arrays); groups split to stay under WAVE_BYTES_CAP. Every
@@ -361,20 +432,20 @@ def _decode_huffman_wave(wave: list[LaneState], device: torch.device, stats) -> 
         groups.setdefault(key, []).append(st)
     pending = []
     for (P, _k1), grp in sorted(groups.items()):
-        lmax = _lane_cap(P)
+        lmax = _lane_cap(P, runner.lane_multiple)
         for base in range(0, len(grp), lmax):
-            pend = _decode_huffman_subwave(grp[base : base + lmax], P, device, stats)
+            pend = _decode_huffman_subwave(grp[base : base + lmax], P, runner, stats)
             if pend is not None:
                 pending.append(pend)
     for mid in [_apply_small(*pend) for pend in pending]:
         _apply_tokens(*mid)
 
 
-def _decode_huffman_subwave(wave: list[LaneState], P: int, device: torch.device, stats):
+def _decode_huffman_subwave(wave: list[LaneState], P: int, runner: WaveRunner, stats):
     """Dispatch one wave over lanes sharing payload bucket P; returns the
     pending (not yet pulled) results, or None if a header failed."""
     L_real = len(wave)
-    L = _bucket(L_real, V2_L_BUCKETS)
+    L = runner.lanes(L_real)
     shifts = [st.bitpos // 8 for st in wave]
     rems = [st.bitpos % 8 for st in wave]
     avail = [len(st.payload) - sh for st, sh in zip(wave, shifts)]
@@ -402,9 +473,9 @@ def _decode_huffman_subwave(wave: list[LaneState], P: int, device: torch.device,
                 st.err = reason_to_code(r)
         rest = [st for st in wave if not st.err]
         if len(rest) < len(wave):
-            _decode_huffman_wave(rest, device, stats)
+            _decode_huffman_wave(rest, runner, stats)
         return None
-    return _dispatch_block_stages(wave, rows, row_bits, hp, truncated, device, stats)
+    return _dispatch_block_stages(wave, rows, row_bits, hp, truncated, runner, stats)
 
 
 def _reparse_single(rows, row_bits, start_bits):
@@ -415,18 +486,22 @@ def _reparse_single(rows, row_bits, start_bits):
         return e.reason
 
 
-def _dispatch_block_stages(wave, rows, row_bits, hp, truncated, device, stats):
-    """Launch one wave's device work; nothing is pulled to the host here."""
+def _dispatch_block_stages(wave, rows, row_bits, hp, truncated, runner: WaveRunner, stats):
+    """Launch one wave's device work, shard by shard; nothing is pulled to
+    the host here. The pending shards are (wave dict, tokens, small)."""
     w_np, shift2 = _wave_arrays(rows, row_bits, hp)
-    w = wave_to_tensors(w_np, device)
-    tokens, *rest = run_wave(w)
+    on_device = wave[0].device_cap is not None  # one route for every lane of a chain batch
+    shards = []
+    for _a, _b, w in runner.dispatch(w_np, len(wave)):
+        tokens, *rest = run_wave(w)
+        if on_device:
+            shards.append((w, ("device", tokens), pack_small(*rest)))
+        else:
+            bitmap, lit8, match32, nlit = pack_tokens(tokens)
+            shards.append((w, ("packed", bitmap, lit8, match32), pack_small(*rest, nlit=nlit)))
     if stats is not None:
         stats["waves"] = stats.get("waves", 0) + 1
-    if wave[0].device_cap is not None:  # one route for every lane of a chain batch
-        return wave, shift2, truncated, w, ("device", tokens), pack_small(*rest)
-    bitmap, lit8, match32, nlit = pack_tokens(tokens)
-    small = pack_small(*rest, nlit=nlit)
-    return wave, shift2, truncated, w, ("packed", bitmap, lit8, match32), small
+    return wave, shift2, truncated, shards
 
 
 def _round_cols(k: int, width: int, bucket: int) -> int:
@@ -434,25 +509,36 @@ def _round_cols(k: int, width: int, bucket: int) -> int:
     return min(width, -(-k // bucket) * bucket)
 
 
-def _apply_small(wave, shift2, truncated, w, packed, small):
+def _pull(tensors, cols: int) -> np.ndarray:
+    """The first ``cols`` columns of each shard's tensor, on the host, the
+    shards' rows one after another."""
+    parts = [t[:, :cols].cpu().numpy() for t in tensors]
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def _apply_small(wave, shift2, truncated, shards):
     """Pull a wave's per-lane results, then only the token columns in use
-    (none where the tokens stay on the device)."""
-    small_h = small.cpu().numpy()
-    if small_h[5, 0]:
+    (none where the tokens stay on the device). The token payload is
+    ("device", the shards' tokens), ("raw", tokens) or ("packed", bitmap,
+    literals, matches), the host arrays with a row per lane."""
+    small_h = np.concatenate([small.cpu().numpy() for _w, _p, small in shards], axis=1)
+    n = len(wave)
+    on_device = shards[0][1][0] == "device"
+    if small_h[5].any():
         # Some tile held more than k1 tokens (degenerate short-code
         # stream): rerun the wave with k1 = 512, which cannot overflow,
         # and take the raw token array.
-        tokens, *rest = run_wave(w, k1=W_P)
-        small_h = pack_small(*rest).cpu().numpy()
-        if packed[0] == "device":
+        reruns = [run_wave(w, k1=W_P) for w, _p, _s in shards]
+        small_h = np.concatenate([pack_small(*rest).cpu().numpy() for _t, *rest in reruns], axis=1)
+        tokens = [t for t, *_rest in reruns]
+        if on_device:
             return wave, shift2, truncated, ("device", tokens), small_h
-        kmax = int(small_h[0, : len(wave)].max()) if wave else 0
-        k = _round_cols(max(kmax, 1), tokens.shape[1], 4096)
-        return wave, shift2, truncated, ("raw", tokens[:, :k].cpu().numpy()), small_h
-    if packed[0] == "device":
-        return wave, shift2, truncated, packed, small_h
-    bitmap, lit8, match32 = packed[1:]
-    n = len(wave)
+        kmax = int(small_h[0, :n].max()) if wave else 0
+        k = _round_cols(max(kmax, 1), tokens[0].shape[1], 4096)
+        return wave, shift2, truncated, ("raw", _pull(tokens, k)), small_h
+    if on_device:
+        return wave, shift2, truncated, ("device", [p[1] for _w, p, _s in shards]), small_h
+    bitmap, lit8, match32 = shards[0][1][1:]
     counts = small_h[0, :n]
     nlit = small_h[6, :n]
     kmax = int(counts.max()) if n else 0
@@ -461,9 +547,9 @@ def _apply_small(wave, shift2, truncated, w, packed, small):
     bk = _round_cols(-(-max(kmax, 1) // 32), bitmap.shape[1], 512)
     pulled = (
         "packed",
-        bitmap[:, :bk].cpu().numpy().view(np.uint32),
-        lit8[:, :lk].cpu().numpy(),
-        match32[:, :mk].cpu().numpy(),
+        _pull([p[1] for _w, p, _s in shards], bk).view(np.uint32),
+        _pull([p[2] for _w, p, _s in shards], lk),
+        _pull([p[3] for _w, p, _s in shards], mk),
     )
     return wave, shift2, truncated, pulled, small_h
 
@@ -520,7 +606,10 @@ def _apply_tokens(wave, shift2, truncated, payload, small_h) -> None:
             if take[i]:
                 st.tokens.append(_lane_tokens(payload, small_h, i, int(take[i])))
         return
-    segs = _device_segments(payload[1], take) if take.any() else [None] * len(wave)
+    segs = []
+    for tokens in payload[1]:  # each shard's lanes, in lane order
+        part = take[len(segs) : len(segs) + tokens.shape[0]]
+        segs += _device_segments(tokens, part) if part.any() else [None] * len(part)
     for st, seg in zip(wave, segs):
         if seg is not None:
             st.tokens.append(seg)
@@ -580,71 +669,96 @@ def _single_block_eligible(buf: np.ndarray, m: dnp.MemberIndex) -> bool:
     return (hdr & 1) == 1 and ((hdr >> 1) & 3) in (1, 2)
 
 
-def single_block_tokens(
-    payloads: list[bytes], device: torch.device, stats: dict | None = None
-) -> tuple[list[int], torch.Tensor, torch.Tensor]:
+def _single_block_shards(payloads: list[bytes], runner: WaveRunner, stats: dict | None):
     """The main path's waves: payloads grouped by payload bucket and k1,
-    each group's waves through :func:`run_wave`. Returns (the payload index
-    of each row, the per-lane vectors (7, n) int32 of :func:`pack_small`,
-    the tokens (n, N_POS) int32 padded or cut to N_POS slots), rows in
-    wave order and all on ``device``. ``payloads`` must not be empty."""
+    each group's waves through :func:`run_wave`, shard by shard. Returns
+    (the payload index of each row, rows in wave order, and per shard that
+    ran (the positions of its rows in that order, the per-lane vectors (7,
+    n) int32 of :func:`pack_small`, the tokens (n, N_POS) int32 padded or
+    cut to N_POS slots), on the shard's device)."""
     N = rs.N_POS
     k1s = _k1_groups(payloads, [0] * len(payloads))
     bygroup: dict[tuple[int, int], list[int]] = {}
     for i, (p, k1) in enumerate(zip(payloads, k1s)):
         bygroup.setdefault((_bucket(len(p), P_BUCKETS_PALLAS), k1), []).append(i)
-    order, smalls, toks = [], [], []
+    order: list[int] = []
+    shards: dict[int, tuple[list, list, list]] = {}
     for (P, _k1), idxs in sorted(bygroup.items()):
-        lmax = _lane_cap(P)
+        lmax = _lane_cap(P, runner.lane_multiple)
         for base in range(0, len(idxs), lmax):
             chunk = idxs[base : base + lmax]
-            w = _prep_wave([payloads[i] for i in chunk], _bucket(len(chunk), V2_L_BUCKETS))
-            tokens, *rest = run_wave(wave_to_tensors(w, device))
+            w = _prep_wave([payloads[i] for i in chunk], runner.lanes(len(chunk)))
+            for d, (a, b, wt) in enumerate(runner.dispatch(w, len(chunk))):
+                tokens, *rest = run_wave(wt)
+                n = min(b, len(chunk)) - a
+                t = tokens[:n, :N]
+                rows, smalls, toks = shards.setdefault(d, ([], [], []))
+                rows += range(len(order) + a, len(order) + a + n)
+                toks.append(torch.nn.functional.pad(t, (0, N - t.shape[1]), value=-1))
+                smalls.append(pack_small(*rest)[:, :n])
             if stats is not None:
                 stats["waves"] = stats.get("waves", 0) + 1
-            n = len(chunk)
-            t = tokens[:n, :N]
-            toks.append(torch.nn.functional.pad(t, (0, N - t.shape[1]), value=-1))
-            smalls.append(pack_small(*rest)[:, :n])
             order += chunk
-    return order, torch.cat(smalls, 1), torch.cat(toks)
+    return order, [(rows, torch.cat(smalls, 1), torch.cat(toks)) for rows, smalls, toks in shards.values()]
+
+
+def single_block_tokens(
+    payloads: list[bytes], device: torch.device, stats: dict | None = None
+) -> tuple[list[int], torch.Tensor, torch.Tensor]:
+    """The main path's waves on one device: (the payload index of each
+    row, the per-lane vectors (7, n) int32 of :func:`pack_small`, the
+    tokens (n, N_POS) int32 padded or cut to N_POS slots), rows in wave
+    order and all on ``device``. ``payloads`` must not be empty."""
+    order, ((_rows, small, T),) = _single_block_shards(payloads, WaveRunner.on(device), stats)
+    return order, small, T
 
 
 def _decode_single_block_device(
-    payloads: list[bytes], members: list, verify_crc: bool, device: torch.device, stats: dict
+    payloads: list[bytes], members: list, verify_crc: bool, runner: WaveRunner, stats: dict
 ) -> list[bytes | None]:
-    """Decode single-block final Huffman members entirely on ``device``.
+    """Decode single-block final Huffman members entirely on the runner's
+    devices.
 
-    The waves' tokens (:func:`single_block_tokens`) resolve in batches of
-    at most RB lanes (K5, K6) and the lane CRC kernel checksums the rows.
+    Each shard's rows of the waves (:func:`_single_block_shards`) resolve on
+    its device in batches of at most RB lanes (K5, K6) and the lane CRC
+    kernel checksums them; every shard is launched before the first pull.
     The host pulls the per-lane vectors, summaries and raw CRCs first, the
     bytes after. Returns per member its bytes, or None where the lane goes
-    back to the host route (a wave whose tiles overflowed k1, or a resolve
-    residue). Raises DataFormatError in the reference's order:
-    copy-before-start, then the stage error, then a missing EOB, then
-    size, then CRC.
+    back to the host route (a wave shard whose tiles overflowed k1, or a
+    resolve residue). Walks the rows in wave order and raises
+    DataFormatError in the reference's order: copy-before-start, then the
+    stage error, then a missing EOB, then size, then CRC.
     """
     N = rs.N_POS
-    order, small, T = single_block_tokens(payloads, device, stats)
-    ys, summs, raws = [], [], []
-    for base in range(0, T.shape[0], RB):
-        y, summ = rs.resolve_tokens_device(T[base : base + RB])
-        y8 = y.to(torch.uint8)
-        ys.append(y8)
-        summs.append(summ)
-        raws.append(cl.crc32_lanes_raw8(y8))
-    small_h = small.cpu().numpy()
-    summ_h = torch.cat(summs).cpu().numpy()
-    raw_h = torch.cat(raws).cpu().numpy()
-    y_h = torch.cat(ys).cpu().numpy()
-    crcs = cl.crc32_finish_leftaligned(raw_h, np.clip(summ_h[:, 1], 0, N), N) if verify_crc else None
+    order, shards = _single_block_shards(payloads, runner, stats)
+    launched = []
+    for rows, small, T in shards:
+        ys, summs, raws = [], [], []
+        for base in range(0, T.shape[0], RB):
+            y, summ = rs.resolve_tokens_device(T[base : base + RB])
+            y8 = y.to(torch.uint8)
+            ys.append(y8)
+            summs.append(summ)
+            raws.append(cl.crc32_lanes_raw8(y8))
+        launched.append((rows, small, ys, summs, raws))
+    where: list = [None] * len(order)  # row -> (shard, its row there)
+    small_h, summ_h, crcs = [], [], []
+    for k, (rows, small, _ys, summs, raws) in enumerate(launched):
+        small_h.append(small.cpu().numpy())
+        summ_h.append(torch.cat(summs).cpu().numpy())
+        raw_h = torch.cat(raws).cpu().numpy()
+        crcs.append(cl.crc32_finish_leftaligned(raw_h, np.clip(summ_h[k][:, 1], 0, N), N) if verify_crc else None)
+        for r, g in enumerate(rows):
+            where[g] = (k, r)
+    y_h = [torch.cat(ys).cpu().numpy() for _rows, _small, ys, _summs, _raws in launched]
 
     outs: list[bytes | None] = [None] * len(payloads)
     for li, pi in enumerate(order):
-        _count, has_eob, _eob_exit, err, _total, ovf, _nlit = (int(v) for v in small_h[:, li])
+        k, r = where[li]
+        _count, has_eob, _eob_exit, err, _total, ovf, _nlit = (int(v) for v in small_h[k][:, r])
         if ovf:
             continue  # a tile held more than k1 tokens: the host route redoes it
-        summ = summ_h[li]
+        summ = summ_h[k][r]
         if int(summ[0]) < N:
             # a bad back-reference precedes any pending stage error
             raise _df(Reason.COPY_FROM_BEFORE_DICTIONARY_START)
@@ -658,9 +772,9 @@ def _decode_single_block_device(
         m = members[pi]
         if total != m.isize:
             raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
-        if verify_crc and int(crcs[li]) != m.crc32:
+        if verify_crc and int(crcs[k][r]) != m.crc32:
             raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
-        outs[pi] = y_h[li, :total].tobytes()
+        outs[pi] = y_h[k][r, :total].tobytes()
     return outs
 
 
@@ -703,18 +817,21 @@ def _chain_batches(huff: list, batch_n: int, on_device: bool):
 
 
 def _decode_chained_device(
-    states: list[LaneState], isizes: list[int], verify_crc: bool, device: torch.device, stats: dict
+    states: list[LaneState], isizes: list[int], verify_crc: bool, runner: WaveRunner, stats: dict
 ) -> list[tuple[bytes, int | None] | None]:
-    """Resolve and CRC the lanes of one device-route batch on ``device``.
+    """Resolve and CRC the lanes of one device-route batch on the runner's
+    devices.
 
     Each lane that finished with no stage error and exactly its trailer's
     size (``isizes``; the host route fails any other, and stops resolving
-    at the ISIZE) concatenates its token segments on the device; its tile
-    count is T = ceil(out_total / N_POS). Lanes group by T and each group
+    at the ISIZE) has tile count T = ceil(out_total / N_POS). Lanes group
+    by T and each group is cut into contiguous shards, one a device; each
+    lane's token segments concatenate on its shard's device, and each shard
     runs the tile split (:func:`resolve.split_tiles_device`), T chained
-    steps of K5, K6 and the lane CRC (:func:`resolve.resolve_tiles_crc`),
-    then the host folds each lane's CRC from its T raw registers. The
-    summaries and registers come to the host first, the bytes after.
+    steps of K5, K6 and the lane CRC (:func:`resolve.resolve_tiles_crc`);
+    every shard of the group is launched before its first pull. Then the
+    host folds each lane's CRC from its T raw registers. The summaries and
+    registers come to the host first, the bytes after.
     Returns per lane (its bytes, its CRC-32 or None without
     ``verify_crc``), or None where the lane takes the host route: a stage
     error, no tokens, another size, a residue or an error position in any
@@ -723,28 +840,34 @@ def _decode_chained_device(
     outs: list = [None] * len(states)
     bygroup: dict[int, list[int]] = {}
     for j, st in enumerate(states):
-        if st.err or not st.tokens or st.out_total != isizes[j]:
-            continue
-        parts = [s if isinstance(s, torch.Tensor) else torch.from_numpy(s).to(device) for s in st.tokens]
-        st.tokens = [torch.cat(parts) if len(parts) > 1 else parts[0]]
-        bygroup.setdefault(-(-st.out_total // N), []).append(j)
+        if not (st.err or not st.tokens or st.out_total != isizes[j]):
+            bygroup.setdefault(-(-st.out_total // N), []).append(j)
     for T, grp in sorted(bygroup.items()):
-        tok = torch.nn.utils.rnn.pad_sequence([states[j].tokens[0] for j in grp], batch_first=True, padding_value=-1)
-        y8, summs, raws = rs.resolve_tiles_crc(rs.split_tiles_device(tok, T))
-        del tok
-        summ_h, raw_h = summs.cpu().numpy(), raws.cpu().numpy()
+        launched = []
+        for dev, a, b in runner.shards(pad_lanes(len(grp), runner.lane_multiple), len(grp)):
+            part = grp[a:b]
+            for j in part:
+                segs = [t.to(dev) if isinstance(t, torch.Tensor) else torch.from_numpy(t).to(dev)
+                        for t in states[j].tokens]
+                states[j].tokens = [torch.cat(segs) if len(segs) > 1 else segs[0]]
+            tok = torch.nn.utils.rnn.pad_sequence([states[j].tokens[0] for j in part], batch_first=True,
+                                                  padding_value=-1)
+            launched.append((part, *rs.resolve_tiles_crc(rs.split_tiles_device(tok, T))))
+            del tok
         stats["chained_groups"] = stats.get("chained_groups", 0) + 1
         stats["chained_tiles"] = stats.get("chained_tiles", 0) + len(grp) * T
-        totals = np.array([states[j].out_total for j in grp], np.int64)
-        crcs = cl.crc32_fold_tiles(raw_h, totals, N) if verify_crc else None
-        ok = (summ_h[:, :, 3].sum(1) == 0) & (summ_h[:, :, 0] >= N).all(1)
-        if not ok.any():
-            continue
-        y_h = y8.cpu().numpy()
-        for r, j in enumerate(grp):
-            if ok[r]:
-                outs[j] = (y_h[r, : totals[r]].tobytes(), None if crcs is None else int(crcs[r]))
-                states[j].tokens = []
+        for part, y8, summs, raws in launched:
+            summ_h, raw_h = summs.cpu().numpy(), raws.cpu().numpy()
+            totals = np.array([states[j].out_total for j in part], np.int64)
+            crcs = cl.crc32_fold_tiles(raw_h, totals, N) if verify_crc else None
+            ok = (summ_h[:, :, 3].sum(1) == 0) & (summ_h[:, :, 0] >= N).all(1)
+            if not ok.any():
+                continue
+            y_h = y8.cpu().numpy()
+            for r, j in enumerate(part):
+                if ok[r]:
+                    outs[j] = (y_h[r, : totals[r]].tobytes(), None if crcs is None else int(crcs[r]))
+                    states[j].tokens = []
     return outs
 
 
@@ -762,12 +885,15 @@ LAST_DECODE_STATS: dict = {}
 def gzip_decompress_v2(
     data: bytes,
     *,
-    device: torch.device,
+    device: torch.device | None = None,
+    mesh=None,
     verify_crc: bool = True,
     lane_batch: int | None = None,
     device_resolve: str = "auto",
 ) -> bytes:
-    """Member-parallel gzip decode with the kernels on ``device``.
+    """Member-parallel gzip decode with the kernels on ``device``, or with
+    the lane axis of every device stage cut over ``mesh``
+    (``dist.mesh.CodecMesh``; pass one of the two).
 
     Stored members decode on the host. ``device_resolve``: "auto" sends
     every single-block Huffman member of at most 64 KiB through the main
@@ -782,9 +908,22 @@ def gzip_decompress_v2(
     route. ``lane_batch`` caps members per block-chain batch (at most
     V2_LANE_BATCH). A stream without the TD member index decodes member by
     member in the shared C core.
+
+    With a mesh, each wave's lanes, each main-path resolve and each
+    device-route batch are cut into the mesh's shards (:class:`WaveRunner`);
+    the output and the Reason of a failure are the single-device path's,
+    and so are the routes: every Huffman member that the device would
+    resolve alone resolves on its shard (the reference's mesh path resolves
+    every member on the host). A mesh across ranks splits the members into
+    one share a rank (:func:`_decompress_across_ranks`).
     """
     if device_resolve not in ("auto", "on", "off"):
         raise ValueError(f"device_resolve={device_resolve!r}: expected 'auto', 'off' or 'on'")
+    runner = _runner(device, mesh)
+    if mesh is not None and mesh.rank_axis is not None:
+        return _decompress_across_ranks(data, mesh, verify_crc=verify_crc, lane_batch=lane_batch,
+                                        device_resolve=device_resolve)
+    device = runner.devices[0]
     stats = LAST_DECODE_STATS
     stats.clear()
     buf = np.frombuffer(data, dtype=np.uint8)
@@ -812,7 +951,7 @@ def gzip_decompress_v2(
                 [buf[m.payload_start : m.end - 8].tobytes() for _, m in elig],
                 [m for _, m in elig],
                 verify_crc,
-                device,
+                runner,
                 stats,
             )
             done = set()
@@ -831,8 +970,8 @@ def gzip_decompress_v2(
     for batch, dev_route in _chain_batches(huff, batch_n, on_device):
         payloads = [buf[m.payload_start : m.end - 8].tobytes() for _, m in batch]
         isizes = [m.isize for _, m in batch] if dev_route else None
-        states = decode_deflate_streams_v2(payloads, device, stats, device_caps=isizes)
-        douts = _decode_chained_device(states, isizes, verify_crc, device, stats) if dev_route else [None] * len(batch)
+        states = _decode_streams(payloads, runner, stats, isizes)
+        douts = _decode_chained_device(states, isizes, verify_crc, runner, stats) if dev_route else [None] * len(batch)
         for j, ((i, m), st) in enumerate(zip(batch, states)):
             out, crc = douts[j] if douts[j] is not None else (_resolve_lane(st, m.isize), None)
             if len(out) != m.isize:
@@ -845,3 +984,32 @@ def gzip_decompress_v2(
     stats["host_resolved"] = len(members) - stats["stored"] - device_resolved
     stats["launches"] = {k: dk.LAUNCHES[k] - launches0[k] for k in dk.LAUNCHES}
     return b"".join(p for p in out_parts if p is not None)
+
+
+def _decompress_across_ranks(data: bytes, mesh, **kw) -> bytes:
+    """:func:`gzip_decompress_v2` over a mesh whose host axis is the ranks.
+
+    Members are independent, so rank r of W decodes the members [r M / W,
+    (r + 1) M / W) of the TD index (one contiguous share of the stream) over
+    its own devices, and every rank gets the whole output in stream order
+    (``dist.sharded.rank_results``). If a share fails, every rank raises:
+    the Reason of the first rank whose share failed, which is the Reason of
+    the one-process decode when one member is at fault, or, where that
+    rank's failure is not a data format error, an error naming the rank
+    (that rank raises its own).
+    ``LAST_DECODE_STATS`` then describes this rank's share. A stream
+    without the member index decodes whole on every rank."""
+    from ..dist.sharded import rank_results
+
+    members = dnp.split_members(np.frombuffer(data, dtype=np.uint8))
+    if not members:
+        return native.gzip_decompress_serial(data)
+    W, r = mesh.world, mesh.rank
+    share = members[r * len(members) // W : (r + 1) * len(members) // W]
+    out, failure = b"", None
+    if share:
+        try:
+            out = gzip_decompress_v2(data[share[0].start : share[-1].end], mesh=mesh.local(), **kw)
+        except Exception as e:  # every rank must reach the collective, or the others wait in it
+            failure = e
+    return rank_results(out, failure, mesh)

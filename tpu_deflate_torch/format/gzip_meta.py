@@ -1,9 +1,9 @@
 """RFC 1952 member headers (trimmed copies of
 ``tpu_deflate.format.gzip_meta``): the header record and its writer, for
-the metadata member the encoder can put first, and the reader, which the
-decode uses only to find where the DEFLATE payload starts, so it
-validates the fields with the reference's Reasons and returns nothing
-else."""
+the metadata member the encoder can put first, and the reader, which
+validates the fields with the reference's Reasons, leaves its source where
+the DEFLATE payload starts and returns the header's record (the CLI's
+metadata report)."""
 
 from __future__ import annotations
 
@@ -105,15 +105,17 @@ class _HeaderReader:
         self.crc = crc32(out, self.crc)
         return out
 
-    def skip_until_nul(self) -> None:
-        while self.read_exact(1) != b"\x00":
-            pass
+    def read_until_nul(self) -> bytes:
+        out = bytearray()
+        while (b := self.read_exact(1)) != b"\x00":
+            out += b
+        return bytes(out)
 
 
-def read_gzip_header(source) -> None:
+def read_gzip_header(source) -> GzipMetadata:
     """Consume one gzip member header from ``source`` (``read(n)->bytes``),
-    leaving it at the first payload byte; raises DataFormatError with the
-    reference's Reason on a bad header."""
+    leaving it at the first payload byte, and return its fields; raises
+    DataFormatError with the reference's Reason on a bad header."""
     r = _HeaderReader(source)
     head = r.read_exact(10)
     if (head[0] << 8 | head[1]) != MAGIC:
@@ -129,13 +131,24 @@ def read_gzip_header(source) -> None:
         raise DataFormatError(
             Reason.GZIP_UNSUPPORTED_OPERATING_SYSTEM, "Unsupported operating system value"
         )
+    extra = name = comment = None
     if flags & 0x04:  # FEXTRA
-        r.read_exact(int.from_bytes(r.read_exact(2), "little"))
+        extra = r.read_exact(int.from_bytes(r.read_exact(2), "little"))
     if flags & 0x08:  # FNAME
-        r.skip_until_nul()
+        name = r.read_until_nul().decode("latin-1")
     if flags & 0x10:  # FCOMMENT
-        r.skip_until_nul()
+        comment = r.read_until_nul().decode("latin-1")
     if flags & 0x02:  # FHCRC
         expect = r.crc & 0xFFFF
         if int.from_bytes(r.read_exact(2), "little") != expect:
             raise DataFormatError(Reason.HEADER_CHECKSUM_MISMATCH, "Header CRC-16 mismatch")
+    return GzipMetadata(
+        is_file_text=bool(flags & 0x01),
+        modification_time_unix_s=int.from_bytes(head[4:8], "little") or None,
+        extra_flags=head[8],
+        operating_system=OperatingSystem(_OS_VALUES if head[9] == _OS_UNKNOWN_WIRE else head[9]),
+        extra_field=extra,
+        file_name=name,
+        comment=comment,
+        has_header_crc=bool(flags & 0x02),
+    )

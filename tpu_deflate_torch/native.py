@@ -5,8 +5,10 @@ package, which binds it on its own. This module compiles it with ``cc``
 into ``_kernels_build/`` beside the package (cached by a hash of the
 source and flags; git-ignored) at first use, and binds only what the port
 calls: the token resolve and CRC-32 of the host-resolve route, the serial
-inflate of the fallback for streams without a member index, and the
-member encoder that writes the profile streams the port reads. A failed
+inflate of the fallback for streams without a member index, the member
+encoder that writes the profile streams the port reads, and the block
+encoder of the sharded continuous-history encode
+(``dist.sharded.sharded_continuous_compress``). A failed
 build raises with the compiler's output: there is no Python fallback.
 """
 
@@ -41,6 +43,11 @@ SIGNATURES = {
     "td_deflate_members": (
         _SZ,
         [ctypes.c_char_p, _SZ, _SZ, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _SZ],
+    ),
+    "td_deflate_block": (
+        _SZ,
+        [ctypes.c_char_p, _SZ, _SZ, _P, _SZ, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+         ctypes.c_int, ctypes.c_int],
     ),
 }
 
@@ -182,3 +189,19 @@ def compress_members_native(
     if got == 0:
         raise RuntimeError("native member encoder failed")
     return out.raw[:got]
+
+
+def deflate_block(buf: bytes, hist_len: int, n: int, final: bool, start_bit: int, seed_byte: int,
+                  max_code_len: int, max_chain: int) -> tuple[bytes, int]:
+    """Encode ``buf[hist_len : hist_len + n]`` as one DEFLATE block whose
+    matches may reach into the ``hist_len`` bytes before it, starting at
+    bit ``start_bit`` of a first byte that already holds ``seed_byte``'s
+    low bits. Returns (the output buffer, the bits written, counted from
+    bit 0 of its first byte)."""
+    cap = n + n // 4 + 2048
+    out = ctypes.create_string_buffer(cap)
+    bits = int(load().td_deflate_block(buf, hist_len, n, out, cap, int(final), start_bit, seed_byte,
+                                       max_code_len, max_chain))
+    if bits == 0:
+        raise RuntimeError("native deflate_block failed")
+    return out.raw, bits
