@@ -62,8 +62,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    CRC at each group's rows); its device memory peak; the split on the
    card equal to ``split_tokens_tiles`` and each chained CRC equal to zlib
    on the same tokens, with the split's memory a token; under a 512 KiB
-   batch bound the 1 MiB members on the host route and the 256 KiB one on
-   the device route; 3 timed runs against 3 of the "off" route (with
+   batch bound and passes of 8 tiles every member on the device route, the
+   1 MiB members in 2 passes each and K7 not launched, on the card and over
+   a 4-shard mesh of it, byte-exact with the same stats; 3 timed runs
+   against 3 of the "off" route (with
    --profile, the route's device time by kernel beside each launch's
    bound, the split's, and its idle share);
 7. interop and errors: a foreign gzip stream without the member index,
@@ -115,7 +117,22 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    through gzip; ``init_distributed`` with one NCCL rank and the four
    collectives over a pod mesh whose host axis is that rank, equal to the
    in-process mesh's; ``dist.dryrun.dryrun_multichip(4)``. Each result's
-   wall time is printed beside the card's name and power limit.
+   wall time is printed beside the card's name and power limit;
+15. passes (``phase_passes``): ``engine.compress(bench.make_corpus(96),
+   effort=4)`` writes one member of 96 MiB, above the device route's batch
+   bound of 64 MiB; ``engine.decompress`` with the defaults, byte-exact,
+   resolves it on the device route in 2 passes (device_resolved 1,
+   host_resolved 0, K7 not launched, every other kernel of the route
+   launched), each wrapper's bytes bound per launch, and every kernel of
+   the run (K1 tables, K1-K4 on its one-lane block waves, K5, K6 and the
+   lane CRC on its tile steps; the first calls of each shape) held against
+   its plain version on the arguments the run gave it; its device memory
+   peak beside the member's token bytes; K5,
+   K6 and the lane CRC on pass 1's first tile step, with the tail carried
+   from pass 0, against their plain versions; pass 1's tile split against
+   rows 1024 onward of ``split_tokens_tiles`` of the whole lane; the CRC
+   fold's host time; one "auto" and one "off" decode timed, beside the
+   card's name and power limit.
 
 The build phase prints each kernel's registers and shared memory (ptxas)
 and the resident blocks per SM of K4/K7's and K6's kernels. The last lines
@@ -123,7 +140,8 @@ are a JSON record of the kernels, the card's name and power limit, and the
 JSON verdict. ``--profile DIR`` adds a torch.profiler
 pass (device time per kernel) and a cProfile pass (host time per
 function) of the decode's, the encode's and the continuous encode's main
-paths and of the decode of the continuous encode's member, written into
+paths, of the big members' route, of the decode of the continuous
+encode's member and of the 96 MiB member's decode in passes, written into
 DIR.
 """
 
@@ -1234,22 +1252,33 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
             f"peak {split_peak} bytes for {n_tok} tokens ({split_peak / max(n_tok, 1):.1f} bytes a token, "
             f"its output of {tiles.numel() * 4} bytes included)")
 
-    # With the batch bound below 1 MiB, the 1 MiB members take the host
-    # route (K7 pull, C-core resolve) and the 256 KiB member the device
-    # route, in one stream.
-    bound = pv2.BIG_BATCH_POSITIONS
-    pv2.BIG_BATCH_POSITIONS = 512 << 10
+    # Under a 512 KiB batch bound and passes of 8 tiles, each 1 MiB member is
+    # a device-route batch of its own and resolves in 2 passes, and the 256
+    # KiB member resolves in one group; once on the card, once over the
+    # 4-shard mesh of phase_mesh.
+    from tpu_deflate_torch.dist.mesh import make_codec_mesh
+
+    saved = pv2.BIG_BATCH_POSITIONS
+    pv2.BIG_BATCH_POSITIONS = 512 << 10  # passes of 8 tiles
     try:
         dk.reset_launches()
         out = engine.decompress(gz, engine="cuda")
-        mixed = dict(pv2.LAST_DECODE_STATS)
+        lowered = dict(pv2.LAST_DECODE_STATS)
+        k7 = dk.LAUNCHES["compact_any"]
         require(out == data, "big members under a 512 KiB batch bound differ")
+        out = engine.decompress(gz, engine="cuda", mesh=make_codec_mesh(devices=[device] * MESH_SHARDS))
+        sharded = dict(pv2.LAST_DECODE_STATS)
+        require(out == data, f"big members under a 512 KiB batch bound differ over {MESH_SHARDS} shards")
     finally:
-        pv2.BIG_BATCH_POSITIONS = bound
-    require((mixed["device_resolved"], mixed["host_resolved"]) == (1, n_huff - 1)
-            and dk.LAUNCHES["compact_any"] > 0, "members above the batch bound did not take the host route")
-    log(f"big members under a 512 KiB batch bound: byte-exact, 1 member on the device route, {n_huff - 1} on "
-        f"the host route (K7 launched {dk.LAUNCHES['compact_any']} times)")
+        pv2.BIG_BATCH_POSITIONS = saved
+    require((lowered["device_resolved"], lowered["host_resolved"], k7) == (n_huff, 0, 0)
+            and lowered.get("passes") == 2 * (n_huff - 1),
+            f"members above the batch bound did not resolve in passes on the device route: {lowered}, K7 {k7}")
+    require({k: v for k, v in sharded.items() if k != "launches"} == {k: v for k, v in lowered.items() if k != "launches"},
+            f"the stats over {MESH_SHARDS} shards differ: {sharded}")
+    log(f"big members under a 512 KiB batch bound and passes of 8 tiles: byte-exact, all {n_huff} on the device "
+        f"route, {lowered['passes']} passes, K7 launched {k7} times; the same bytes and stats over {MESH_SHARDS} "
+        f"shards; stats {json.dumps({k: v for k, v in lowered.items() if k != 'launches'})}")
 
     # A member of 1- and 2-bit literal codes overflows its wave's k1: the
     # k1 = 512 rerun's tokens stay on the card too.
@@ -1275,27 +1304,38 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
             f"min {min(w):.4f} s, max {max(w):.4f} s")
     log(f"gpu: {gpu_name_power()}")
     if profile_dir:
-        split = rs.split_tiles_device
-
-        def annotated(*a, **kw):
-            with torch.profiler.record_function("split_tiles_device"):
-                return split(*a, **kw)
-
-        rs.split_tiles_device = annotated
-        try:
-            averages = phase_profile(lambda: engine.decompress(gz, engine="cuda"), "big members", profile_dir,
-                                     "profile_big", ("expand_kernel", "sweep_kernel", "crc32_lanes_kernel"),
-                                     statistics.median(walls["auto"]), bounds)
-        finally:
-            rs.split_tiles_device = split
-        for e in averages:
-            if e.key == "split_tiles_device":
-                dev_us = getattr(e, "device_time_total", None)
-                dev_us = e.cuda_time_total if dev_us is None else dev_us
-                what = ("its kernels summed" if e.self_cpu_time_total > 0
-                        else "the device span of its annotation, idle gaps included")
-                log(f"big members split_tiles_device: {e.count} calls, device {dev_us:.1f} us ({what}; profiler)")
+        profile_route(lambda: engine.decompress(gz, engine="cuda"), "big members", profile_dir, "profile_big",
+                      statistics.median(walls["auto"]), bounds)
     return launches
+
+
+def profile_route(run, label: str, profile_dir: str, prefix: str, timed_median_s: float, bounds: dict) -> None:
+    """phase_profile of a decode on the device route, with K5, K6 and the
+    lane CRC per launch, and the tile split's device time read off a
+    profiler annotation around each split_tiles_device call."""
+    import torch
+
+    from tpu_deflate_torch.codec import resolve as rs
+
+    split = rs.split_tiles_device
+
+    def annotated(*a, **kw):
+        with torch.profiler.record_function("split_tiles_device"):
+            return split(*a, **kw)
+
+    rs.split_tiles_device = annotated
+    try:
+        averages = phase_profile(run, label, profile_dir, prefix, ("expand_kernel", "sweep_kernel", "crc32_lanes_kernel"),
+                                 timed_median_s, bounds)
+    finally:
+        rs.split_tiles_device = split
+    for e in averages:
+        if e.key == "split_tiles_device":
+            dev_us = getattr(e, "device_time_total", None)
+            dev_us = e.cuda_time_total if dev_us is None else dev_us
+            what = ("its kernels summed" if e.self_cpu_time_total > 0
+                    else "the device span of its annotation, idle gaps included")
+            log(f"{label} split_tiles_device: {e.count} calls, device {dev_us:.1f} us ({what}; profiler)")
 
 
 def replay_calls(caps: dict, K: Kernels, label: str) -> None:
@@ -1346,7 +1386,8 @@ def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_medi
     events (kernels and copies, one stream, so they do not overlap) over
     that same call's wall time; beside it, the same busy time over the
     timed median of the unprofiled calls. For the kernels in bounds, each
-    launch's device time stands beside its bytes bound (launch_bounds)."""
+    launch's device time stands beside its bytes bound (launch_bounds;
+    past 24 launches, their sums and the share's min, median and max)."""
     import cProfile
     import io
     import pstats
@@ -1378,10 +1419,15 @@ def phase_profile(run, label: str, outdir: str, prefix: str, kernels, timed_medi
         log(f"{label} {kernel}: {len(us)} launches, device {sum(us):.1f} us total, "
             f"per launch min {min(us):.1f} median {statistics.median(us):.1f} max {max(us):.1f} us"
             + (f", in order {[round(u, 1) for u in us]}" if len(us) <= 16 else ""))
-        if len(bounds.get(kernel, ())) == len(us):
+        if len(bounds.get(kernel, ())) == len(us) <= 24:
             for i, (u, (b, sh)) in enumerate(zip(us, bounds[kernel])):
                 log(f"{label} {kernel} launch {i} ({sh}): device {u:.1f} us, bound {b:.2f} us "
                     f"({100 * b / u:.1f} % of it)")
+        elif len(bounds.get(kernel, ())) == len(us):
+            share = [100 * b / u for u, (b, _sh) in zip(us, bounds[kernel])]
+            log(f"{label} {kernel}: bound summed {sum(b for b, _sh in bounds[kernel]):.2f} us against device "
+                f"{sum(us):.1f} us; bound per launch min {min(share):.2f} median {statistics.median(share):.2f} "
+                f"max {max(share):.2f} % of its device time")
     pr = cProfile.Profile()
     pr.enable()
     run()
@@ -1993,6 +2039,164 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     return launches
 
 
+PASS_CORPUS_MB = 96  # one effort-4 member of more than BIG_BATCH_POSITIONS bytes: 2 passes
+
+
+def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
+    """A member above the device route's batch bound, resolved in passes:
+    ``engine.compress(bench.make_corpus(96), effort=4)`` writes one member
+    of 96 MiB, and ``engine.decompress`` with the defaults must give it back
+    byte-exact on the device route (device_resolved 1, host_resolved 0) in
+    2 passes, with K7 not launched. Then each wrapper's bytes bound per
+    launch, every kernel of that run held against its plain version on the
+    arguments the run gave it (captured: the first calls of each shape),
+    its device memory peak beside the member's token bytes, K5, K6 and the
+    lane CRC on the first tile step of pass 1 (with the tail carried from
+    pass 0) against their plain versions, pass 1's tile split against rows
+    1024 (a pass's tiles) onward of ``split_tokens_tiles`` of the whole
+    lane, the CRC fold's host time, and one "auto" and one "off" decode
+    timed in this process (with --profile, the "auto" decode's device time
+    by kernel beside each launch's bound, the split's, its idle share and
+    its host profile). Returns the pass route's launches."""
+    import numpy as np
+    import torch
+
+    import bench
+    from tpu_deflate_torch import _build, engine
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import decode_np
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.codec import resolve as rs
+    from tpu_deflate_torch.config import DecoderConfig
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    pass_tiles = pv2.BIG_BATCH_POSITIONS // rs.N_POS
+    t0 = time.monotonic()
+    corpus = bench.make_corpus(PASS_CORPUS_MB)
+    made = time.monotonic() - t0
+    t0 = time.monotonic()
+    gz = engine.compress(corpus, engine="cuda", effort=4)
+    torch.cuda.synchronize()
+    enc_wall = time.monotonic() - t0
+    members = decode_np.split_members(np.frombuffer(gz, np.uint8))
+    require(members is not None and len(members) == 1 and members[0].isize == len(corpus) > pv2.BIG_BATCH_POSITIONS,
+            "the 96 MiB effort-4 encode is not one member above the batch bound")
+    log(f"passes: corpus of {len(corpus)} bytes ({made:.1f} s) -> one effort-4 member of {len(gz)} bytes in "
+        f"{enc_wall:.3f} s; batch bound {pv2.BIG_BATCH_POSITIONS}, passes of {pass_tiles} tiles")
+
+    # The path's run: the lane's segments, pass 1's split and the first
+    # step of each pass are kept for the checks below.
+    seen: dict = {"splits": [], "steps": [], "fold_s": []}
+    passes, split, chain, fold = pv2._resolve_passes, rs.split_tiles_device, rs.resolve_tiles_crc, cl.crc32_fold_tiles
+
+    def passes_spy(st, *a):
+        seen["segments"] = list(st.tokens)
+        return passes(st, *a)
+
+    def split_spy(tokens, T):
+        out = split(tokens, T)
+        seen["splits"].append(out if len(seen["splits"]) == 1 else None)
+        return out
+
+    def chain_spy(tiles, *, tail=None):
+        seen["steps"].append((tiles[:, 0].clone(), None if tail is None else tail.clone()))
+        return chain(tiles, tail=tail)
+
+    def fold_spy(*a):
+        t = time.monotonic()
+        out = fold(*a)
+        seen["fold_s"].append((a[0].shape, time.monotonic() - t))
+        return out
+
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+    pv2._resolve_passes, rs.split_tiles_device, rs.resolve_tiles_crc, cl.crc32_fold_tiles = (
+        passes_spy, split_spy, chain_spy, fold_spy)
+    try:
+        with recorded(*kernels) as (calls, shapes, order), captured(*kernels) as caps:
+            _build.reset_launches()
+            t0 = time.monotonic()
+            out = engine.decompress(gz, engine="cuda")
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = dict(_build.LAUNCHES)
+    finally:
+        pv2._resolve_passes, rs.split_tiles_device, rs.resolve_tiles_crc, cl.crc32_fold_tiles = (
+            passes, split, chain, fold)
+    stats = dict(pv2.LAST_DECODE_STATS)
+    require(out == corpus, "the 96 MiB member's decode differs")
+    log(f"passes: decode in {wall:.3f} s, stats {json.dumps(stats)}, launches {json.dumps(launches)}")
+    require((stats["device_resolved"], stats["host_resolved"], stats.get("passes")) == (1, 0, 2),
+            "the 96 MiB member did not resolve on the device route in 2 passes")
+    require(launches["compact_any"] == 0, "the pass route launched K7")
+    for k in BIG_KERNELS:
+        require(launches[k] > 0, f"kernel {k} was not launched on the pass route")
+    (shape, fold_s), = seen["fold_s"]
+    log(f"passes: CRC fold over {shape[1]} tile registers on the host {fold_s * 1e3:.3f} ms")
+    path_bounds("pass route", calls)
+    bounds = launch_bounds(calls, shapes, order)
+    del calls, shapes, order
+    replay_calls(caps, K, "passes")
+    del caps
+
+    # K5, K6 and the lane CRC on pass 1's first step, with its carried tail.
+    tile0, tail = seen["steps"][1]
+    require(tail is not None and seen["steps"][0][1] is None, "pass 1 did not start from pass 0's tail")
+    y0, src, _summ = K.compare("expand", lambda: rs.expand(tile0, hist=rs.TAIL), lambda: rs.expand_plain(tile0, rs.TAIL),
+                               [tile0], {"pass 1, step 0": list(tile0.shape), "hist": rs.TAIL}, main_path=False)
+    y, _status = K.compare("sweep", lambda: rs.sweep(tail, y0, src), lambda: rs.sweep_plain(tail, y0, src),
+                           [tail, y0, src], {"pass 1, step 0": list(y0.shape)}, main_path=False,
+                           proj=lambda o: (o[0], o[1][:, 0]))
+    y8 = y.to(torch.uint8)
+    K.compare("crc32_lanes", lambda: cl.crc32_lanes_raw8(y8), lambda: cl.crc32_lanes_raw8_plain(y8), [y8],
+              {"pass 1, step 0": list(y8.shape)}, main_path=False)
+    want = np.frombuffer(corpus, np.uint8)[pass_tiles * rs.N_POS :][: rs.N_POS]
+    require(np.array_equal(y8[0].cpu().numpy(), want), "pass 1's first tile differs from the corpus")
+
+    # Pass 1's split against the whole lane's split on the host.
+    segs = seen.pop("segments")
+    tok_bytes = sum(s.numel() * s.element_size() if isinstance(s, torch.Tensor) else s.nbytes for s in segs)
+    whole = np.concatenate([s.cpu().numpy() if isinstance(s, torch.Tensor) else s for s in segs])
+    n_dev, n_segs = sum(isinstance(s, torch.Tensor) for s in segs), len(segs)
+    del segs
+    t0 = time.monotonic()
+    host = rs.split_tokens_tiles(whole)
+    pass1 = seen["splits"][1]
+    require(pass1 is not None and host.shape[0] == -(-len(corpus) // rs.N_POS), "unexpected tile counts")
+    require(np.array_equal(pass1[0].cpu().numpy(), host[pass_tiles :]),
+            f"pass 1's split differs from rows {pass_tiles} onward of split_tokens_tiles of the whole lane")
+    log(f"passes: pass 1's split ({list(pass1.shape)}) equals rows {pass_tiles}.. of split_tokens_tiles of the "
+        f"whole lane ({whole.size} tokens in {len(seen['steps'])} passes; {n_dev} of its {n_segs} segments on the card, "
+        f"the others stored blocks; host split {time.monotonic() - t0:.1f} s)")
+    del seen, host, whole, pass1, tile0, tail, y0, src, y, y8
+
+    card = gpu_name_power()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = engine.decompress(gz, engine="cuda")
+    torch.cuda.synchronize()
+    auto_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    require(out == corpus, "the 96 MiB member's decode differs (timed run)")
+    log(f"passes: device memory peak {peak} bytes above the {mem0} held before the run "
+        f"(torch.cuda.max_memory_allocated), for {tok_bytes} bytes of the member's tokens "
+        f"({peak / tok_bytes:.2f}x)")
+    log(f"passes: \"auto\" decode of the 96 MiB member {auto_s:.4f} s = {len(corpus) / auto_s / 1e9:.4f} GB/s ({card})")
+    t0 = time.monotonic()
+    out = engine.decompress(gz, engine="cuda", config=DecoderConfig(device_resolve="off"))
+    torch.cuda.synchronize()
+    off_s = time.monotonic() - t0
+    require(out == corpus, "the 96 MiB member's decode on \"off\" differs")
+    log(f"passes: \"off\" decode of the 96 MiB member {off_s:.4f} s = {len(corpus) / off_s / 1e9:.4f} GB/s "
+        f"({gpu_name_power()}); \"auto\" / \"off\" = {auto_s / off_s:.3f}")
+    if profile_dir:
+        profile_route(lambda: engine.decompress(gz, engine="cuda"), "passes", profile_dir, "profile_passes", auto_s,
+                      bounds)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="write device and host profiles into DIR")
@@ -2050,8 +2254,11 @@ def main(argv: list[str]) -> int:
     cont_launches, cont_dec_launches, cont_gz = phase_continuous_main(corpus, effort2_bytes, args.profile, K)
     phase_continuous_cpu(corpus, device)
     mesh_launches = phase_mesh(corpus, gz, n_huff, resolve_first, encode_first, cont_gz, device, K)
+    del corpus, gz, cont_gz, resolve_first, encode_first
+    pass_launches = phase_passes(device, args.profile, K)
     path_launches = {"main": launches, "off": off_launches, "big": big_launches, "encode": enc_launches,
-                     "continuous": cont_launches, "continuous_decode": cont_dec_launches, "mesh": mesh_launches}
+                     "continuous": cont_launches, "continuous_decode": cont_dec_launches, "mesh": mesh_launches,
+                     "passes": pass_launches}
 
     kernels = [
         {

@@ -18,12 +18,16 @@ device, each lane's segments concatenate there, split into 64 KiB tiles
 (``resolve.split_tiles_device``) and resolve and CRC in chained tiles with
 32 KiB tails (``resolve.resolve_tiles_crc``); one byte pull per group of
 lanes. Its batches hold members whose trailers claim at most
-``BIG_BATCH_POSITIONS`` bytes together, which bounds its device memory.
-On the host route the packed token pull (:func:`pack_tokens`, K7) brings
-each block's tokens back, the shared C core resolves them and the host
-checks the CRC; a member claiming more than that bound, and a lane the
-device route hands back (a stage error, a size other than its ISIZE, a
-residue, an error position), take it.
+``BIG_BATCH_POSITIONS`` bytes together, which bounds its device memory; a
+member claiming more is a batch of its own, and its lane resolves in
+passes of at most that many bytes (:func:`_resolve_passes`: each pass
+sliced from the lane's segments, split, resolved from the last 32 KiB of
+the pass before and pulled, the CRC folded across the passes), so no
+member leaves the device route because of its size. On the host route the
+packed token pull (:func:`pack_tokens`, K7) brings each block's tokens
+back, the shared C core resolves them and the host checks the CRC; a lane
+the device route hands back (a stage error, a size other than its ISIZE,
+a residue, an error position) takes it.
 
 ``device_resolve`` picks the routes: "auto" (the default) takes the main
 path and the device route when the device is CUDA, and the host route
@@ -41,7 +45,8 @@ axis into the mesh's shards, contiguous in lane order and padded to a
 multiple of their count, and each shard runs K1-K4 (K7 on the host route)
 on its own device; the main path's rows resolve (K5, K6) and CRC on the
 device of the shard that decoded them, and each batch of the device route
-is cut into shards that resolve and CRC on their own devices. Every shard
+is cut into shards that resolve and CRC on their own devices (a lane in
+passes resolves on the first shard's device). Every shard
 is launched before the first pull to the host. The host loop, its wave
 order and its error order are the single-device path's, which is the case
 of one shard. Across ranks (a mesh whose host axis is the ranks) the
@@ -276,6 +281,7 @@ class LaneState:
     # blocks, and every block on the host route) and int32 tensors on the
     # decode device (Huffman blocks on the device route).
     tokens: list = field(default_factory=list)
+    sizes: list = field(default_factory=list)  # output bytes of each segment the chain appended (for passes)
     out_total: int = 0
     window: int = W_CAP_INIT  # payload bytes per block on the device (grows on demand)
     bitpos_advanced: bool = False  # this wave's block reached its EOB
@@ -313,12 +319,14 @@ def _host_stored_block(st: LaneState, bfinal: bool) -> None:
         if avail > 0:
             data = np.frombuffer(st.payload, np.uint8, avail, byte + 4).astype(np.int32)
             st.tokens.append(data)
+            st.sizes.append(avail)
             st.out_total += avail
         st.err = _ERR_END
         return
     if ln:
         data = np.frombuffer(st.payload, np.uint8, ln, byte + 4).astype(np.int32)
         st.tokens.append(data)
+        st.sizes.append(ln)
         st.out_total += ln
     st.bitpos = bp + 32 + 8 * ln
     if bfinal:
@@ -592,6 +600,7 @@ def _apply_tokens(wave, shift2, truncated, payload, small_h) -> None:
             continue
         if counts_h[i]:
             take[i] = counts_h[i]
+            st.sizes.append(int(total_h[i]))
             st.out_total += int(total_h[i])
         if err_h[i]:
             st.err = int(err_h[i])
@@ -784,36 +793,37 @@ def _decode_single_block_device(
 
 BIG_BATCH_POSITIONS = 1 << 26
 """Output bytes (positions) that the members of one block-chain batch on
-the device route may claim together in their trailers (ISIZE). It bounds
-what the route holds on the device for a batch: its tokens (int32, at most
-one a position), their padded copy, the tile split's int64 temporaries
-(PERF.md gives their measured bytes a token) and the tiles (4 bytes a
-position) with their byte buffer (1). Members are batched in stream order under it; a member
-that claims more (more than 64 MiB of output) takes the host route (K7
-token pull, C-core resolve), as "auto" sent every such member before the
-device route existed. A lane whose output passes its own ISIZE during the
-block chain has its tokens pulled to the host (it fails the size check
-there)."""
+the device route may claim together in their trailers (ISIZE). Members are
+batched in stream order under it, and it bounds what the route holds on the
+device at a time: a batch's tokens (int32, at most one a position), their
+padded copy, the tile split's int64 temporaries (PERF.md gives their
+measured bytes a token) and the tiles (4 bytes a position) with their byte
+buffer (1). A member that claims more (more than 64 MiB of output) is a
+batch of its own and resolves in passes of at most this many bytes
+(BIG_BATCH_POSITIONS // N_POS = 1024 tiles, :func:`_resolve_passes`), so
+one pass holds no more on the device than a batch at the bound: no member
+leaves the device route because of its size. A lane whose output passes
+its own ISIZE during the block chain has its tokens pulled to the host (it
+fails the size check there). ISIZE is the size modulo 2**32, so a member of
+4 GiB or more fails its size check on every route, the reference's
+included: such members are out of scope."""
 
 
 def _chain_batches(huff: list, batch_n: int, on_device: bool):
     """Consecutive runs of ``huff``'s (index, member) pairs for the block-
-    chain driver, in stream order, each with its route (True: the device
-    route): at most ``batch_n`` members a run; on the device route members
-    claiming at most BIG_BATCH_POSITIONS bytes together; a member claiming
-    more, or every member without ``on_device``, on the host route."""
-    batch, claimed, dev = [], 0, False
+    chain driver, in stream order: at most ``batch_n`` members a run; with
+    ``on_device`` (the device route) members claiming at most
+    BIG_BATCH_POSITIONS bytes together, and a member claiming more alone."""
+    batch, claimed = [], 0
     for im in huff:
         isize = im[1].isize
-        d = on_device and isize <= BIG_BATCH_POSITIONS
-        if batch and (len(batch) == batch_n or d != dev or (d and claimed + isize > BIG_BATCH_POSITIONS)):
-            yield batch, dev
+        if batch and (len(batch) == batch_n or (on_device and claimed + isize > BIG_BATCH_POSITIONS)):
+            yield batch
             batch, claimed = [], 0
         batch.append(im)
         claimed += isize
-        dev = d
     if batch:
-        yield batch, dev
+        yield batch
 
 
 def _decode_chained_device(
@@ -824,14 +834,16 @@ def _decode_chained_device(
 
     Each lane that finished with no stage error and exactly its trailer's
     size (``isizes``; the host route fails any other, and stops resolving
-    at the ISIZE) has tile count T = ceil(out_total / N_POS). Lanes group
-    by T and each group is cut into contiguous shards, one a device; each
-    lane's token segments concatenate on its shard's device, and each shard
-    runs the tile split (:func:`resolve.split_tiles_device`), T chained
-    steps of K5, K6 and the lane CRC (:func:`resolve.resolve_tiles_crc`);
-    every shard of the group is launched before its first pull. Then the
-    host folds each lane's CRC from its T raw registers. The summaries and
-    registers come to the host first, the bytes after.
+    at the ISIZE) has tile count T = ceil(out_total / N_POS). A lane of
+    more than BIG_BATCH_POSITIONS // N_POS tiles resolves in passes of that
+    many tiles on the first shard's device (:func:`_resolve_passes`). The others group by T and each group
+    is cut into contiguous shards, one a device; each lane's token segments
+    concatenate on its shard's device, and each shard runs the tile split
+    (:func:`resolve.split_tiles_device`), T chained steps of K5, K6 and the
+    lane CRC (:func:`resolve.resolve_tiles_crc`); every shard of the group
+    is launched before its first pull. Then the host folds each lane's CRC
+    from its T raw registers. The summaries and registers come to the host
+    first, the bytes after.
     Returns per lane (its bytes, its CRC-32 or None without
     ``verify_crc``), or None where the lane takes the host route: a stage
     error, no tokens, another size, a residue or an error position in any
@@ -842,7 +854,13 @@ def _decode_chained_device(
     for j, st in enumerate(states):
         if not (st.err or not st.tokens or st.out_total != isizes[j]):
             bygroup.setdefault(-(-st.out_total // N), []).append(j)
+    first_device = runner.shards(pad_lanes(1, runner.lane_multiple), 1)[0][0]
+    pass_tiles = max(BIG_BATCH_POSITIONS // N, 1)
     for T, grp in sorted(bygroup.items()):
+        if T > pass_tiles:
+            for j in grp:
+                outs[j] = _resolve_passes(states[j], verify_crc, first_device, pass_tiles, stats)
+            continue
         launched = []
         for dev, a, b in runner.shards(pad_lanes(len(grp), runner.lane_multiple), len(grp)):
             part = grp[a:b]
@@ -871,14 +889,107 @@ def _decode_chained_device(
     return outs
 
 
+def _token_runs(tokens: torch.Tensor) -> torch.Tensor:
+    """Output bytes of each token (int64): a match's run, 1 for a literal."""
+    x = tokens.to(torch.int64)
+    return torch.where((x & rs.TOKEN_MATCH_BIT) != 0, (x >> 16) & 0x3FF, 1)
+
+
+def _covering_token(seg: torch.Tensor, i: int, s: int, x: int, chunk: int) -> tuple[int, int]:
+    """(j, its start): the token of ``seg`` whose output covers offset x of
+    the lane, found from token i, which starts at s <= x. The run lengths'
+    cumulative sum runs over chunks of at most ``chunk`` tokens."""
+    while True:
+        part = seg[i : i + chunk]
+        if not part.numel():
+            raise RuntimeError("a token segment holds fewer output bytes than its wave counted")
+        ends = s + _token_runs(part).cumsum(0)
+        j = int((ends <= x).sum())
+        if j < part.numel():
+            return i + j, s if j == 0 else int(ends[j - 1])
+        i, s = i + part.numel(), int(ends[-1])
+
+
+def _resolve_passes(st: LaneState, verify_crc: bool, dev: torch.device, pass_tiles: int, stats: dict):
+    """Resolve and CRC one lane of more than ``pass_tiles`` tiles on
+    ``dev``, in passes: pass p covers output bytes [p B, min((p + 1) B,
+    out_total)) with B = pass_tiles N_POS. Its tokens are the second half of the match
+    straddling in from pass p - 1, if any (run ``end - p B``, the same
+    distance, as the tile split cuts a match at every seam), then the
+    lane's tokens that start inside the pass, sliced from the lane's
+    segments, which stay as they are until the lane is done. Each pass
+    splits into its tiles on ``dev`` (:func:`resolve.split_tiles_device`;
+    positions relative to the pass, so none passes int32) and resolves and
+    CRCs them in chained steps (:func:`resolve.resolve_tiles_crc`), pass 0
+    from the stream's start and every later pass from the last 32 KiB of
+    the pass before; its bytes, summaries and raw CRC registers come to the
+    host, and the CRC folds over every tile of the lane after the last
+    pass. Each seam is found from the segments' output sizes
+    (``st.sizes``) and a cumulative sum over the one segment that holds it
+    (:func:`_covering_token`), resumed from the seam before.
+
+    Returns (the lane's bytes, its CRC-32 or None without ``verify_crc``),
+    or None where a pass holds a residue or an error position: the lane
+    then takes the host route with its segments kept."""
+    N = rs.N_POS
+    B = pass_tiles * N
+    total = st.out_total
+    segs = [t if isinstance(t, torch.Tensor) else torch.from_numpy(t) for t in st.tokens]
+    seg_ends = np.cumsum(st.sizes)
+    out = np.empty(total, np.uint8)
+    raws, tail = [], None
+    k, i, s = 0, 0, 0  # the token covering the pass's first byte: segment k, token i, its start s
+    for x0 in range(0, total, B):
+        x1 = min(x0 + B, total)
+        pieces = []
+        if s < x0:  # a match straddles the seam: its second half heads the pass
+            v = int(segs[k][i])
+            end = s + ((v >> 16) & 0x3FF)
+            pieces.append(torch.tensor([rs.TOKEN_MATCH_BIT | (end - x0) << 16 | (v & 0xFFFF)], dtype=torch.int32))
+            i, s = i + 1, end
+        if x1 < total:
+            k1 = int(np.searchsorted(seg_ends, x1, side="right"))
+            a, sa = (i, s) if k1 == k else (0, int(seg_ends[k1 - 1]))  # from the first token not yet taken
+            i1, s1 = _covering_token(segs[k1], a, sa, x1, B)
+            stop = i1 + (s1 < x1)  # the straddler's first half ends the pass
+        else:
+            k1, i1, s1 = len(segs) - 1, 0, total
+            stop = segs[-1].numel()
+        for kk in range(k, k1 + 1):
+            piece = segs[kk][i if kk == k else 0 : stop if kk == k1 else None]
+            if piece.numel():
+                pieces.append(piece)
+        tokens = torch.cat([p.to(dev) for p in pieces])[None]
+        del pieces
+        T = -(-(x1 - x0) // N)
+        y8, summs, raw = rs.resolve_tiles_crc(rs.split_tiles_device(tokens, T), tail=tail)
+        del tokens
+        stats["passes"] = stats.get("passes", 0) + 1
+        stats["chained_groups"] = stats.get("chained_groups", 0) + 1
+        stats["chained_tiles"] = stats.get("chained_tiles", 0) + T
+        summ_h = summs.cpu().numpy()
+        if summ_h[0, :, 3].sum() or (summ_h[0, :, 0] < N).any():
+            return None
+        raws.append(raw.cpu().numpy())
+        out[x0:x1] = y8[0, : x1 - x0].cpu().numpy()
+        tail = y8[:, -rs.TAIL :].to(torch.int32)
+        k, i, s = k1, i1, s1
+    crc = int(cl.crc32_fold_tiles(np.concatenate(raws, axis=1), np.array([total]), N)[0]) if verify_crc else None
+    st.tokens, st.sizes = [], []
+    return out.tobytes(), crc
+
+
 # ---------------------------------------------------------------------------
 # Front door
 # ---------------------------------------------------------------------------
 
 # Routing and launch record of the last gzip_decompress_v2 call: members,
 # stored, device_resolved, host_resolved, waves, launches (kernel launches
-# during the call); empty after a stream without a member index. Module
-# state shared by every caller; not thread-safe.
+# during the call); on the device route chained_groups (tile splits: a
+# group of lanes, or one pass), chained_tiles (the tiles of every group and
+# pass) and passes (passes over lanes above BIG_BATCH_POSITIONS); empty
+# after a stream without a member index. Module state shared by every
+# caller; not thread-safe.
 LAST_DECODE_STATS: dict = {}
 
 
@@ -903,9 +1014,12 @@ def gzip_decompress_v2(
     "on" does the same on any device; "off" takes the host route (K7
     token pull, C-core resolve, host CRC) for every Huffman member. Unlike
     the reference, "auto" sends big and multi-block members to the device,
-    since their tokens are already there. On both, a member whose trailer
-    claims more than BIG_BATCH_POSITIONS bytes (64 MiB) takes the host
-    route. ``lane_batch`` caps members per block-chain batch (at most
+    since their tokens are already there. No member leaves the device route
+    because of its size: one whose trailer claims more than
+    BIG_BATCH_POSITIONS bytes (64 MiB) resolves alone, in passes of at most
+    that many bytes. ISIZE is the size modulo 2**32, so a member of 4 GiB
+    or more fails its size check on every route, the reference's included.
+    ``lane_batch`` caps members per block-chain batch (at most
     V2_LANE_BATCH). A stream without the TD member index decodes member by
     member in the shared C core.
 
@@ -967,11 +1081,11 @@ def gzip_decompress_v2(
     # route their tokens stay on the device, tile-split and resolve with
     # chained 32 KiB tails, CRC included.
     batch_n = min(lane_batch or V2_LANE_BATCH, V2_LANE_BATCH)
-    for batch, dev_route in _chain_batches(huff, batch_n, on_device):
+    for batch in _chain_batches(huff, batch_n, on_device):
         payloads = [buf[m.payload_start : m.end - 8].tobytes() for _, m in batch]
-        isizes = [m.isize for _, m in batch] if dev_route else None
+        isizes = [m.isize for _, m in batch] if on_device else None
         states = _decode_streams(payloads, runner, stats, isizes)
-        douts = _decode_chained_device(states, isizes, verify_crc, runner, stats) if dev_route else [None] * len(batch)
+        douts = _decode_chained_device(states, isizes, verify_crc, runner, stats) if on_device else [None] * len(batch)
         for j, ((i, m), st) in enumerate(zip(batch, states)):
             out, crc = douts[j] if douts[j] is not None else (_resolve_lane(st, m.isize), None)
             if len(out) != m.isize:

@@ -309,12 +309,16 @@ def split_tiles_device(tokens: torch.Tensor, T: int) -> torch.Tensor:
     return out
 
 
-def resolve_tiles_crc(tiles: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def resolve_tiles_crc(
+    tiles: torch.Tensor, *, tail: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Resolve (L, T, N_POS) int32 tile-split token streams and CRC them
     on their device, step by step: step t resolves tile t of every lane
-    (expand, sweep) against the previous step's last 32 KiB (none at step
-    0, the streams' start), writes its bytes into one uint8 buffer and runs
-    the lane CRC on them. Only one step's int32 bytes live at a time.
+    (expand, sweep) against the previous step's last 32 KiB, writes its
+    bytes into one uint8 buffer and runs the lane CRC on them. Step 0
+    resolves against ``tail`` (L, 32768) int32, the resolved history before
+    the first tile (a later pass over a lane), or against none (None: the
+    streams' start). Only one step's int32 bytes live at a time.
 
     Returns (bytes (L, T N_POS) uint8, summaries (L, T, 8) int32 with the
     sweep's residue in row 3, raw CRC registers (L, T) int64 of each tile's
@@ -322,7 +326,6 @@ def resolve_tiles_crc(tiles: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, 
     L, T, N = tiles.shape
     out = torch.empty((L, T * N), dtype=torch.uint8, device=tiles.device)
     summs, raws = [], []
-    tail = None
     for t in range(T):
         y, summ = resolve_tokens_device(tiles[:, t].contiguous(), tail=tail)
         y8 = y.to(torch.uint8)
