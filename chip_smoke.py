@@ -132,7 +132,25 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    from pass 0, against their plain versions; pass 1's tile split against
    rows 1024 onward of ``split_tokens_tiles`` of the whole lane; the CRC
    fold's host time; one "auto" and one "off" decode timed, beside the
-   card's name and power limit.
+   card's name and power limit;
+16. the kernel-only rows (``phase_kernel_rows``, ``codec.kernel_bench``)
+   on phase 4's 48 MiB corpus: ``kernel_only_bench`` (waves staged, K1-K4
+   timed), ``kernel_only_bench_full`` (and K5, K6 and the lane CRC on every
+   member, stored ones as CRC lanes; every member verified against its
+   trailer), ``kernel_only_bench_big`` (16 members of 192 KiB, one dynamic
+   block each, split and resolved in chained tiles on the card; every
+   member against its input), ``encode_kernel_bench`` (one staged batch of
+   64 x 64 KiB) and ``link_probe``. The path's run (each row once at
+   reps=1): each row on the kernels ("cuda") with 0 mismatches, every
+   kernel but K7 launched over the rows and K7 not, each wrapper's bytes
+   bound per launch, and every kernel of the run (K1 tables, K1-K4 on the
+   rows' waves, K5, K6 and the lane CRC on the full row's resolve batches
+   and the big row's chained steps, K8-K10 on the encode batch; the first
+   two calls of each lane count) held against its plain version on the
+   arguments the rows gave it. Then the timed run: each row printed with
+   one pass's CUDA-event and host enqueue times, its device memory peak
+   beside the end-to-end decode's, and each decode row's GB/s over phase
+   4's median, beside the card's name and power limit.
 
 The build phase prints each kernel's registers and shared memory (ptxas)
 and the resident blocks per SM of K4/K7's and K6's kernels. The last lines
@@ -2197,6 +2215,116 @@ def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
     return launches
 
 
+BIG_ROW_KB = 192  # bench.py's arguments of the big-member row
+BIG_ROW_MEMBERS = 16
+
+
+def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels) -> dict:
+    """The kernel-only rows (``codec.kernel_bench``) on phase 4's 48 MiB
+    corpus: the decode's Huffman/token stages, the full-member decode with
+    its Huffman and stored sub-rows, the big members (16 of 192 KiB, one
+    dynamic block each), one staged encode batch and the link probe.
+
+    The path's run: each row once at ``reps=1``, with its launches counted,
+    each wrapper's bytes bound per launch, and every kernel call held
+    against its plain version on the arguments the rows gave it (captured:
+    the first two calls of each lane count, among them ``_big``'s 16-lane
+    wave and chained steps at hist 0 and 32768 and ``_full``'s second,
+    padded resolve batch). Each row must run the kernels ("cuda") and
+    verify every member; every kernel but K7 must launch and K7 must not.
+    Then the timed run, unwrapped at the reference's reps: each row, one
+    pass's host enqueue time and CUDA-event time, the device memory peak
+    beside the end-to-end decode's, and each decode row's GB/s over phase
+    4's median end-to-end "auto" decode. Returns the path run's launches."""
+    import torch
+
+    from tpu_deflate_torch import _build, engine
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import kernel_bench as kb
+    from tpu_deflate_torch.codec import parse as pp
+    from tpu_deflate_torch.codec import resolve as rs
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    card = gpu_name_power()
+    rows = (
+        ("kernel_only_bench", lambda **kw: kb.kernel_only_bench(corpus, **kw)),
+        ("kernel_only_bench_full", lambda **kw: kb.kernel_only_bench_full(corpus, **kw)),
+        ("kernel_only_bench_big",
+         lambda **kw: kb.kernel_only_bench_big(corpus, member_kb=BIG_ROW_KB, n_members=BIG_ROW_MEMBERS, **kw)),
+        ("encode_kernel_bench", lambda **kw: kb.encode_kernel_bench(corpus, **kw)),
+    )
+
+    def verified(results: dict) -> None:
+        kob, full, big = (results[k] for k in ("kernel_only_bench", "kernel_only_bench_full",
+                                                "kernel_only_bench_big"))
+        require(kob["runner"] == "cuda", "kernel_only_bench did not run the kernels")
+        require(full["verified_members"] == full["members"] and full["crc_or_size_mismatches"] == 0,
+                "the full-member row did not verify every member")
+        require(big["members"] == BIG_ROW_MEMBERS and big["verified_members"] == big["members"]
+                and big["byte_mismatches"] == 0, "the big-member row did not verify every member")
+
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"),
+               (pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body")]
+    with recorded(*kernels) as (calls, _shapes, _order), captured(*kernels) as caps:
+        _build.reset_launches()
+        results = {name: run(reps=1) for name, run in rows}
+        launches = _build.all_launches()
+    log(f"launches over the kernel rows (reps=1): {json.dumps(launches)}")
+    verified(results)
+    for k in KERNELS:
+        if k == "compact_any":
+            require(launches[k] == 0, "K7 launched in the kernel rows")
+        else:
+            require(launches[k] > 0, f"kernel {k} was not launched in the kernel rows")
+    path_bounds("kernel rows", calls)
+    del calls
+    replay_calls(caps, K, "kernel rows")
+    del caps
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = engine.decompress(gz, engine="cuda")
+    torch.cuda.synchronize()
+    require(out == corpus, "the end-to-end decode differs")
+    e2e_peak = torch.cuda.max_memory_allocated() - mem0
+    e2e_gbps = len(corpus) / e2e_median_s / 1e9
+    log(f"kernel rows: end-to-end \"auto\" decode (phase 4) median {e2e_median_s:.4f} s = {e2e_gbps:.4f} GB/s, "
+        f"device memory peak {e2e_peak} bytes ({card})")
+    huff_bytes = sum(m.isize for m, _p in huffman_members(gz))
+    row_bytes = {"kernel_only_bench": huff_bytes, "kernel_only_bench_full": len(corpus),
+                 "kernel_only_bench_full_huff": huff_bytes, "kernel_only_bench_full_stored": len(corpus) - huff_bytes,
+                 "kernel_only_bench_big": BIG_ROW_KB * 1024 * BIG_ROW_MEMBERS,
+                 "encode_kernel_bench": min(len(corpus), 64 * MEMBER)}
+    results = {}
+    for name, run in rows:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        r = run()
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        results[name] = r
+        log(f"kernel rows: {name} {json.dumps(r)}")
+        for row, t in kb.LAST_PASS_TIMES.items():
+            log(f"kernel rows: {row} one pass: CUDA events {t['event_ms']:.3f} ms, host enqueue "
+                f"{t['enqueue_ms']:.3f} ms; queued behind a spin kernel {t['device_ms']:.3f} ms of device time "
+                f"(whole pass queued before the spin ended: {t['queued']}) = "
+                f"{row_bytes[row] / t['device_ms'] / 1e6:.4f} GB/s of device time")
+        log(f"kernel rows: {name} call {wall:.2f} s with its prep, device memory peak {peak} bytes "
+            f"(end-to-end decode {e2e_peak}) ({card})")
+        if "decode_gbps" in r:
+            log(f"kernel rows: {name} decode_gbps {r['decode_gbps']} = {r['decode_gbps'] / e2e_gbps:.3f}x the "
+                f"end-to-end {e2e_gbps:.4f} GB/s; guard {r['marginal_guard']}")
+    verified(results)
+    log(f"kernel rows: link probe {json.dumps(kb.link_probe())} (one 256 KiB pull less one scalar round trip, "
+        f"a single sample) ({card})")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="write device and host profiles into DIR")
@@ -2256,9 +2384,11 @@ def main(argv: list[str]) -> int:
     mesh_launches = phase_mesh(corpus, gz, n_huff, resolve_first, encode_first, cont_gz, device, K)
     del corpus, gz, cont_gz, resolve_first, encode_first
     pass_launches = phase_passes(device, args.profile, K)
+    corpus = bench.make_corpus(CORPUS_MB)
+    row_launches = phase_kernel_rows(corpus, native.compress_members_native(corpus), timed_median_s, K)
     path_launches = {"main": launches, "off": off_launches, "big": big_launches, "encode": enc_launches,
                      "continuous": cont_launches, "continuous_decode": cont_dec_launches, "mesh": mesh_launches,
-                     "passes": pass_launches}
+                     "passes": pass_launches, "kernel_rows": row_launches}
 
     kernels = [
         {
