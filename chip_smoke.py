@@ -71,9 +71,18 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 7. interop and errors: a foreign gzip stream without the member index,
    a foreign raw multi-block DEFLATE stream through the wave kernels, and a
    corrupted member raising the same Reason on the "auto" and "off" routes;
-8. encode kernels: K8 parse transfers, K9 parse replay and K10 emit body
-   against their plain versions (exact equality) on the first batch of
-   the encode's main path (64 members x 64 KiB of the corpus), then on
+8. encode kernels: the match finder's three kernels (``match_keys``,
+   ``match_bucket`` on torch.sort's sorted keys, ``match_select``; one per
+   hash family for the compare), K8 parse transfers, K9 parse
+   replay and K10 emit body against their plain versions (exact equality)
+   on the first batch of the encode's main path (64 members x 64 KiB of
+   the corpus); the match finder's kernels also on edge rows (zeros,
+   random bytes, a lone repeat at distance 32768 that must be found and
+   one at 32769 that must not, lengths of 1000, 0, 1 and 40000 with the
+   row's own bytes past them, runs, records) at qualities 0, 1 and 2,
+   lazy on and off, without and with the history masks, on 64 rows of
+   zeros of 98304 columns at quality 2 (the candidate compare's worst
+   case) and on 64 rows of random bytes; K8-K10 then on
    step fields of all 1, all 250, random 1..250 and one with steps <= 0
    and at the int32 limits (K9 there with entries of -1, 0, 255, 511 and
    512 in the first tiles), a batch with a lane routed FIXED, a
@@ -84,22 +93,29 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 9. the encode's main path: ``engine.compress`` of the 48 MiB corpus at the
    default effort 2, byte-exact through ``gzip.decompress`` and the port's
    ``engine.decompress``, 768 members, every encode kernel and the lane
-   CRC launched, its size beside the C core's member encoder, each
-   kernel's bound per launch and summed over the run; 3 timed runs;
+   CRC launched (the match finder's compare twice a batch, its keys and
+   selection once), its size beside the C core's member encoder, each
+   kernel's bound per launch and summed over the run; 3 timed runs; then
+   one batch of the match finder: its launches (at most 30) and device
+   time under torch.profiler, the sort's time alone, its memory peak, and
+   the plain eager version's launches and time on the card;
 10. the card against the CPU: five members (text, random, runs, zeros, a
    short tail) encoded on the card and with the plain versions on the CPU
    at efforts 1, 2, 3 and 5 must be byte-identical;
-11. continuous-encode kernels: K8, K9 and K10 against their plain
-   versions on the first batch of the continuous encode (64 lanes x 98304
-   columns: a 32 KiB halo before each 64 KiB block) and on a batch whose
-   head lane starts with 50 zero bytes (the reference's F1);
+11. continuous-encode kernels: the match finder's kernels (quality 1, with
+   the history masks), K8, K9 and K10 against their plain versions on the
+   first batch of the continuous encode (64 lanes x 98304 columns: a 32 KiB
+   halo before each 64 KiB block) and on a batch whose head lane starts
+   with 50 zero bytes (the reference's F1);
 12. the continuous encode's main path: ``engine.compress`` of the 48 MiB
    corpus at effort 4, one member of 768 blocks, byte-exact through
    ``gzip.decompress`` and the port's decode on the card (one member on the
-   device route, K7 not launched), K8-K10 and the lane CRC launched (the
-   CRC against its plain version on the rows the path gave it), each
-   kernel's bound per launch and summed, the device memory peak, the ratio
-   beside effort 2's and zlib -9's, timed runs of the encode and one timed
+   device route, K7 not launched), the match finder's kernels (three
+   families a batch), K8-K10 and the lane CRC launched (the CRC against
+   its plain version on the rows the path gave it), each kernel's bound
+   per launch and summed, the device memory peak, the ratio beside effort
+   2's and zlib -9's, timed runs of the encode, phase 9's profile of one
+   batch of the match finder on phase 11's first batch, and one timed
    decode with its waves;
 13. the continuous encode on the card against the CPU, byte-identical: 256
    KiB at efforts 4 and 5, 50 zero bytes before text (F1) and 300,000
@@ -108,7 +124,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    ``engine.decompress(corpus's members, mesh=)`` (byte-exact, every
    Huffman member resolved on the device) then ``engine.compress(corpus,
    effort=4, mesh=)`` (byte-identical to phase 12's member), every kernel
-   but K7 launched, and each kernel call of that run (captured: the first
+   but K7 launched (the match finder's among them), and each kernel call of
+   that run (captured: the first
    two of each shard shape) held against its plain version, exact
    equality; the decode again over ``make_codec_mesh()``;
    ``sharded_resolve`` on phase 3's first resolve batch and
@@ -145,7 +162,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    kernel but K7 launched over the rows and K7 not, each wrapper's bytes
    bound per launch, and every kernel of the run (K1 tables, K1-K4 on the
    rows' waves, K5, K6 and the lane CRC on the full row's resolve batches
-   and the big row's chained steps, K8-K10 on the encode batch; the first
+   and the big row's chained steps, the match finder's kernels and K8-K10
+   on the encode batch; the first
    two calls of each lane count) held against its plain version on the
    arguments the rows gave it. Then the timed run: each row printed with
    one pass's CUDA-event and host enqueue times, its device memory peak
@@ -203,13 +221,17 @@ KERNELS = {
     "parse_transfers": ("parse.cu", "tpu_deflate/codec/parse_pallas.py:66", "encode"),
     "parse_replay": ("parse.cu", "tpu_deflate/codec/parse_pallas.py:82", "encode"),
     "emit_body": ("emit.cu", "tpu_deflate/codec/emit_pallas.py:67", "encode"),
+    "match_keys": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
+    "match_bucket": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
+    "match_select": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
 }
 PROFILE_KERNELS = (
     "stage_a_tables_kernel", "stage_a_kernel", "stage_b_kernel", "stage_dc_kernel", "compact_kernel", "expand_kernel",
     "sweep_kernel", "crc32_lanes_kernel",
 )
 ENCODE_PROFILE_KERNELS = (
-    "parse_transfers_kernel", "parse_replay_kernel", "emit_kernel", "crc32_lanes_kernel",
+    "match_keys_kernel", "match_bucket_kernel", "match_select_kernel", "parse_transfers_kernel",
+    "parse_replay_kernel", "emit_kernel", "crc32_lanes_kernel",
 )
 ENCODE_REPS = 3
 ENCODE_EFFORTS = (1, 2, 3, 5)
@@ -1365,6 +1387,7 @@ def replay_calls(caps: dict, K: Kernels, label: str) -> None:
     resolve, the CRC and the encode's K8-K10)."""
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
     from tpu_deflate_torch.codec import parse as pp
     from tpu_deflate_torch.codec import resolve as rs
     from tpu_deflate_torch.kernels import checksum_lanes as cl
@@ -1382,6 +1405,9 @@ def replay_calls(caps: dict, K: Kernels, label: str) -> None:
         "parse_transfers": ("parse_transfers", pp, pp.parse_transfers_plain, None),
         "parse_replay": ("parse_replay", pp, pp.parse_replay_plain, None),
         "emit_body": ("emit_body", em, em.emit_body_plain, None),
+        "match_keys": ("match_keys", pe, pe._match_keys_plain, None),
+        "match_bucket": ("match_bucket", pe, pe._bucket_best_plain, None),
+        "match_select": ("match_select", pe, pe._match_select_plain, None),
     }
     for wrapper, calls in caps.items():
         kname, module, plain, proj = plains[wrapper]
@@ -1517,6 +1543,163 @@ def encode_batch(data: bytes, device) -> dict:
             "args": args, "rows": pend[0], "lengths": pend[5]}
 
 
+def match_kernels(K: Kernels, what: str, data, lengths, quality: int, lazy: bool, hist=None, hstart=None,
+                  main_path: bool = False):
+    """The match finder's kernels against their plain versions on one
+    batch, exact equality: the hash families' keys, each family's
+    candidate compare on the stably sorted keys, then the selection.
+    Returns (use, dist, step, valid)."""
+    import torch
+
+    from tpu_deflate_torch.codec import encode as pe
+
+    q = pe._QUALITY[quality]
+    L, S = data.shape
+    shapes = {what: [L, S], "quality": quality, "lazy": lazy, "history": hist is not None}
+    families = tuple(family for family, k, _w in pe._FAMILIES if k in q)
+    masks = [t for t in (hstart,) if t is not None]
+    (keys,) = K.compare("match_keys", lambda: pe.match_keys(data, lengths, families, hstart),
+                        lambda: pe._match_keys_plain(data, lengths, families, hstart), [data, lengths, *masks],
+                        {**shapes, "families": families}, main_path=main_path)
+    sorted_h, order = (t.view(keys.shape) for t in torch.sort(keys.view(-1, S), dim=1, stable=True))
+    packs = {}
+    for i, (family, k, w) in enumerate(f for f in pe._FAMILIES if f[0] in families):
+        args = (sorted_h[i], order[i], data, q[k], q[w])
+        (packs[family],) = K.compare(
+            "match_bucket", lambda: pe.match_bucket(*args), lambda: pe._bucket_best_plain(*args), list(args[:3]),
+            {**shapes, "family": family, "K": q[k], "words": q[w]}, main_path=main_path and family == pe.FAMILY_4)
+    args = (data, lengths, lazy, packs[pe.FAMILY_4], packs[pe.FAMILY_3], packs.get(pe.FAMILY_6), hist, hstart)
+    return K.compare("match_select", lambda: pe.match_select(*args), lambda: pe._match_select_plain(*args),
+                     [a for a in args if hasattr(a, "element_size")], shapes, main_path=main_path)
+
+
+MATCH_REPEATS = ((100, 32768), (5000, 32769))  # (source column, distance): the lone repeats of edge lane 2
+
+
+def match_edge_rows(corpus: bytes, device) -> tuple:
+    """The match finder's edge rows (8 x 65536, from a seed and the corpus):
+    zeros, random bytes, random bytes with a lone 16-byte repeat at distance
+    32768 and one at 32769, text of length 1000, 0 and 1 (the rest of the
+    row is the lane's own padding), runs of length 40000 and records. Returns
+    (data, lengths, hist, hstart): the history masks of a continuous batch
+    (hist 32768; hstart 0, 12345 or 32768) for the same rows."""
+    import numpy as np
+    import torch
+
+    mib = 1 << 20
+    flat = np.frombuffer(corpus, np.uint8)
+    rng = np.random.default_rng(41)
+    rows = np.zeros((8, MEMBER), np.uint8)
+    rows[1] = rng.integers(0, 256, MEMBER, dtype=np.uint8)
+    rows[2] = rng.integers(0, 256, MEMBER, dtype=np.uint8)
+    for src, dist in MATCH_REPEATS:
+        rows[2, src + dist : src + dist + 16] = rows[2, src : src + 16]
+    for lane in (3, 4, 5):
+        rows[lane] = flat[lane * MEMBER :][:MEMBER]
+    rows[6] = flat[24 * mib :][:MEMBER]
+    rows[7] = flat[12 * mib :][:MEMBER]
+    lengths = np.array([MEMBER, MEMBER, MEMBER, 1000, 0, 1, 40000, MEMBER], np.int32)
+    hstart = np.array([0, 0, 0, 12345, 32768, 32768, 0, 32768], np.int32)
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return put(rows), put(lengths), put(np.full(8, 32768, np.int32)), put(hstart)
+
+
+def phase_match_edges(corpus: bytes, device, K: Kernels) -> None:
+    """The match finder's kernels on the edge rows at qualities 0, 1 and 2,
+    lazy on and off, without and with the history masks; the repeat at
+    distance 32768 found and the one at 32769 not; then the worst case of
+    the candidate compare, 64 rows of zeros at quality 2 with history (64
+    x 98304: every position's candidates share its hash and match the
+    cap), and 64 rows of random bytes at quality 0."""
+    import torch
+
+    from tpu_deflate_torch.codec import encode as pe
+
+    data, lengths, hist, hstart = match_edge_rows(corpus, device)
+    for quality, lazy in ((0, False), (0, True), (1, True), (2, True), (2, False)):
+        use, dist, _step, _valid = match_kernels(K, "edge rows", data, lengths, quality, lazy)
+        for src, d in MATCH_REPEATS:
+            found = int(dist[2, src + d]) == d and int(use[2, src + d]) >= 16
+            require(found == (d <= 32768), f"edge rows, quality {quality}: the repeat at distance {d}")
+        match_kernels(K, "edge rows", data, lengths, quality, lazy, hist, hstart)
+    L = pe.ENC_LANE_BATCH
+    zeros = torch.zeros((L, 98304), dtype=torch.uint8, device=device)
+    full = torch.full((L,), 98304, dtype=torch.int32, device=device)
+    half = torch.full((L,), 32768, dtype=torch.int32, device=device)
+    match_kernels(K, "zeros", zeros, full, 2, True, half, torch.zeros_like(half))
+    g = torch.Generator(device="cpu").manual_seed(43)
+    rand = torch.randint(0, 256, (L, MEMBER), generator=g, dtype=torch.uint8).to(device)
+    match_kernels(K, "random", rand, full.clamp(max=MEMBER), 0, True)
+    log("match finder: edge rows equal to their plain versions at qualities 0-2; the repeat at distance 32768 "
+        "found, the one at 32769 not")
+
+
+def match_finder_profile(label: str, data, lengths, lazy: bool, quality: int, hist=None, hstart=None) -> None:
+    """One batch of the match finder (``encode._match_find``) on the card:
+    its launches (the device events of one call under torch.profiler, by
+    name, the call profiled after a warm-up call of the same profile, whose
+    first events the profiler may lose) and their device time, CUDA-event median of the call and of its
+    one torch.sort of every family's keys alone, and its device memory
+    peak; then the plain eager version's (the plain pieces on the card, as
+    the port ran before its kernels) launches and time, equal outputs."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_deflate_torch.codec import encode as pe
+
+    q = pe._QUALITY[quality]
+    families = [(family, q[k], q[w]) for family, k, w in pe._FAMILIES if k in q]
+    S = data.shape[1]
+
+    def kernels():
+        return pe._match_find(data, lengths, lazy, quality, hist, hstart)
+
+    def plain():
+        keys = pe._match_keys_plain(data, lengths, tuple(f for f, _k, _w in families), hstart)
+        sorted_h, order = (t.view(keys.shape) for t in torch.sort(keys.view(-1, S), dim=1, stable=True))
+        packs = [pe._bucket_best_plain(sorted_h[i], order[i], data, K, w) for i, (_f, K, w) in enumerate(families)]
+        return pe._match_select_plain(data, lengths, lazy, packs[0], packs[1], packs[2] if len(packs) > 2 else None,
+                                      hist, hstart)
+
+    require(all(torch.equal(a, b) for a, b in zip(kernels(), plain())),
+            f"{label}: the match finder differs from its plain eager version")
+    card = gpu_name_power()
+    cuda = torch.autograd.DeviceType.CUDA
+    for what, fn, reps in (("kernels", kernels, KERNEL_REPS), ("plain eager", plain, PLAIN_REPS)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # The step's own span is a device event too; it is no launch.
+        events = [e for e in prof.events() if e.device_type == cuda and not e.name.startswith("ProfilerStep")]
+        busy = sum(e.time_range.elapsed_us() for e in events)
+        names = collections.Counter(e.name for e in events)
+        log(f"{label} match finder ({what}, quality {quality}, {list(data.shape)}): {len(events)} device launches a "
+            f"batch, {busy:.1f} us of device time; CUDA-event median {median_ms(fn, reps):.4f} ms ({card})")
+        if what == "kernels":
+            log(f"{label} match finder launches by name: {json.dumps(dict(names))}")
+            ours = {k: sum(n for name, n in names.items() if f"{k}_kernel" in name) for k in MATCH_WRAPPERS}
+            require(ours == {"match_keys": 1, "match_bucket": len(families), "match_select": 1},
+                    f"{label}: the profile shows the match finder's kernels {ours}")
+            require(len(events) <= 30, f"{label}: the match finder issued {len(events)} launches a batch")
+    keys = pe.match_keys(data, lengths, tuple(f for f, _k, _w in families), hstart).view(-1, S)
+    log(f"{label} match finder: its torch.sort of every family's keys {list(keys.shape)} alone, CUDA-event median "
+        f"{median_ms(lambda: torch.sort(keys, dim=1, stable=True), KERNEL_REPS):.4f} ms ({card})")
+    del keys
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = kernels()
+    torch.cuda.synchronize()
+    log(f"{label} match finder: device memory peak {torch.cuda.max_memory_allocated() - mem0} bytes above the "
+        f"{mem0} held before the call, {sum(t.numel() * t.element_size() for t in out)} bytes of its outputs")
+
+
 def phase_encode_kernels(corpus: bytes, device, K: Kernels):
     """K8, K9 and K10 on the first batch of the encode's main path (64
     members), then at the edges: step fields of all 1, all 250 and random
@@ -1549,6 +1732,12 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
         return tok
 
     b = encode_batch(corpus[: pe.ENC_LANE_BATCH * MEMBER], device)
+    lengths = torch.from_numpy(b["lengths"]).to(device)
+    use, _dist, step, _valid = match_kernels(K, "encode batch", b["rows"], lengths, 0, True, main_path=True)
+    require(torch.equal(step, b["tiles"].transpose(1, 2).reshape(step.shape)), "the batch's steps differ from the "
+            "match finder's")
+    log(f"encode batch: {int((use > 0).sum())} match starts of {use.numel()} positions")
+    phase_match_edges(corpus, device, K)
     L, _T, NT = b["tiles"].shape
     S = NT * pp.T_P
     tok = parse_pair(b["tiles"], b["entries"], {"steps": [L, S]}, True)
@@ -1668,19 +1857,33 @@ def member_routes(gz: bytes) -> tuple[int, dict]:
     return len(members), dict(routes)
 
 
-def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
+MATCH_WRAPPERS = ("match_keys", "match_bucket", "match_select")
+
+
+def match_launches(launches: dict, batches: int, families: int, label: str) -> None:
+    """Each batch launched the keys and the selection once and each hash
+    family's candidate compare once."""
+    want = {"match_keys": batches, "match_bucket": batches * families, "match_select": batches}
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{label}: match finder launches {got}, expected {want}")
+
+
+def phase_encode_main(corpus: bytes, first) -> tuple[dict, float]:
     """engine.compress of the corpus at the default effort: round trip
-    through gzip and the port's decode, every encode kernel launched, then
-    timed runs."""
+    through gzip and the port's decode, every encode kernel launched (the
+    match finder's on every batch), then timed runs and one batch of the
+    match finder profiled (``first``: phase 8's first batch)."""
     import torch
 
     from tpu_deflate_torch import _build, engine, native
+    from tpu_deflate_torch.codec import encode as pe
     from tpu_deflate_torch.codec import parse as pp
 
     from tpu_deflate_torch.codec import emit as em
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
-    kernels = [(pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
+    kernels = [(pe, k) for k in MATCH_WRAPPERS] + [
+        (pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
     with recorded(*kernels) as (calls, shapes, order):
         _build.reset_launches()
         t0 = time.monotonic()
@@ -1693,6 +1896,7 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
     bounds = launch_bounds(calls, shapes, order)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
+    match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), 2, "encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
     require(engine.decompress(gz, engine="cuda") == corpus, "the port's decode of the encoded corpus differs")
     n_members, routes = member_routes(gz)
@@ -1712,6 +1916,8 @@ def phase_encode_main(corpus: bytes) -> tuple[dict, float]:
     log(f"encode {ENCODE_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e6:.2f} MB/s, "
         f"min {min(walls):.4f} s, max {max(walls):.4f} s")
     log(f"gpu: {gpu_name_power()}")
+    rows, lengths = first[0], torch.from_numpy(first[1]).to(first[0].device)
+    match_finder_profile("encode", rows, lengths, True, 0)
     return launches, med, bounds, len(gz)
 
 
@@ -1760,22 +1966,38 @@ def continuous_batch(data: bytes, device) -> dict:
     count = min(pe.ENC_LANE_BATCH, -(-flat.size // MEMBER))
     rows, hstart, pay_lens, final = pc.lane_rows(flat, 0, count, MEMBER)
     dd = torch.from_numpy(rows).to(device)
-    pend = pc.dispatch_lanes(dd, torch.from_numpy(hstart).to(device), pay_lens, True, 1)
+    hs = torch.from_numpy(hstart).to(device)
+    pend = pc.dispatch_lanes(dd, hs, pay_lens, True, 1)
     args, tiles, entries, _choice = pe.emit_inputs(pend, final)
-    return {"tiles": tiles, "entries": entries, "emit": em.body_args(args), "hstart": hstart}
+    lengths = torch.from_numpy((pc.HALO_COLS + pay_lens).astype(np.int32)).to(device)
+    hist = torch.full((count,), pc.HALO_COLS, dtype=torch.int32, device=device)
+    return {"tiles": tiles, "entries": entries, "emit": em.body_args(args), "hstart": hstart,
+            "match": (dd, lengths, hist, hs)}
 
 
-def phase_continuous_kernels(corpus: bytes, device, K: Kernels) -> None:
-    """K8, K9 and K10 against their plain versions on the continuous
-    encode's first batch (64 x 98304: a third of each row is history), and
-    on a batch whose head lane starts with F1's zeros; the parse's chain
-    reaches each lane's first payload column."""
+def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
+    """The match finder's kernels (quality 1, with the history masks), K8,
+    K9 and K10 against their plain versions on the continuous encode's
+    first batch (64 x 98304: a third of each row is history), and on a
+    batch whose head lane starts with F1's zeros; the parse's chain
+    reaches each lane's first payload column. Returns the first batch's
+    match finder arguments (rows, lengths, hist, hstart)."""
+    import torch
+
     from tpu_deflate_torch.codec import continuous as pc
     from tpu_deflate_torch.codec import emit as em
     from tpu_deflate_torch.codec import parse as pp
 
+    first = None
     for what, data in (("continuous batch", corpus), ("F1 head lane", F1_PREFIX + corpus)):
         b = continuous_batch(data, device)
+        rows, lengths, hist, hstart = b["match"]
+        use, _dist, step, _valid = match_kernels(K, what, rows, lengths, 1, True, hist, hstart)
+        require(torch.equal(step, b["tiles"].transpose(1, 2).reshape(step.shape)),
+                f"{what}: the batch's steps differ from the match finder's")
+        require(int(use[:, : pc.HALO_COLS].count_nonzero()) == 0, f"{what}: a match starts in the history")
+        if first is None:
+            first = b["match"]
         L, _T, NT = b["tiles"].shape
         S = NT * pp.T_P
         steps = b["tiles"].transpose(1, 2)
@@ -1792,15 +2014,18 @@ def phase_continuous_kernels(corpus: bytes, device, K: Kernels) -> None:
         log(f"{what}: {L} lanes x {S} columns (hstart of lane 0: {int(b['hstart'][0])}), "
             f"{int(tok.sum())} chain positions, body bits per lane min {int(body_end.min())} "
             f"max {int(body_end.max())}")
+    return first
 
 
-def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | None, K: Kernels):
+def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | None, K: Kernels, first):
     """engine.compress of the corpus at effort 4 (one member of 768 blocks
     of 64 KiB with continuous history): byte-exact through gzip and the
-    port's decode on the card, every kernel of the path launched, its
-    bounds, memory peak, ratio and times, the lane CRC against its plain
-    version on the rows the path gave it; then the decode of its output.
-    Returns the encode's and the decode's launches."""
+    port's decode on the card, every kernel of the path launched (the
+    match finder's on every batch), its bounds, memory peak, ratio and
+    times, the lane CRC against its plain version on the rows the path
+    gave it, one batch of the match finder profiled (``first``: phase
+    11's first batch); then the decode of its output. Returns the
+    encode's and the decode's launches."""
     import numpy as np
     import torch
 
@@ -1809,6 +2034,7 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     from tpu_deflate_torch.codec import decode_np
     from tpu_deflate_torch.codec import decode_v2 as pv2
     from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
     from tpu_deflate_torch.codec import parse as pp
     from tpu_deflate_torch.codec import resolve as rs
     from tpu_deflate_torch.kernels import checksum_lanes as cl
@@ -1816,7 +2042,8 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     def encode():
         return engine.compress(corpus, engine="cuda", effort=4)
 
-    kernels = [(pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
+    kernels = [(pe, k) for k in MATCH_WRAPPERS] + [
+        (pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1838,6 +2065,7 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     bounds = launch_bounds(calls, shapes, order)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the continuous encode")
+    match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), 3, "continuous encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the continuous encode differs")
     members = decode_np.split_members(np.frombuffer(gz, np.uint8))
     require(members is not None and len(members) == 1, "the continuous encode is not one member")
@@ -1878,6 +2106,7 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
         f"{'above' if wall > CONT_FIRST_RUN_LIMIT_S else 'at most'} {CONT_FIRST_RUN_LIMIT_S} s) {med:.4f} s = "
         f"{len(corpus) / med / 1e6:.2f} MB/s, min {min(walls):.4f} s, max {max(walls):.4f} s")
     log(f"gpu: {gpu_name_power()}")
+    match_finder_profile("continuous encode", *first[:2], True, 1, *first[2:])
     if profile_dir:
         phase_profile(encode, "continuous encode", profile_dir, "profile_continuous", ENCODE_PROFILE_KERNELS,
                       med, bounds)
@@ -1949,6 +2178,7 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import decode_v2 as pv2
     from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
     from tpu_deflate_torch.codec import parse as pp
     from tpu_deflate_torch.codec import resolve as rs
     from tpu_deflate_torch.dist import dryrun
@@ -1974,7 +2204,7 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"), (dk, "compact_flat"),
                (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"),
-               (pp, "parse_replay"), (em, "emit_body")]
+               (pp, "parse_replay"), (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
     with captured(*kernels) as caps:
         _build.reset_launches()
         out = timed(f"decode of the corpus over {MESH_SHARDS} shards (argument copies for the replay included)",
@@ -2241,6 +2471,7 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
     from tpu_deflate_torch import _build, engine
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
     from tpu_deflate_torch.codec import kernel_bench as kb
     from tpu_deflate_torch.codec import parse as pp
     from tpu_deflate_torch.codec import resolve as rs
@@ -2266,7 +2497,7 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"),
-               (pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body")]
+               (pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
     with recorded(*kernels) as (calls, _shapes, _order), captured(*kernels) as caps:
         _build.reset_launches()
         results = {name: run(reps=1) for name, run in rows}
@@ -2372,14 +2603,16 @@ def main(argv: list[str]) -> int:
     phase_interop(corpus, gz, device)
 
     encode_first = phase_encode_kernels(corpus, device, K)
-    enc_launches, enc_median_s, enc_bounds, effort2_bytes = phase_encode_main(corpus)
+    enc_launches, enc_median_s, enc_bounds, effort2_bytes = phase_encode_main(corpus, encode_first)
     if args.profile:
         phase_profile(lambda: engine.compress(corpus, engine="cuda"), "encode", args.profile,
                       "profile_encode", ENCODE_PROFILE_KERNELS, enc_median_s, enc_bounds)
     phase_encode_cpu(corpus, device)
 
-    phase_continuous_kernels(corpus, device, K)
-    cont_launches, cont_dec_launches, cont_gz = phase_continuous_main(corpus, effort2_bytes, args.profile, K)
+    cont_first = phase_continuous_kernels(corpus, device, K)
+    cont_launches, cont_dec_launches, cont_gz = phase_continuous_main(corpus, effort2_bytes, args.profile, K,
+                                                                       cont_first)
+    del cont_first
     phase_continuous_cpu(corpus, device)
     mesh_launches = phase_mesh(corpus, gz, n_huff, resolve_first, encode_first, cont_gz, device, K)
     del corpus, gz, cont_gz, resolve_first, encode_first

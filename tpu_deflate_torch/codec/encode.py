@@ -4,13 +4,18 @@ gzip profile stream, one 64 KiB member per lane.
 
 All of it is PyTorch on the given device, apart from the kernels:
 
-- **analyze, phase 1** (``analyze_phase1``): 4- and 3-byte (and, at
-  quality >= 1, 6-byte) multiplicative hashes; per hash family one stable
-  sort groups equal hashes, so the K nearest previous occurrences are
-  static shifts of the sorted arrays, and the exact match length is
-  compared on window words gathered into sorted order; arithmetic RLE
-  lanes give exact runs at distances 1..4; a lazy deferral; then the
-  parse's tile transfer maps (K8);
+- **analyze, phase 1** (``analyze_phase1``): the match finder
+  (``_match_find``), then the parse's tile transfer maps (K8). The hash
+  families (4- and 3-byte, and at quality >= 1 6-byte multiplicative
+  hashes) are sorted stably along each row in one call, which groups
+  equal hashes, so the K nearest previous occurrences of a position's
+  hash are the K sorted entries before it, and their exact match lengths
+  are compared; then arithmetic
+  RLE lanes give exact runs at distances 1..4, and a filter, a lazy
+  deferral and the history masks choose each position's run. On CUDA
+  tensors the keys, the compare and the selection are the kernels of
+  ``csrc/match.cu`` (``match_keys``, ``match_bucket``, ``match_select``)
+  and the sort is ``torch.sort``; on CPU tensors their plain versions;
 - **host entries** (``parse.host_entries``) between the phases;
 - **analyze, phase 2** (``analyze_phase2``): the parse replay (K9), the
   symbols and extra bits of each token, and per-lane histograms;
@@ -32,9 +37,10 @@ same stages on halo rows, with the history masks of ``_match_find`` and
 each lane's bfinal from ``_plan_codes``.
 
 Every value is integer, and the output is byte-identical to
-``encode_jax.compress_members_tpu`` at the same effort. uint32 arithmetic
-(window words, hashes) runs in int64 masked to 32 bits; the sort-carried
-window words are int32 bit patterns.
+``encode_jax.compress_members_tpu`` at the same effort. In the plain
+versions uint32 arithmetic (window words, hashes) runs in int64 masked to
+32 bits, and the window words gathered into sorted order are int32 bit
+patterns.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import _build
+from .._build import ENCODE_LAUNCHES
 from ..format.tables import FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS
 from ..kernels.checksum_lanes import crc32_members
 from ..kernels.huffman import huffman_lengths_batch
@@ -136,26 +144,67 @@ def _word_eqlen(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _bucket_best(h: torch.Tensor, w32i: torch.Tensor, K: int, nwords: int) -> torch.Tensor:
-    """Best (match length, candidate position) per position among the K
-    nearest earlier positions of the same hash, packed as
-    ``cand + 1 | min(len, 4 nwords) << 32`` (int64, position order;
-    :func:`_unpack_best` unpacks it). The reference packs an int32 with the
-    length at bit 18, which a candidate past column 2**18 - 2 runs into
-    (F11).
+FAMILY_4, FAMILY_3, FAMILY_6 = 0, 1, 2  # the hash families, as td_match_keys takes them
+# Each family's (candidate count, compare words) keys in _QUALITY.
+_FAMILIES = ((FAMILY_4, "K4", "W4"), (FAMILY_3, "K3", "W3"), (FAMILY_6, "K6", "W6"))
+_MAX_WORDS = 16  # the widest compare the bucket kernel stages a zero tail for
 
-    A stable sort groups equal hashes with positions ascending, so the
+
+def _positions(data: torch.Tensor, lengths: torch.Tensor, hstart: torch.Tensor | None):
+    """(column index (L, S) int32, the mask of positions that may be
+    tokens: below the lane's length and, with ``hstart``, not row padding)."""
+    L, S = data.shape
+    idx = torch.arange(S, dtype=_I32, device=data.device).expand(L, S)
+    valid = idx < lengths[:, None]
+    if hstart is not None:
+        valid &= idx >= hstart[:, None]
+    return idx, valid
+
+
+def _match_keys_plain(data: torch.Tensor, lengths: torch.Tensor, families: tuple,
+                      hstart: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain ``td_match_keys``: (F, L, S) int32, for each of the F hash
+    families its 16-bit hash of the zero-extended row at each position
+    (4-byte window; 3-byte; 6-byte: bytes 4..5 mixed into the 4-byte
+    window's hash), or -1 where the position is not valid."""
+    L, S = data.shape
+    _idx, valid = _positions(data, lengths, hstart)
+    w32 = _u32_windows(data)
+    out = []
+    for family in families:
+        x = w32
+        if family == FAMILY_3:
+            x = w32 & 0xFFFFFF
+        elif family == FAMILY_6:
+            ext6 = torch.cat([data, data.new_zeros((L, 6))], dim=1).to(torch.int64)
+            x = w32 ^ _mul32(ext6[:, 4 : S + 4] | (ext6[:, 5 : S + 5] << 8), _H6_MUL)
+        out.append(_hash(x, valid))
+    return torch.stack(out)
+
+
+def _bucket_best_plain(sorted_h: torch.Tensor, order: torch.Tensor, data: torch.Tensor, K: int,
+                       nwords: int) -> torch.Tensor:
+    """Plain ``td_match_bucket``: one family's hashes after a stable sort
+    along each row (L, S) int32, the columns they came from (L, S) int64,
+    and the rows -> the best (match length, candidate position) per
+    position among the K nearest earlier positions of the same hash,
+    packed as ``cand + 1 | min(len, 4 nwords) << 32`` (int64, position
+    order; :func:`_unpack_best` unpacks it). The reference packs an int32
+    with the length at bit 18, which a candidate past column 2**18 - 2 runs
+    into (F11).
+
+    The stable sort groups equal hashes with positions ascending, so the
     k-th previous occurrence is a shift by k of the sorted arrays; the
     exact prefix compare, up to 4 nwords bytes, runs on the window words
     gathered into sorted order. Ties keep the nearer candidate."""
-    L, S = h.shape
+    L, S = sorted_h.shape
     cap = 4 * nwords
-    sorted_h, order = torch.sort(h, dim=1, stable=True)
+    w32i = wrap_int32(_u32_windows(data)).to(_I32)
     sw = []
     for j in range(nwords):
         src = order + 4 * j
         sw.append(torch.where(src < S, w32i.gather(1, src.clamp(max=S - 1)), 0))
-    si = torch.arange(S, device=h.device).expand(L, S)
+    si = torch.arange(S, device=order.device).expand(L, S)
     changed = torch.ones_like(sorted_h, dtype=torch.bool)
     changed[:, 1:] = sorted_h[:, 1:] != sorted_h[:, :-1]
     rank = si - torch.cummax(torch.where(changed, si, -1), dim=1).values
@@ -170,8 +219,8 @@ def _bucket_best(h: torch.Tensor, w32i: torch.Tensor, K: int, nwords: int) -> to
             full = full & (lj == 4)
         return total
 
-    blen = torch.zeros((L, S), dtype=_I32, device=h.device)
-    bcand = torch.full((L, S), -1, dtype=torch.int64, device=h.device)
+    blen = torch.zeros((L, S), dtype=_I32, device=order.device)
+    bcand = torch.full((L, S), -1, dtype=torch.int64, device=order.device)
     for k in range(1, K + 1):
         cand = _shr(order, k, -1)
         dist = order - cand
@@ -185,8 +234,8 @@ def _bucket_best(h: torch.Tensor, w32i: torch.Tensor, K: int, nwords: int) -> to
 
 
 def _unpack_best(q: torch.Tensor, idx: torch.Tensor):
-    """:func:`_bucket_best`'s packing -> (match length, distance; 0 where
-    there is no candidate), int32."""
+    """:func:`_bucket_best_plain`'s packing -> (match length, distance; 0
+    where there is no candidate), int32."""
     cand = (q & _M32) - 1
     return (q >> 32).to(_I32), torch.where(cand >= 0, idx - cand, 0).to(_I32)
 
@@ -204,43 +253,24 @@ def _suffix_runlen(eq: torch.Tensor) -> torch.Tensor:
     return r.clamp(max=258)
 
 
-def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: int = 0,
-                hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
-    """Match find: data (L, S) uint8, lengths (L,) int32 -> (use, dist,
-    step, valid), the chosen run per position (0 = literal or deferred),
-    its distance, the parse step and the mask of the positions that may be
-    tokens.
-
-    ``hist`` and ``hstart`` (L,) int32 are the continuous-history rows'
-    (``continuous.py``): columns before ``hist`` are the 32 KiB history,
-    match candidates but never tokens (their steps are 1, so the parse
-    chain from column 0 lands on ``hist``), and columns before ``hstart``
-    are row padding, neither. None: the whole row is the member."""
-    q = _QUALITY[quality]
+def _match_select_plain(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, q4: torch.Tensor,
+                        q3: torch.Tensor, q6: torch.Tensor | None = None, hist: torch.Tensor | None = None,
+                        hstart: torch.Tensor | None = None):
+    """Plain ``td_match_select``: the rows and the packed best matches of
+    the 4-, 3- and (or None) 6-byte families -> (use, dist, step, valid) of
+    :func:`_match_find`."""
     L, S = data.shape
     devc = data.device
-    idx = torch.arange(S, dtype=_I32, device=devc).expand(L, S)
-    valid = idx < lengths[:, None]
-    if hstart is not None:
-        valid &= idx >= hstart[:, None]
-    w32 = _u32_windows(data)
-    w32i = wrap_int32(w32).to(_I32)
-
-    q1 = _bucket_best(_hash(w32, valid), w32i, q["K4"], q["W4"])
-    # 3-byte hash: run-3 matches and windows broken in their fourth byte.
-    q3 = _bucket_best(_hash(w32 & 0xFFFFFF, valid), w32i, q["K3"], q["W3"])
+    idx, valid = _positions(data, lengths, hstart)
     limit = (lengths[:, None] - idx).clamp(max=258)
-    l1, d1 = _unpack_best(q1, idx)
+    l1, d1 = _unpack_best(q4, idx)
     l3, d3 = _unpack_best(q3, idx)
+    # 3-byte hash: run-3 matches and windows broken in their fourth byte.
     take3 = (l3 > l1) | ((l3 == l1) & (l3 > 0) & (d3 < d1))
     run = torch.minimum(torch.where(take3, l3, l1), limit)
     dist = torch.where(take3, d3, d1)
 
-    if "K6" in q:
-        # 6-byte hash: bytes 4..5 mixed into the 4-byte window's hash.
-        ext6 = torch.cat([data, data.new_zeros((L, 6))], dim=1).to(torch.int64)
-        b45 = ext6[:, 4 : S + 4] | (ext6[:, 5 : S + 5] << 8)
-        q6 = _bucket_best(_hash(w32 ^ _mul32(b45, _H6_MUL), valid), w32i, q["K6"], q["W6"])
+    if q6 is not None:
         l6, d6 = _unpack_best(q6, idx)
         l6 = torch.minimum(l6, limit)
         take6 = (l6 > run) | ((l6 == run) & (l6 > 0) & (d6 < dist))
@@ -280,6 +310,122 @@ def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: 
         valid &= in_payload
     step = torch.where(use > 0, use, 1)
     return use, dist, step, valid
+
+
+def _check_rows(data: torch.Tensor, lengths: torch.Tensor, *masks: torch.Tensor | None) -> list:
+    """Check the match kernels' common inputs; returns the masks given."""
+    _build.check_tensor("data", data, torch.uint8, 2)
+    _build.check_tensor("lengths", lengths, _I32, 1)
+    L = data.shape[0]
+    _build.require(lengths.shape[0] == L, f"lengths: shape {tuple(lengths.shape)}")
+    given = [m for m in masks if m is not None]
+    for m in given:
+        _build.check_tensor("hist/hstart", m, _I32, 1)
+        _build.require(m.shape[0] == L, f"hist/hstart: shape {tuple(m.shape)}")
+    return given
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def match_keys(data: torch.Tensor, lengths: torch.Tensor, families: tuple,
+               hstart: torch.Tensor | None = None) -> torch.Tensor:
+    """``td_match_keys``: data (L, S) uint8, lengths (L,) int32, hash
+    families (each ``FAMILY_*``), hstart (L,) int32 or None -> (F, L, S)
+    int32 hashes (-1 where the position is not valid)."""
+    given = _check_rows(data, lengths, hstart)
+    _build.require(1 <= len(families) <= 3 and all(f in (FAMILY_4, FAMILY_3, FAMILY_6) for f in families),
+                   f"families {families}")
+    if not _build.on_card(data, lengths, *given):
+        return _match_keys_plain(data, lengths, families, hstart)
+    L, S = data.shape
+    dev = data.device
+    keys = torch.empty((len(families), L, S), dtype=_I32, device=dev)
+    codes = sum(f << (2 * i) for i, f in enumerate(families))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_match_keys(data.data_ptr(), lengths.data_ptr(), _ptr(hstart), keys.data_ptr(), L, S,
+                                len(families), codes, _build.stream(dev))
+    _build.check(err, "td_match_keys")
+    ENCODE_LAUNCHES["match_keys"] += 1
+    return keys
+
+
+def match_bucket(sorted_h: torch.Tensor, order: torch.Tensor, data: torch.Tensor, K: int,
+                 nwords: int) -> torch.Tensor:
+    """``td_match_bucket``: one family's stably sorted hashes (L, S) int32,
+    their columns (L, S) int64, data (L, S) uint8 -> (L, S) int64 packed
+    best matches in position order."""
+    _build.check_tensor("sorted_h", sorted_h, _I32, 2)
+    _build.check_tensor("order", order, torch.int64, 2)
+    _build.check_tensor("data", data, torch.uint8, 2)
+    _build.require(sorted_h.shape == order.shape == data.shape,
+                   f"sorted_h {tuple(sorted_h.shape)}, order {tuple(order.shape)}, data {tuple(data.shape)}")
+    _build.require(K >= 1 and 1 <= nwords <= _MAX_WORDS, f"K {K}, nwords {nwords}")
+    if not _build.on_card(sorted_h, order, data):
+        return _bucket_best_plain(sorted_h, order, data, K, nwords)
+    L, S = data.shape
+    dev = data.device
+    out = torch.empty((L, S), dtype=torch.int64, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_match_bucket(sorted_h.data_ptr(), order.data_ptr(), data.data_ptr(), out.data_ptr(), L, S, K,
+                                  nwords, _build.stream(dev))
+    _build.check(err, "td_match_bucket")
+    ENCODE_LAUNCHES["match_bucket"] += 1
+    return out
+
+
+def match_select(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, q4: torch.Tensor, q3: torch.Tensor,
+                 q6: torch.Tensor | None = None, hist: torch.Tensor | None = None,
+                 hstart: torch.Tensor | None = None):
+    """``td_match_select``: the rows, the packed best matches of the 4-, 3-
+    and (or None) 6-byte families, the history masks -> (use, dist, step,
+    valid)."""
+    given = _check_rows(data, lengths, hist, hstart)
+    packs = [q for q in (q4, q3, q6) if q is not None]
+    for q in packs:
+        _build.check_tensor("packed matches", q, torch.int64, 2)
+        _build.require(q.shape == data.shape, f"packed matches: shape {tuple(q.shape)}")
+    if not _build.on_card(data, lengths, *packs, *given):
+        return _match_select_plain(data, lengths, lazy, q4, q3, q6, hist, hstart)
+    L, S = data.shape
+    dev = data.device
+    use, dist, step = (torch.empty((L, S), dtype=_I32, device=dev) for _ in range(3))
+    valid = torch.empty((L, S), dtype=torch.bool, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_match_select(data.data_ptr(), lengths.data_ptr(), q4.data_ptr(), q3.data_ptr(), _ptr(q6),
+                                  _ptr(hist), _ptr(hstart), use.data_ptr(), dist.data_ptr(), step.data_ptr(),
+                                  valid.data_ptr(), L, S, int(lazy), _build.stream(dev))
+    _build.check(err, "td_match_select")
+    ENCODE_LAUNCHES["match_select"] += 1
+    return use, dist, step, valid
+
+
+def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: int = 0,
+                hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
+    """Match find: data (L, S) uint8, lengths (L,) int32 -> (use, dist,
+    step, valid), the chosen run per position (0 = literal or deferred),
+    its distance, the parse step and the mask of the positions that may be
+    tokens. The hash families' keys, one stable sort of all of them along
+    the rows, each family's candidate compare, then the selection; on CUDA
+    tensors each step but the sort is a kernel of ``csrc/match.cu``.
+
+    ``hist`` and ``hstart`` (L,) int32 are the continuous-history rows'
+    (``continuous.py``): columns before ``hist`` are the 32 KiB history,
+    match candidates but never tokens (their steps are 1, so the parse
+    chain from column 0 lands on ``hist``), and columns before ``hstart``
+    are row padding, neither. None: the whole row is the member."""
+    q = _QUALITY[quality]
+    families = [(family, q[k], q[w]) for family, k, w in _FAMILIES if k in q]
+    keys = match_keys(data, lengths, tuple(f for f, _k, _w in families), hstart)
+    # One sort for every family: a batch's F * L rows at once.
+    sorted_h, order = (t.view(keys.shape) for t in torch.sort(keys.view(-1, keys.shape[2]), dim=1, stable=True))
+    packs = [match_bucket(sorted_h[i], order[i], data, K, nwords) for i, (_f, K, nwords) in enumerate(families)]
+    q6 = packs[2] if len(packs) == 3 else None
+    return match_select(data, lengths, lazy, packs[0], packs[1], q6, hist, hstart)
 
 
 def _finish_analysis(data, use, dist, is_token):
