@@ -71,18 +71,24 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 7. interop and errors: a foreign gzip stream without the member index,
    a foreign raw multi-block DEFLATE stream through the wave kernels, and a
    corrupted member raising the same Reason on the "auto" and "off" routes;
-8. encode kernels: the match finder's three kernels (``match_keys``,
-   ``match_bucket`` on torch.sort's sorted keys, ``match_select``; one per
-   hash family for the compare), K8 parse transfers, K9 parse
+8. encode kernels: the match finder's four kernels (``match_keys``,
+   ``match_chain``, the same-hash links, ``match_bucket``, the compare
+   along them, ``match_select``; every hash family in one launch of each),
+   K8 parse transfers, K9 parse
    replay and K10 emit body against their plain versions (exact equality)
    on the first batch of the encode's main path (64 members x 64 KiB of
    the corpus); the match finder's kernels also on edge rows (zeros,
    random bytes, a lone repeat at distance 32768 that must be found and
    one at 32769 that must not, lengths of 1000, 0, 1 and 40000 with the
    row's own bytes past them, runs, records) at qualities 0, 1 and 2,
-   lazy on and off, without and with the history masks, on 64 rows of
-   zeros of 98304 columns at quality 2 (the candidate compare's worst
-   case) and on 64 rows of random bytes; K8-K10 then on
+   lazy on and off, without and with the history masks, on long rows of
+   98304 columns (4-byte patterns recurring 65536, 65537, 32768 and 32769
+   columns apart, where only the 32768 one has a link; records whose
+   matches stop short of the cap; zeros; lanes of length 0, 1 and 3;
+   random bytes; hstart 12345 and 32768), on 64 rows of zeros of 98304
+   columns at quality 2 (one hash group, every compare matching the cap),
+   64 rows of those records at quality 1 (every position taking all K4 =
+   32 hops) and 64 rows of random bytes; K8-K10 then on
    step fields of all 1, all 250, random 1..250 and one with steps <= 0
    and at the int32 limits (K9 there with entries of -1, 0, 255, 511 and
    512 in the first tiles), a batch with a lane routed FIXED, a
@@ -93,12 +99,12 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 9. the encode's main path: ``engine.compress`` of the 48 MiB corpus at the
    default effort 2, byte-exact through ``gzip.decompress`` and the port's
    ``engine.decompress``, 768 members, every encode kernel and the lane
-   CRC launched (the match finder's compare twice a batch, its keys and
-   selection once), its size beside the C core's member encoder, each
-   kernel's bound per launch and summed over the run; 3 timed runs; then
-   one batch of the match finder: its launches (at most 30) and device
-   time under torch.profiler, the sort's time alone, its memory peak, and
-   the plain eager version's launches and time on the card;
+   CRC launched (the match finder's four kernels once a batch), its size
+   beside the C core's member encoder, each kernel's bound per launch and
+   summed over the run; 3 timed runs; then one batch of the match finder:
+   its launches (exactly its four kernels) and device time under
+   torch.profiler, its chain kernel's time alone, its memory peak, and the
+   plain eager version's launches and time on the card;
 10. the card against the CPU: five members (text, random, runs, zeros, a
    short tail) encoded on the card and with the plain versions on the CPU
    at efforts 1, 2, 3 and 5 must be byte-identical;
@@ -222,6 +228,7 @@ KERNELS = {
     "parse_replay": ("parse.cu", "tpu_deflate/codec/parse_pallas.py:82", "encode"),
     "emit_body": ("emit.cu", "tpu_deflate/codec/emit_pallas.py:67", "encode"),
     "match_keys": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
+    "match_chain": ("match.cu", "tpu_deflate/codec/encode_jax.py:214", "encode"),
     "match_bucket": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
     "match_select": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
 }
@@ -230,8 +237,8 @@ PROFILE_KERNELS = (
     "sweep_kernel", "crc32_lanes_kernel",
 )
 ENCODE_PROFILE_KERNELS = (
-    "match_keys_kernel", "match_bucket_kernel", "match_select_kernel", "parse_transfers_kernel",
-    "parse_replay_kernel", "emit_kernel", "crc32_lanes_kernel",
+    "match_keys_kernel", "match_chain_kernel", "match_bucket_kernel", "match_select_kernel",
+    "parse_transfers_kernel", "parse_replay_kernel", "emit_kernel", "crc32_lanes_kernel",
 )
 ENCODE_REPS = 3
 ENCODE_EFFORTS = (1, 2, 3, 5)
@@ -448,7 +455,8 @@ def phase_build() -> None:
     log(f"build: {_build.library_path()} in {time.monotonic() - t0:.1f} s")
     for entry, variants in (("td_compact_occupancy", ("compact_kernel<4, map>", "compact_kernel<4, no map>",
                                                       "compact_kernel<16, map>", "compact_kernel<16, no map>")),
-                            ("td_sweep_occupancy", ("sweep_kernel",))):
+                            ("td_sweep_occupancy", ("sweep_kernel",)),
+                            ("td_match_occupancy", ("match_chain_kernel", "match_bucket_kernel"))):
         fn = getattr(lib, entry, None)
         if fn is None:
             log(f"occupancy: {entry} is not in this build")
@@ -1406,6 +1414,7 @@ def replay_calls(caps: dict, K: Kernels, label: str) -> None:
         "parse_replay": ("parse_replay", pp, pp.parse_replay_plain, None),
         "emit_body": ("emit_body", em, em.emit_body_plain, None),
         "match_keys": ("match_keys", pe, pe._match_keys_plain, None),
+        "match_chain": ("match_chain", pe, pe._match_chain_plain, int32_parts),
         "match_bucket": ("match_bucket", pe, pe._bucket_best_plain, None),
         "match_select": ("match_select", pe, pe._match_select_plain, None),
     }
@@ -1543,34 +1552,41 @@ def encode_batch(data: bytes, device) -> dict:
             "args": args, "rows": pend[0], "lengths": pend[5]}
 
 
+def int32_parts(out: tuple) -> tuple:
+    """uint16 outputs as int32, for the comparisons (``torch.equal`` and the
+    error take every dtype of the other kernels)."""
+    import torch
+
+    return tuple(t.to(torch.int32) for t in out)
+
+
 def match_kernels(K: Kernels, what: str, data, lengths, quality: int, lazy: bool, hist=None, hstart=None,
                   main_path: bool = False):
     """The match finder's kernels against their plain versions on one
-    batch, exact equality: the hash families' keys, each family's
-    candidate compare on the stably sorted keys, then the selection.
-    Returns (use, dist, step, valid)."""
-    import torch
-
+    batch, exact equality: the hash families' keys, their same-hash links,
+    every family's candidate compare along the links, then the selection.
+    Returns (use, dist, step, valid) and the links."""
     from tpu_deflate_torch.codec import encode as pe
 
     q = pe._QUALITY[quality]
     L, S = data.shape
     shapes = {what: [L, S], "quality": quality, "lazy": lazy, "history": hist is not None}
-    families = tuple(family for family, k, _w in pe._FAMILIES if k in q)
+    fams = [(family, q[k], q[w]) for family, k, w in pe._FAMILIES if k in q]
+    families = tuple(f for f, _k, _w in fams)
     masks = [t for t in (hstart,) if t is not None]
     (keys,) = K.compare("match_keys", lambda: pe.match_keys(data, lengths, families, hstart),
                         lambda: pe._match_keys_plain(data, lengths, families, hstart), [data, lengths, *masks],
                         {**shapes, "families": families}, main_path=main_path)
-    sorted_h, order = (t.view(keys.shape) for t in torch.sort(keys.view(-1, S), dim=1, stable=True))
-    packs = {}
-    for i, (family, k, w) in enumerate(f for f in pe._FAMILIES if f[0] in families):
-        args = (sorted_h[i], order[i], data, q[k], q[w])
-        (packs[family],) = K.compare(
-            "match_bucket", lambda: pe.match_bucket(*args), lambda: pe._bucket_best_plain(*args), list(args[:3]),
-            {**shapes, "family": family, "K": q[k], "words": q[w]}, main_path=main_path and family == pe.FAMILY_4)
-    args = (data, lengths, lazy, packs[pe.FAMILY_4], packs[pe.FAMILY_3], packs.get(pe.FAMILY_6), hist, hstart)
-    return K.compare("match_select", lambda: pe.match_select(*args), lambda: pe._match_select_plain(*args),
-                     [a for a in args if hasattr(a, "element_size")], shapes, main_path=main_path)
+    (prev,) = K.compare("match_chain", lambda: pe.match_chain(keys), lambda: pe._match_chain_plain(keys), [keys],
+                        {**shapes, "families": families}, main_path=main_path, proj=int32_parts)
+    del keys
+    args = (prev, data, tuple(k for _f, k, _w in fams), tuple(w for _f, _k, w in fams))
+    (packs,) = K.compare("match_bucket", lambda: pe.match_bucket(*args), lambda: pe._bucket_best_plain(*args),
+                         [prev, data], {**shapes, "K": args[2], "words": args[3]}, main_path=main_path)
+    args = (data, lengths, lazy, packs[0], packs[1], packs[2] if len(fams) == 3 else None, hist, hstart)
+    out = K.compare("match_select", lambda: pe.match_select(*args), lambda: pe._match_select_plain(*args),
+                    [a for a in args if hasattr(a, "element_size")], shapes, main_path=main_path)
+    return out, prev
 
 
 MATCH_REPEATS = ((100, 32768), (5000, 32769))  # (source column, distance): the lone repeats of edge lane 2
@@ -1604,42 +1620,90 @@ def match_edge_rows(corpus: bytes, device) -> tuple:
     return put(rows), put(lengths), put(np.full(8, 32768, np.int32)), put(hstart)
 
 
+RECUR = ((1000, 65536), (3000, 65537), (5000, 32768), (7000, 32769))  # (column, apart) of lane 0's patterns
+RECORD = 48  # bytes of a record of lane 1: a fixed 40-byte head, then 8 random bytes
+
+
+def match_long_rows(device) -> tuple:
+    """The match finder's long edge rows (8 x 98304, from a seed): lane 0
+    zeros but for four 4-byte patterns, each twice, 65536, 65537, 32768
+    and 32769 columns apart (their windows' hashes recur with nothing in
+    between); lane 1 records whose 40-byte heads repeat every 48 bytes
+    (same-hash groups of ~680 within reach, every match 40-47 bytes, short
+    of the 64-byte cap at K4 = 32, W4 = 16, so no early exit); lane 2
+    zeros; lanes 3-5 text of length 0, 1 and 3; lane 6 random bytes; lane
+    7 records. Returns (data, lengths, hist, hstart), the history masks
+    with hstart 0, 12345 or 32768."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(45)
+    S = 98304
+    rows = np.zeros((8, S), np.uint8)
+    for (col, apart), pattern in zip(RECUR, rng.integers(1, 256, (len(RECUR), 4), dtype=np.uint8)):
+        rows[0, col : col + 4] = rows[0, col + apart : col + apart + 4] = pattern
+    head = rng.integers(0, 256, RECORD - 8, dtype=np.uint8)
+    for lane in (1, 7):
+        rec = np.tile(np.concatenate([head, np.zeros(8, np.uint8)]), S // RECORD).reshape(-1, RECORD)
+        rec[:, RECORD - 8 :] = rng.integers(0, 256, (rec.shape[0], 8), dtype=np.uint8)
+        rows[lane] = rec.reshape(-1)
+    rows[3:6] = rng.integers(32, 127, (3, S), dtype=np.uint8)
+    rows[6] = rng.integers(0, 256, S, dtype=np.uint8)
+    lengths = np.array([S, S, S, 0, 1, 3, S, S - 1000], np.int32)
+    hstart = np.array([0, 0, 32768, 32768, 12345, 0, 12345, 32768], np.int32)
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return put(rows), put(lengths), put(np.full(8, 32768, np.int32)), put(hstart)
+
+
 def phase_match_edges(corpus: bytes, device, K: Kernels) -> None:
     """The match finder's kernels on the edge rows at qualities 0, 1 and 2,
     lazy on and off, without and with the history masks; the repeat at
-    distance 32768 found and the one at 32769 not; then the worst case of
-    the candidate compare, 64 rows of zeros at quality 2 with history (64
-    x 98304: every position's candidates share its hash and match the
-    cap), and 64 rows of random bytes at quality 0."""
+    distance 32768 found and the one at 32769 not; the long rows (lanes of
+    98304 columns; patterns recurring 65536 and 65537 apart must have no
+    link, 32768 apart a link of 32768); then the worst cases of the
+    candidate compare: 64 rows of zeros at quality 2 with history (64 x
+    98304, one hash group throughout: every candidate matches the cap) and
+    64 rows of records at quality 1 with history (long groups whose
+    matches stop short of the cap: every position takes all K4 = 32 hops),
+    and 64 rows of random bytes at quality 0."""
     import torch
 
     from tpu_deflate_torch.codec import encode as pe
 
     data, lengths, hist, hstart = match_edge_rows(corpus, device)
     for quality, lazy in ((0, False), (0, True), (1, True), (2, True), (2, False)):
-        use, dist, _step, _valid = match_kernels(K, "edge rows", data, lengths, quality, lazy)
+        (use, dist, _step, _valid), _prev = match_kernels(K, "edge rows", data, lengths, quality, lazy)
         for src, d in MATCH_REPEATS:
             found = int(dist[2, src + d]) == d and int(use[2, src + d]) >= 16
             require(found == (d <= 32768), f"edge rows, quality {quality}: the repeat at distance {d}")
         match_kernels(K, "edge rows", data, lengths, quality, lazy, hist, hstart)
+    data, lengths, hist, hstart = match_long_rows(device)
+    for quality, lazy in ((0, True), (1, False), (2, True)):
+        _out, prev = match_kernels(K, "long rows", data, lengths, quality, lazy)
+        links = {apart: int(prev[0, 0, col + apart]) for col, apart in RECUR}
+        require(links == {65536: 0, 65537: 0, 32768: 32768, 32769: 0},
+                f"long rows, quality {quality}: the 4-byte links of the recurring patterns {links}")
+        match_kernels(K, "long rows", data, lengths, quality, lazy, hist, hstart)
     L = pe.ENC_LANE_BATCH
     zeros = torch.zeros((L, 98304), dtype=torch.uint8, device=device)
     full = torch.full((L,), 98304, dtype=torch.int32, device=device)
     half = torch.full((L,), 32768, dtype=torch.int32, device=device)
     match_kernels(K, "zeros", zeros, full, 2, True, half, torch.zeros_like(half))
+    records = data[1].expand(L, -1).contiguous()
+    match_kernels(K, "records", records, full, 1, True, half, torch.zeros_like(half))
     g = torch.Generator(device="cpu").manual_seed(43)
     rand = torch.randint(0, 256, (L, MEMBER), generator=g, dtype=torch.uint8).to(device)
     match_kernels(K, "random", rand, full.clamp(max=MEMBER), 0, True)
     log("match finder: edge rows equal to their plain versions at qualities 0-2; the repeat at distance 32768 "
-        "found, the one at 32769 not")
+        "found, the one at 32769 not; no link across 65536 or 65537 columns")
 
 
 def match_finder_profile(label: str, data, lengths, lazy: bool, quality: int, hist=None, hstart=None) -> None:
     """One batch of the match finder (``encode._match_find``) on the card:
     its launches (the device events of one call under torch.profiler, by
     name, the call profiled after a warm-up call of the same profile, whose
-    first events the profiler may lose) and their device time, CUDA-event median of the call and of its
-    one torch.sort of every family's keys alone, and its device memory
+    first events the profiler may lose) and their device time, CUDA-event
+    median of the call and of its chain kernel alone, and its device memory
     peak; then the plain eager version's (the plain pieces on the card, as
     the port ran before its kernels) launches and time, equal outputs."""
     import collections
@@ -1651,15 +1715,14 @@ def match_finder_profile(label: str, data, lengths, lazy: bool, quality: int, hi
 
     q = pe._QUALITY[quality]
     families = [(family, q[k], q[w]) for family, k, w in pe._FAMILIES if k in q]
-    S = data.shape[1]
+    ks, ws = tuple(k for _f, k, _w in families), tuple(w for _f, _k, w in families)
 
     def kernels():
         return pe._match_find(data, lengths, lazy, quality, hist, hstart)
 
     def plain():
         keys = pe._match_keys_plain(data, lengths, tuple(f for f, _k, _w in families), hstart)
-        sorted_h, order = (t.view(keys.shape) for t in torch.sort(keys.view(-1, S), dim=1, stable=True))
-        packs = [pe._bucket_best_plain(sorted_h[i], order[i], data, K, w) for i, (_f, K, w) in enumerate(families)]
+        packs = pe._bucket_best_plain(pe._match_chain_plain(keys), data, ks, ws)
         return pe._match_select_plain(data, lengths, lazy, packs[0], packs[1], packs[2] if len(packs) > 2 else None,
                                       hist, hstart)
 
@@ -1684,12 +1747,13 @@ def match_finder_profile(label: str, data, lengths, lazy: bool, quality: int, hi
         if what == "kernels":
             log(f"{label} match finder launches by name: {json.dumps(dict(names))}")
             ours = {k: sum(n for name, n in names.items() if f"{k}_kernel" in name) for k in MATCH_WRAPPERS}
-            require(ours == {"match_keys": 1, "match_bucket": len(families), "match_select": 1},
+            require(ours == {k: 1 for k in MATCH_WRAPPERS},
                     f"{label}: the profile shows the match finder's kernels {ours}")
-            require(len(events) <= 30, f"{label}: the match finder issued {len(events)} launches a batch")
-    keys = pe.match_keys(data, lengths, tuple(f for f, _k, _w in families), hstart).view(-1, S)
-    log(f"{label} match finder: its torch.sort of every family's keys {list(keys.shape)} alone, CUDA-event median "
-        f"{median_ms(lambda: torch.sort(keys, dim=1, stable=True), KERNEL_REPS):.4f} ms ({card})")
+            require(len(events) == len(MATCH_WRAPPERS),
+                    f"{label}: the match finder issued {len(events)} launches a batch")
+    keys = pe.match_keys(data, lengths, tuple(f for f, _k, _w in families), hstart)
+    log(f"{label} match finder: its chain kernel on every family's keys {list(keys.shape)} alone, CUDA-event median "
+        f"{median_ms(lambda: pe.match_chain(keys), KERNEL_REPS):.4f} ms ({card})")
     del keys
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
@@ -1733,7 +1797,8 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
 
     b = encode_batch(corpus[: pe.ENC_LANE_BATCH * MEMBER], device)
     lengths = torch.from_numpy(b["lengths"]).to(device)
-    use, _dist, step, _valid = match_kernels(K, "encode batch", b["rows"], lengths, 0, True, main_path=True)
+    (use, _dist, step, _valid), _prev = match_kernels(K, "encode batch", b["rows"], lengths, 0, True,
+                                                      main_path=True)
     require(torch.equal(step, b["tiles"].transpose(1, 2).reshape(step.shape)), "the batch's steps differ from the "
             "match finder's")
     log(f"encode batch: {int((use > 0).sum())} match starts of {use.numel()} positions")
@@ -1857,13 +1922,13 @@ def member_routes(gz: bytes) -> tuple[int, dict]:
     return len(members), dict(routes)
 
 
-MATCH_WRAPPERS = ("match_keys", "match_bucket", "match_select")
+MATCH_WRAPPERS = ("match_keys", "match_chain", "match_bucket", "match_select")
 
 
-def match_launches(launches: dict, batches: int, families: int, label: str) -> None:
-    """Each batch launched the keys and the selection once and each hash
-    family's candidate compare once."""
-    want = {"match_keys": batches, "match_bucket": batches * families, "match_select": batches}
+def match_launches(launches: dict, batches: int, label: str) -> None:
+    """Each batch launched each of the match finder's kernels once (every
+    hash family in the same launch)."""
+    want = {k: batches for k in MATCH_WRAPPERS}
     got = {k: launches[k] for k in want}
     require(got == want, f"{label}: match finder launches {got}, expected {want}")
 
@@ -1896,7 +1961,7 @@ def phase_encode_main(corpus: bytes, first) -> tuple[dict, float]:
     bounds = launch_bounds(calls, shapes, order)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
-    match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), 2, "encode")
+    match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
     require(engine.decompress(gz, engine="cuda") == corpus, "the port's decode of the encoded corpus differs")
     n_members, routes = member_routes(gz)
@@ -1992,7 +2057,7 @@ def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
     for what, data in (("continuous batch", corpus), ("F1 head lane", F1_PREFIX + corpus)):
         b = continuous_batch(data, device)
         rows, lengths, hist, hstart = b["match"]
-        use, _dist, step, _valid = match_kernels(K, what, rows, lengths, 1, True, hist, hstart)
+        (use, _dist, step, _valid), _prev = match_kernels(K, what, rows, lengths, 1, True, hist, hstart)
         require(torch.equal(step, b["tiles"].transpose(1, 2).reshape(step.shape)),
                 f"{what}: the batch's steps differ from the match finder's")
         require(int(use[:, : pc.HALO_COLS].count_nonzero()) == 0, f"{what}: a match starts in the history")
@@ -2065,7 +2130,7 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     bounds = launch_bounds(calls, shapes, order)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the continuous encode")
-    match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), 3, "continuous encode")
+    match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "continuous encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the continuous encode differs")
     members = decode_np.split_members(np.frombuffer(gz, np.uint8))
     require(members is not None and len(members) == 1, "the continuous encode is not one member")

@@ -1,6 +1,6 @@
 """Rows, references, NumPy mirrors and the shared tests of the port's match
 finder (``tpu_deflate_torch.codec.encode._match_find``) on the CPU, where
-its three kernel wrappers (``match_keys``, ``match_bucket``,
+its four kernel wrappers (``match_keys``, ``match_chain``, ``match_bucket``,
 ``match_select``) run their plain versions. ``test_torch_match_find.py``
 runs the shared tests at quality 0 (with the tests of one quality only),
 ``test_torch_match_find_q1.py`` and ``_q2.py`` at qualities 1 and 2: one
@@ -14,10 +14,14 @@ The port's plain pieces, composed, are held against:
 - the JAX package's ``encode_jax._match_find`` under ``jax.jit`` on the
   CPU, lazy on and off (except on the head lane whose payload starts with
   zeros, where the reference's F1 fires: there the reference must differ);
-- NumPy mirrors of ``csrc/match.cu``: ``td_match_bucket``'s per-thread loop
-  (its early exits and its byte compare of the zero-extended row, four
-  bytes at a time) and ``td_match_select``'s blocks (equality bits, run
-  lengths read a word at a time, the lazy neighbour at each block seam).
+- NumPy mirrors of ``csrc/match.cu``: ``td_match_chain``'s walk (each
+  chunk split into a list a hash part, each list walked 32 entries a step
+  with the peers of each step, the 16-bit heads and the rewrite of the
+  stale ones every epoch), ``td_match_bucket``'s blocks (the tile's staged window of bytes
+  and links, each thread's hops, early exits and byte compare of the
+  zero-extended row, four bytes at a time) and ``td_match_select``'s
+  blocks (equality bits, run lengths read a word at a time, the lazy
+  neighbour at each block seam).
 
 Two batches: 11 member rows of 4096 columns (text, records and runs of
 ``bench.make_corpus``, random bytes, zeros, two hash collisions, matches
@@ -65,6 +69,12 @@ def _cu_const(name: str) -> int:
 
 SEL_B = _cu_const("SEL_B")
 MAX_WORDS = _cu_const("MAX_WORDS")
+MAX_DIST = _cu_const("MAX_DIST")
+CHAIN_PART_BITS = _cu_const("CHAIN_PART_BITS")
+CHAIN_CHUNK = _cu_const("CHAIN_CHUNK")
+CHAIN_EPOCH = _cu_const("CHAIN_EPOCH")
+CHAIN_SENTINEL_BACK = _cu_const("CHAIN_SENTINEL_BACK")
+BUCKET_TILE = _cu_const("BUCKET_TILE")
 
 
 # ---------------------------------------------------------------------------
@@ -285,23 +295,28 @@ class MatchFind:
         self.q = pe._QUALITY[quality]
 
     @functools.cache
-    def sorted_keys(self, name: str) -> dict:
-        """{family: (its hashes after a stable sort of each row, their
-        columns)} of the batch's hash families, sorted in one call as
-        ``_match_find`` sorts them."""
+    def families(self) -> tuple:
+        """(family, K, nwords) of each hash family at this quality."""
+        return tuple((fam, self.q[k], self.q[w]) for fam, k, w in pe._FAMILIES if k in self.q)
+
+    @functools.cache
+    def keys(self, name: str) -> torch.Tensor:
+        """The batch's hash keys (F, L, S), as ``_match_find`` takes them."""
         data, lengths, _hist, hstart = torch_args(name)
-        families = tuple(fam for fam, k, _w in pe._FAMILIES if k in self.q)
-        keys = pe.match_keys(data, lengths, families, hstart)
-        sorted_h, order = (t.view(keys.shape) for t in torch.sort(keys.view(-1, keys.shape[2]), dim=1, stable=True))
-        return {fam: (sorted_h[i], order[i]) for i, fam in enumerate(families)}
+        return pe.match_keys(data, lengths, tuple(f for f, _k, _w in self.families()), hstart)
+
+    @functools.cache
+    def links(self, name: str) -> torch.Tensor:
+        """``match_chain`` on the keys: (F, L, S) uint16."""
+        return pe.match_chain(self.keys(name))
 
     @functools.cache
     def packs(self, name: str) -> dict:
-        """{family: packed best matches} (``match_bucket`` on the sorted keys)."""
-        data = torch_args(name)[0]
-        keys = self.sorted_keys(name)
-        return {fam: pe.match_bucket(*keys[fam], data, self.q[k], self.q[w])
-                for fam, k, w in pe._FAMILIES if fam in keys}
+        """{family: packed best matches} (``match_bucket`` on the links)."""
+        fams = self.families()
+        out = pe.match_bucket(self.links(name), torch_args(name)[0], tuple(k for _f, k, _w in fams),
+                              tuple(w for _f, _k, w in fams))
+        return {fam: out[i] for i, (fam, _k, _w) in enumerate(fams)}
 
     @functools.cache
     def port(self, name: str, lazy: bool):
@@ -379,16 +394,6 @@ def assert_equal(got, want, lanes=None) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _row_words(data: np.ndarray) -> np.ndarray:
-    """Each lane's row as the bucket kernel stages it: S bytes and a zero
-    tail, read as little-endian words."""
-    L, S = data.shape
-    words = (S + 3) // 4 + MAX_WORDS + 1
-    row = np.zeros((L, 4 * words), np.uint8)
-    row[:, :S] = data
-    return row.view("<u4").astype(np.uint64)
-
-
 def _low_bit(x: np.ndarray) -> np.ndarray:
     """Index of the lowest set bit of each nonzero x (``__ffs(x) - 1``)."""
     return np.log2((x & (~x + np.uint64(1))).astype(np.float64)).astype(np.int64)
@@ -412,30 +417,92 @@ def _prefix_len(rw: np.ndarray, lane: np.ndarray, a: np.ndarray, b: np.ndarray, 
     return out
 
 
-def bucket_mirror(sorted_h: np.ndarray, order: np.ndarray, data: np.ndarray, K: int, nwords: int) -> np.ndarray:
-    """``match_bucket_kernel``, a thread per sorted index i: candidates
-    i - 1 .. i - K while the hash is the same and the distance at most
-    32768; a longer prefix replaces the best; stop once the cap matched."""
-    L, S = sorted_h.shape
-    cap = 4 * nwords
-    rw = _row_words(data)
-    lane, i = np.nonzero(sorted_h != -1)  # the threads whose loop runs
-    pos, h = order[lane, i], sorted_h[lane, i]
-    blen = np.zeros(lane.size, np.int64)
-    bcand = np.full(lane.size, -1, np.int64)
-    live = np.arange(lane.size)
-    for k in range(1, K + 1):
-        live = live[i[live] >= k]
-        ch, cc = sorted_h[lane[live], i[live] - k], order[lane[live], i[live] - k]
-        keep = (ch == h[live]) & (pos[live] - cc <= 32768)
-        live, cand = live[keep], cc[keep]
-        lc = _prefix_len(rw, lane[live], pos[live], cand, nwords)
-        better = lc > blen[live]
-        blen[live[better]] = lc[better]
-        bcand[live[better]] = cand[better]
-        live = live[blen[live] < cap]
-    out = np.zeros((L, S), np.int64)
-    out[lane, pos] = np.where(blen > 0, (bcand + 1) | (blen << 32), 0)
+def chain_mirror(keys: np.ndarray, rewrite: bool = True) -> np.ndarray:
+    """``match_chain_kernel``: keys (F, L, S) -> links (F, L, S) uint16, a
+    row at a time, a chunk of CHAIN_CHUNK positions at a time. At each
+    epoch's start the heads more than MAX_DIST behind it (all of them at 0)
+    become the sentinel; the chunk's valid positions are split by hash part
+    (the hash's top bits) into lists in position order, and each part's
+    list is walked 32 entries a step: an entry's predecessor is its highest
+    peer lane below it, else its 16-bit head, decoded as 1..65536 back; the
+    group's last lane writes its position into the head. The links go to
+    the chunk's stage, which must be written once at every position
+    (0xFFFFF marks a position not written), then to the row.
+    ``rewrite=False`` skips the rewrite of stale heads after the first
+    epoch (to show what it prevents)."""
+    F, L, S = keys.shape
+    rows = keys.reshape(F * L, S).astype(np.int64)
+    out = np.zeros((F * L, S), np.int64)
+    lane = np.arange(32)
+    below_mask = lane[None, :] < lane[:, None]  # [i, j]: j is below i
+    above_mask = lane[None, :] > lane[:, None]
+    shift = 16 - CHAIN_PART_BITS
+    for r, row in enumerate(rows):
+        head = np.zeros(65536, np.int64)
+        for c0 in range(0, S, CHAIN_CHUNK):
+            if c0 % CHAIN_EPOCH == 0:
+                back = ((c0 - head - 1) & 0xFFFF) + 1
+                stale = (c0 == 0) | (rewrite & (back > MAX_DIST))
+                head = np.where(stale, (c0 - CHAIN_SENTINEL_BACK) & 0xFFFF, head)
+            chunk = row[c0 : c0 + CHAIN_CHUNK]
+            stage = np.full(chunk.size, 0xFFFFF, np.int64)
+            stage[chunk < 0] = 0
+            for part in range(1 << CHAIN_PART_BITS):
+                offs = np.nonzero((chunk >= 0) & (chunk >> shift == part))[0]
+                for s0 in range(0, offs.size, 32):
+                    q = c0 + offs[s0 : s0 + 32]
+                    h = row[q]
+                    peers = h[:, None] == h[None, :]
+                    below = peers & below_mask[: q.size, : q.size]
+                    has_below = below.any(axis=1)
+                    pred = q.size - 1 - np.argmax(below[:, ::-1], axis=1)
+                    back = ((q - head[h] - 1) & 0xFFFF) + 1
+                    d = np.where(has_below, q - q[pred], np.where(back <= MAX_DIST, back, 0))
+                    last = ~(peers & above_mask[: q.size, : q.size]).any(axis=1)
+                    head[h[last]] = q[last]
+                    assert (stage[q - c0] == 0xFFFFF).all(), "a position written twice"
+                    stage[q - c0] = d
+            assert (stage <= 0xFFFF).all(), "a position not written"
+            out[r, c0 : c0 + chunk.size] = stage
+    return out.astype(np.uint16).reshape(F, L, S)
+
+
+def bucket_mirror(prev: np.ndarray, data: np.ndarray, ks: tuple, ws: tuple) -> np.ndarray:
+    """``match_bucket_kernel``, block by block of BUCKET_TILE positions: the
+    block's window w0 = max(0, t0 - MAX_DIST) staged (the bytes to 68 past
+    the tile, rounded to 16, zeros past S; the links up to the tile's end),
+    then each position's hops along the staged links: stop at a link of 0
+    or a candidate more than MAX_DIST back; a longer prefix replaces the
+    best; stop once the cap matched."""
+    F, L, S = prev.shape
+    out = np.zeros((F, L, S), np.int64)
+    for t0 in range(0, S, BUCKET_TILE):
+        t1 = min(S, t0 + BUCKET_TILE)
+        w0 = max(0, t0 - MAX_DIST)
+        nb = (t1 - w0 + 4 * MAX_WORDS + 4 + 15) & ~15
+        win = np.zeros((L, nb), np.uint8)
+        win[:, : min(S, w0 + nb) - w0] = data[:, w0 : w0 + nb]
+        rw = win.view("<u4").astype(np.uint64)
+        for f in range(F):
+            links = prev[f, :, w0:t1].astype(np.int64)
+            cap = 4 * ws[f]
+            lane, p = np.nonzero(np.ones((L, t1 - t0), bool))
+            p = p + t0
+            c = p.copy()
+            blen = np.zeros(lane.size, np.int64)
+            bcand = np.full(lane.size, -1, np.int64)
+            live = np.arange(lane.size)
+            for _k in range(ks[f]):
+                d = links[lane[live], c[live] - w0]
+                live = live[d > 0]
+                c[live] -= links[lane[live], c[live] - w0]
+                live = live[p[live] - c[live] <= MAX_DIST]
+                lc = _prefix_len(rw, lane[live], p[live] - w0, c[live] - w0, ws[f])
+                better = lc > blen[live]
+                blen[live[better]] = lc[better]
+                bcand[live[better]] = c[live[better]]
+                live = live[blen[live] < cap]
+            out[f, lane, p] = np.where(blen > 0, (bcand + 1) | (blen << 32), 0)
     return out
 
 
@@ -571,13 +638,12 @@ def test_match_find_composes_the_pieces(mf):
 
 @pytest.mark.parametrize("name", BATCHES)
 def test_bucket_mirror(mf, name):
-    """The bucket kernel's loop equals the plain version for every family."""
-    data = batch(name)[0]
-    keys, got = mf.sorted_keys(name), mf.packs(name)
-    for fam, k, w in pe._FAMILIES:
-        if fam in keys:
-            mirror = bucket_mirror(*(t.numpy() for t in keys[fam]), data, mf.q[k], mf.q[w])
-            assert np.array_equal(mirror, got[fam].numpy()), f"family {fam}"
+    """The bucket kernel's blocks equal the plain version for every family."""
+    fams = mf.families()
+    mirror = bucket_mirror(mf.links(name).numpy(), batch(name)[0], tuple(k for _f, k, _w in fams),
+                           tuple(w for _f, _k, w in fams))
+    for i, (fam, _k, _w) in enumerate(fams):
+        assert np.array_equal(mirror[i], mf.packs(name)[fam].numpy()), f"family {fam}"
 
 
 @pytest.mark.parametrize("name,lazy", LAZY_CASES)

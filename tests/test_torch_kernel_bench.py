@@ -131,7 +131,23 @@ def test_kernel_only_bench_counts(kob, mixed):
     assert kob["waves"] == _ref_waves(payloads) == 2
     assert kob["runner"] == "plain"
     assert kob["lanes"] == v2.V2_LANE_BATCH
-    assert kob["decode_gbps"] > 0 and kob["decode_gbps_single_pass"] > 0
+    # Rates rounded to 4 places: at 72 KiB a pass slower than 1.47 s reads 0.0.
+    assert all(isinstance(kob[k], float) and kob[k] >= 0
+               for k in ("decode_gbps", "decode_gbps_single_pass", "payload_gbps"))
+
+
+def test_kernel_only_bench_rates_from_fixed_times(mixed, monkeypatch):
+    """The rates are the Huffman members' bytes over the marginal (0.5 s)
+    and single-pass (0.7 s) times, rounded as the reference rounds them."""
+    monkeypatch.setattr(kb, "_marginal_time", lambda run_n, reps: (0.5, 0.7, "ok"))
+    got = kb.kernel_only_bench(mixed, device=CPU, reps=1)
+    buf, huff, _stored = _members(mixed)
+    isize = sum(m.isize for m in huff)
+    payload = sum(m.end - 8 - m.payload_start for m in huff)
+    assert got["decode_gbps"] == round(isize / 0.5 / 1e9, 4)
+    assert got["decode_gbps_single_pass"] == round(isize / 0.7 / 1e9, 4)
+    assert got["payload_gbps"] == round(payload / 0.5 / 1e9, 4)
+    assert got["marginal_guard"] == "ok"
 
 
 def test_full_counts_and_verification(full, mixed):
@@ -185,9 +201,30 @@ def test_stage_waves_match_the_reference_planning(corpus):
 def test_encode_kernel_bench(corpus):
     got = kb.encode_kernel_bench(corpus[: 72 * K], device=CPU, reps=1)
     assert set(got) == _ref_keys("tpu_deflate/codec/encode_jax.py", "encode_kernel_bench")
-    assert got["batch_mb"] == round(72 * K / 2**20, 2) and got["encode_kernel_mbps"] > 0
+    # Rounded to 2 places: a pass slower than 14.7 s would read 0.0.
+    assert got["batch_mb"] == round(72 * K / 2**20, 2)
+    assert isinstance(got["encode_kernel_mbps"], float) and got["encode_kernel_mbps"] >= 0
     times = kb.LAST_PASS_TIMES["encode_kernel_bench"]
     assert times["enqueue_ms"] > 0 and times["event_ms"] is times["device_ms"] is times["queued"] is None
+
+
+def test_encode_kernel_bench_rate_from_fixed_times(corpus, monkeypatch):
+    """The encode row's rate is the batch's bytes over its best pass (each
+    timed pass runs, its time fixed at 0.25 s here)."""
+    timer = kb._timer
+
+    def fixed(run_pass, device):
+        run_n = timer(run_pass, device)
+
+        def run_fixed(n: int) -> float:
+            run_n(n)
+            return 0.25
+
+        return run_fixed
+
+    monkeypatch.setattr(kb, "_timer", fixed)
+    got = kb.encode_kernel_bench(corpus[: 72 * K], device=CPU, reps=1)
+    assert got["encode_kernel_mbps"] == round(72 * K / 0.25 / 1e6, 2)
 
 
 def test_link_probe_keys():

@@ -52,15 +52,20 @@ def test_keys_are_the_family_hashes():
 def test_wrappers_check_their_inputs():
     data, lengths, hist, hstart = torch_args("halo")
     q = torch.zeros(data.shape, dtype=torch.int64)
-    h = torch.zeros(data.shape, dtype=torch.int32)
+    keys = torch.zeros((2, *data.shape), dtype=torch.int32)
+    links = torch.zeros((2, *data.shape), dtype=torch.uint16)
     for call in (
         lambda: pe.match_keys(data.to(torch.int32), lengths, (pe.FAMILY_4,)),
         lambda: pe.match_keys(data, lengths, (7,)),
         lambda: pe.match_keys(data, lengths, ()),
         lambda: pe.match_keys(data, lengths, (pe.FAMILY_4,), hstart[:2]),
-        lambda: pe.match_bucket(h[:, :8].contiguous(), q[:, :8].contiguous(), data, 4, 2),
-        lambda: pe.match_bucket(h, q, data, 4, MAX_WORDS + 1),
-        lambda: pe.match_bucket(q, q, data, 4, 2),
+        lambda: pe.match_chain(keys.to(torch.int64)),
+        lambda: pe.match_chain(keys[0]),
+        lambda: pe.match_bucket(links[:, :, :8].contiguous(), data, (4, 2), (2, 2)),
+        lambda: pe.match_bucket(links, data, (4, 2), (2, MAX_WORDS + 1)),
+        lambda: pe.match_bucket(links, data, (4,), (2,)),
+        lambda: pe.match_bucket(links.to(torch.int32), data, (4, 2), (2, 2)),
+        lambda: pe.match_bucket(torch.zeros((4, *data.shape), dtype=torch.uint16), data, (4,) * 4, (2,) * 4),
         lambda: pe.match_select(data, lengths[:2], True, q, q, None, hist, hstart),
         lambda: pe.match_select(data, lengths, True, q, q.to(torch.int32)),
         lambda: pe.match_select(data, lengths, True, q, q[:, :8]),

@@ -60,7 +60,9 @@ SIGNATURES = {
     "td_parse_replay": [_P, _P, _P, _I, _I, _P],
     "td_emit_body": [_P] * 13 + [_I, _I, _P],
     "td_match_keys": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "td_match_bucket": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "td_match_chain": [_P, _P, _I, _I, _I, _P],
+    "td_match_bucket": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "td_match_occupancy": [_P],
     "td_match_select": [_P] * 11 + [_I, _I, _I, _P],
 }
 
@@ -74,8 +76,8 @@ LAUNCHES = {
     "stage_a_tables": 0, "stage_a": 0, "stage_b": 0, "stage_dc": 0, "compact_flat": 0,
     "compact_any": 0, "expand": 0, "sweep": 0, "crc32_lanes": 0,
 }
-ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0, "match_keys": 0, "match_bucket": 0,
-                   "match_select": 0}
+ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0, "match_keys": 0, "match_chain": 0,
+                   "match_bucket": 0, "match_select": 0}
 
 _lib = None
 _lock = threading.Lock()

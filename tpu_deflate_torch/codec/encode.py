@@ -7,15 +7,16 @@ All of it is PyTorch on the given device, apart from the kernels:
 - **analyze, phase 1** (``analyze_phase1``): the match finder
   (``_match_find``), then the parse's tile transfer maps (K8). The hash
   families (4- and 3-byte, and at quality >= 1 6-byte multiplicative
-  hashes) are sorted stably along each row in one call, which groups
-  equal hashes, so the K nearest previous occurrences of a position's
-  hash are the K sorted entries before it, and their exact match lengths
-  are compared; then arithmetic
+  hashes) link each position to the nearest earlier position of the same
+  hash (zlib's head/prev chains), so the K nearest previous occurrences of
+  a position's hash are its first K hops along the links, and their exact
+  match lengths are compared; then arithmetic
   RLE lanes give exact runs at distances 1..4, and a filter, a lazy
   deferral and the history masks choose each position's run. On CUDA
-  tensors the keys, the compare and the selection are the kernels of
-  ``csrc/match.cu`` (``match_keys``, ``match_bucket``, ``match_select``)
-  and the sort is ``torch.sort``; on CPU tensors their plain versions;
+  tensors the keys, the links, the compare and the selection are the
+  kernels of ``csrc/match.cu`` (``match_keys``, ``match_chain``,
+  ``match_bucket``, ``match_select``); on CPU tensors their plain
+  versions;
 - **host entries** (``parse.host_entries``) between the phases;
 - **analyze, phase 2** (``analyze_phase2``): the parse replay (K9), the
   symbols and extra bits of each token, and per-lane histograms;
@@ -39,7 +40,7 @@ each lane's bfinal from ``_plan_codes``.
 Every value is integer, and the output is byte-identical to
 ``encode_jax.compress_members_tpu`` at the same effort. In the plain
 versions uint32 arithmetic (window words, hashes) runs in int64 masked to
-32 bits, and the window words gathered into sorted order are int32 bit
+32 bits, and the window words gathered at the candidates are int32 bit
 patterns.
 """
 
@@ -148,6 +149,7 @@ FAMILY_4, FAMILY_3, FAMILY_6 = 0, 1, 2  # the hash families, as td_match_keys ta
 # Each family's (candidate count, compare words) keys in _QUALITY.
 _FAMILIES = ((FAMILY_4, "K4", "W4"), (FAMILY_3, "K3", "W3"), (FAMILY_6, "K6", "W6"))
 _MAX_WORDS = 16  # the widest compare the bucket kernel stages a zero tail for
+MAX_DIST = 32768  # the farthest candidate
 
 
 def _positions(data: torch.Tensor, lengths: torch.Tensor, hstart: torch.Tensor | None):
@@ -182,55 +184,68 @@ def _match_keys_plain(data: torch.Tensor, lengths: torch.Tensor, families: tuple
     return torch.stack(out)
 
 
-def _bucket_best_plain(sorted_h: torch.Tensor, order: torch.Tensor, data: torch.Tensor, K: int,
-                       nwords: int) -> torch.Tensor:
-    """Plain ``td_match_bucket``: one family's hashes after a stable sort
-    along each row (L, S) int32, the columns they came from (L, S) int64,
-    and the rows -> the best (match length, candidate position) per
-    position among the K nearest earlier positions of the same hash,
-    packed as ``cand + 1 | min(len, 4 nwords) << 32`` (int64, position
-    order; :func:`_unpack_best` unpacks it). The reference packs an int32
-    with the length at bit 18, which a candidate past column 2**18 - 2 runs
-    into (F11).
+def _match_chain_plain(keys: torch.Tensor) -> torch.Tensor:
+    """Plain ``td_match_chain``: the hashes (F, L, S) int32 of
+    :func:`_match_keys_plain` -> (F, L, S) uint16, at each position the
+    distance back to the nearest earlier position of the same hash, or 0
+    where there is none within ``MAX_DIST`` (and where the key is -1).
 
-    The stable sort groups equal hashes with positions ascending, so the
-    k-th previous occurrence is a shift by k of the sorted arrays; the
-    exact prefix compare, up to 4 nwords bytes, runs on the window words
-    gathered into sorted order. Ties keep the nearer candidate."""
-    L, S = sorted_h.shape
-    cap = 4 * nwords
-    w32i = wrap_int32(_u32_windows(data)).to(_I32)
-    sw = []
-    for j in range(nwords):
-        src = order + 4 * j
-        sw.append(torch.where(src < S, w32i.gather(1, src.clamp(max=S - 1)), 0))
-    si = torch.arange(S, device=order.device).expand(L, S)
-    changed = torch.ones_like(sorted_h, dtype=torch.bool)
-    changed[:, 1:] = sorted_h[:, 1:] != sorted_h[:, :-1]
-    rank = si - torch.cummax(torch.where(changed, si, -1), dim=1).values
-    live = sorted_h != -1
+    A stable sort along each row groups each hash with its positions
+    ascending, so a position's link is the distance to the entry before it
+    in its group."""
+    F, L, S = keys.shape
+    sorted_h, order = torch.sort(keys.reshape(F * L, S), dim=1, stable=True)
+    same = (sorted_h[:, 1:] == sorted_h[:, :-1]) & (sorted_h[:, 1:] != -1)
+    d = order[:, 1:] - order[:, :-1]
+    link = torch.where(same & (d <= MAX_DIST), d, 0)
+    prev = torch.zeros((F * L, S), dtype=torch.int64, device=keys.device)
+    prev.scatter_(1, order[:, 1:], link)
+    return prev.to(torch.uint16).view(F, L, S)
 
-    def lcpv(k: int) -> torch.Tensor:
-        total = _word_eqlen(sw[0] ^ _shr(sw[0], k))
-        full = total == 4
-        for j in range(1, nwords):
-            lj = _word_eqlen(sw[j] ^ _shr(sw[j], k))
-            total = total + torch.where(full, lj, 0)
-            full = full & (lj == 4)
-        return total
 
-    blen = torch.zeros((L, S), dtype=_I32, device=order.device)
-    bcand = torch.full((L, S), -1, dtype=torch.int64, device=order.device)
-    for k in range(1, K + 1):
-        cand = _shr(order, k, -1)
-        dist = order - cand
-        ok = live & (rank >= k) & (dist >= 1) & (dist <= 32 * 1024)
-        lc = torch.where(ok, lcpv(k), 0)
-        better = lc > blen
-        blen = torch.where(better, lc, blen)
-        bcand = torch.where(better, cand, bcand)
-    p1 = (bcand + 1) | (blen.clamp(max=cap).to(torch.int64) << 32)
-    return torch.empty_like(p1).scatter_(1, order, p1)
+def _bucket_best_plain(prev: torch.Tensor, data: torch.Tensor, ks: tuple, nwords: tuple) -> torch.Tensor:
+    """Plain ``td_match_bucket``: each family's links (F, L, S) uint16 (of
+    :func:`_match_chain_plain`), the rows (L, S) uint8 and each family's
+    candidate count and compare words -> (F, L, S) int64, for each family
+    and position the best (match length, candidate position) among its
+    first K hops along the links that lie 1..``MAX_DIST`` back, packed as
+    ``cand + 1 | min(len, 4 nwords) << 32`` (:func:`_unpack_best` unpacks
+    it). The reference packs an int32 with the length at bit 18, which a
+    candidate past column 2**18 - 2 runs into (F11).
+
+    Hop k gathers the k-th candidate of every position; the exact prefix
+    compare, up to 4 nwords bytes, runs on the window words of both
+    positions (zeros past the row). Ties keep the nearer candidate."""
+    F, L, S = prev.shape
+    dev = data.device
+    idx = torch.arange(S, device=dev).expand(L, S)
+    width = 4 * max(nwords)
+    w32i = torch.cat([wrap_int32(_u32_windows(data)).to(_I32), torch.zeros((L, width), dtype=_I32, device=dev)],
+                     dim=1)
+    own = [w32i[:, 4 * j : 4 * j + S] for j in range(max(nwords))]
+    out = []
+    for f in range(F):
+        link = prev[f].to(torch.int64)
+        cand = idx.clone()
+        alive = torch.ones((L, S), dtype=torch.bool, device=dev)
+        blen = torch.zeros((L, S), dtype=_I32, device=dev)
+        bcand = torch.full((L, S), -1, dtype=torch.int64, device=dev)
+        for _k in range(ks[f]):
+            d = link.gather(1, cand)
+            alive = alive & (d > 0)
+            cand = torch.where(alive, cand - d, cand)
+            alive = alive & (idx - cand <= MAX_DIST)
+            total = _word_eqlen(own[0] ^ w32i.gather(1, cand))
+            full = total == 4
+            for j in range(1, nwords[f]):
+                lj = _word_eqlen(own[j] ^ w32i.gather(1, cand + 4 * j))
+                total = total + torch.where(full, lj, 0)
+                full = full & (lj == 4)
+            better = alive & (total > blen)
+            blen = torch.where(better, total, blen)
+            bcand = torch.where(better, cand, bcand)
+        out.append((bcand + 1) | (blen.clamp(max=4 * nwords[f]).to(torch.int64) << 32))
+    return torch.stack(out)
 
 
 def _unpack_best(q: torch.Tensor, idx: torch.Tensor):
@@ -352,29 +367,51 @@ def match_keys(data: torch.Tensor, lengths: torch.Tensor, families: tuple,
     return keys
 
 
-def match_bucket(sorted_h: torch.Tensor, order: torch.Tensor, data: torch.Tensor, K: int,
-                 nwords: int) -> torch.Tensor:
-    """``td_match_bucket``: one family's stably sorted hashes (L, S) int32,
-    their columns (L, S) int64, data (L, S) uint8 -> (L, S) int64 packed
-    best matches in position order."""
-    _build.check_tensor("sorted_h", sorted_h, _I32, 2)
-    _build.check_tensor("order", order, torch.int64, 2)
-    _build.check_tensor("data", data, torch.uint8, 2)
-    _build.require(sorted_h.shape == order.shape == data.shape,
-                   f"sorted_h {tuple(sorted_h.shape)}, order {tuple(order.shape)}, data {tuple(data.shape)}")
-    _build.require(K >= 1 and 1 <= nwords <= _MAX_WORDS, f"K {K}, nwords {nwords}")
-    if not _build.on_card(sorted_h, order, data):
-        return _bucket_best_plain(sorted_h, order, data, K, nwords)
-    L, S = data.shape
-    dev = data.device
-    out = torch.empty((L, S), dtype=torch.int64, device=dev)
+def match_chain(keys: torch.Tensor) -> torch.Tensor:
+    """``td_match_chain``: the hash families' keys (F, L, S) int32 ->
+    (F, L, S) uint16 links, the distance back to the nearest earlier
+    position of the same hash (0: none within ``MAX_DIST``)."""
+    _build.check_tensor("keys", keys, _I32, 3)
+    if not _build.on_card(keys):
+        return _match_chain_plain(keys)
+    F, L, S = keys.shape
+    dev = keys.device
+    prev = torch.empty((F, L, S), dtype=torch.uint16, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
-        err = lib.td_match_bucket(sorted_h.data_ptr(), order.data_ptr(), data.data_ptr(), out.data_ptr(), L, S, K,
-                                  nwords, _build.stream(dev))
+        err = lib.td_match_chain(keys.data_ptr(), prev.data_ptr(), L, S, F, _build.stream(dev))
+    _build.check(err, "td_match_chain")
+    ENCODE_LAUNCHES["match_chain"] += 1
+    return prev
+
+
+def match_bucket(prev: torch.Tensor, data: torch.Tensor, ks: tuple, nwords: tuple) -> torch.Tensor:
+    """``td_match_bucket``: every family's links (F, L, S) uint16, data
+    (L, S) uint8, each family's candidate count K and compare words ->
+    (F, L, S) int64 packed best matches in position order."""
+    _build.check_tensor("prev", prev, torch.uint16, 3)
+    _build.check_tensor("data", data, torch.uint8, 2)
+    F = prev.shape[0]
+    _build.require(prev.shape[1:] == data.shape, f"prev {tuple(prev.shape)}, data {tuple(data.shape)}")
+    _build.require(len(ks) == len(nwords) == F <= 3 and all(1 <= k <= 255 for k in ks)
+                   and all(1 <= w <= _MAX_WORDS for w in nwords), f"K {ks}, nwords {nwords}")
+    if not _build.on_card(prev, data):
+        return _bucket_best_plain(prev, data, ks, nwords)
+    L, S = data.shape
+    dev = data.device
+    out = torch.empty((F, L, S), dtype=torch.int64, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_match_bucket(prev.data_ptr(), data.data_ptr(), out.data_ptr(), L, S, F, _pack_bytes(ks),
+                                  _pack_bytes(nwords), _build.stream(dev))
     _build.check(err, "td_match_bucket")
     ENCODE_LAUNCHES["match_bucket"] += 1
     return out
+
+
+def _pack_bytes(values: tuple) -> int:
+    """Family f's value in bits 8f..8f+7, as td_match_bucket takes K and nwords."""
+    return sum(v << (8 * f) for f, v in enumerate(values))
 
 
 def match_select(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, q4: torch.Tensor, q3: torch.Tensor,
@@ -409,9 +446,9 @@ def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: 
     """Match find: data (L, S) uint8, lengths (L,) int32 -> (use, dist,
     step, valid), the chosen run per position (0 = literal or deferred),
     its distance, the parse step and the mask of the positions that may be
-    tokens. The hash families' keys, one stable sort of all of them along
-    the rows, each family's candidate compare, then the selection; on CUDA
-    tensors each step but the sort is a kernel of ``csrc/match.cu``.
+    tokens. The hash families' keys, their same-hash links, every family's
+    candidate compare, then the selection; on CUDA tensors each step is a
+    kernel of ``csrc/match.cu``.
 
     ``hist`` and ``hstart`` (L,) int32 are the continuous-history rows'
     (``continuous.py``): columns before ``hist`` are the 32 KiB history,
@@ -420,11 +457,10 @@ def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: 
     are row padding, neither. None: the whole row is the member."""
     q = _QUALITY[quality]
     families = [(family, q[k], q[w]) for family, k, w in _FAMILIES if k in q]
-    keys = match_keys(data, lengths, tuple(f for f, _k, _w in families), hstart)
-    # One sort for every family: a batch's F * L rows at once.
-    sorted_h, order = (t.view(keys.shape) for t in torch.sort(keys.view(-1, keys.shape[2]), dim=1, stable=True))
-    packs = [match_bucket(sorted_h[i], order[i], data, K, nwords) for i, (_f, K, nwords) in enumerate(families)]
-    q6 = packs[2] if len(packs) == 3 else None
+    prev = match_chain(match_keys(data, lengths, tuple(f for f, _k, _w in families), hstart))
+    packs = match_bucket(prev, data, tuple(k for _f, k, _w in families), tuple(w for _f, _k, w in families))
+    del prev
+    q6 = packs[2] if len(families) == 3 else None
     return match_select(data, lengths, lazy, packs[0], packs[1], q6, hist, hstart)
 
 
