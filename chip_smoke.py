@@ -10,7 +10,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    nvcc per source, in parallel);
 3. kernels: every kernel against its plain PyTorch version on the card,
    at the main path's shapes: the wave kernels (K1 with its table kernel,
-   K2-K4, K7) on one real wave (64 members of the synthetic corpus at
+   K2, stage C, K3, K4, K7) on one real wave (64 members of the synthetic corpus at
    their payload bucket; the share of its positions that K1 decodes
    through the ladders is printed), K1 and its tables again on waves with
    11-15-bit codes, fixed Huffman codes, a single distance code, an empty
@@ -18,7 +18,12 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    K2 again on edge deltas (one lane, one tile, a tile count that is not a
    multiple of its 32-tile strip, all 1, all 48, dense EOB / error
    sentinels, deltas of 0 and 60, hops of 64 and 200, the int32 limits),
-   K3 again at every k1 on the main path's own 4-lane waves, on edge
+   stage C again on edge maps (NT of 1, 3, 128, 384 and 4224, entry0 over
+   every byte value and -1 and 1000, maps mixing [0, 48), 48..126, 127,
+   128..254 and 255, maps mostly outside the domain, maps not 16-byte
+   aligned) and with one call's launches counted (one launch, no other
+   device work), K3
+   again at every k1 on the main path's own 4-lane waves, on edge
    deltas (0, -5, 60, the int32 limits, dense sentinels; entries 0, 47, 48
    and 255) and on tiles of 512 one-bit deltas, K4 and K7 again on the
    main path's own 4-lane waves (K3's tokens at k1 104 and 512) and on
@@ -42,7 +47,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    kernel's bound;
 4. the main path: ``engine.decompress`` of the 48 MiB corpus with the
    defaults (device resolve), byte-exact, every Huffman member resolved on
-   the device and every main-path kernel launched, with each kernel's
+   the device and every main-path kernel launched, stage C held against
+   its plain version on every wave of the run, with each kernel's
    bound per launch and summed over the run (with --profile, each K3, K4,
    K6 and lane CRC launch's device time beside its bound); 5 timed runs;
 5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
@@ -75,9 +81,16 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    ``match_chain``, the same-hash links, ``match_bucket``, the compare
    along them, ``match_select``; every hash family in one launch of each),
    K8 parse transfers, K9 parse
-   replay and K10 emit body against their plain versions (exact equality)
-   on the first batch of the encode's main path (64 members x 64 KiB of
-   the corpus); the match finder's kernels also on edge rows (zeros,
+   replay, the symbols and histograms (``_finish_analysis``) and K10 emit
+   body against their plain versions (exact equality) on the first batch
+   of the encode's main path (64 members x 64 KiB of the corpus; there
+   ``_finish_analysis`` also with one call's launches counted, one launch
+   and the histograms' zero fill, and ``torch.bincount``'s time on the
+   plain version's keys);
+   ``_finish_analysis`` also on edge batches (4 and 16 lanes: every run of
+   3..258 against every distance-symbol boundary, clamped runs and
+   distances, a lane with no token, a lane of one literal; rows of 4099
+   columns; inputs off their alignment); the match finder's kernels also on edge rows (zeros,
    random bytes, a lone repeat at distance 32768 that must be found and
    one at 32769 that must not, lengths of 1000, 0, 1 and 40000 with the
    row's own bytes past them, runs, records) at qualities 0, 1 and 2,
@@ -109,7 +122,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    short tail) encoded on the card and with the plain versions on the CPU
    at efforts 1, 2, 3 and 5 must be byte-identical;
 11. continuous-encode kernels: the match finder's kernels (quality 1, with
-   the history masks), K8, K9 and K10 against their plain versions on the
+   the history masks), K8, K9, ``_finish_analysis`` and K10 against their
+   plain versions on the
    first batch of the continuous encode (64 lanes x 98304 columns: a 32 KiB
    halo before each 64 KiB block) and on a batch whose head lane starts
    with 50 zero bytes (the reference's F1);
@@ -218,6 +232,7 @@ KERNELS = {
     "stage_a_tables": ("stage_a.cu", "tpu_deflate/codec/decode_pallas.py:110", "main"),
     "stage_a": ("stage_a.cu", "tpu_deflate/codec/decode_pallas.py:110", "main"),
     "stage_b": ("stage_b.cu", "tpu_deflate/codec/decode_pallas.py:363", "main"),
+    "stage_c": ("stage_c.cu", "tpu_deflate/codec/decode_jax_v2.py:654", "main"),
     "stage_dc": ("stage_dc.cu", "tpu_deflate/codec/decode_pallas.py:413", "main"),
     "compact_flat": ("compact.cu", "tpu_deflate/codec/decode_pallas.py:495", "main"),
     "compact_any": ("compact.cu", "tpu_deflate/codec/decode_pallas.py:605", "off"),
@@ -231,14 +246,15 @@ KERNELS = {
     "match_chain": ("match.cu", "tpu_deflate/codec/encode_jax.py:214", "encode"),
     "match_bucket": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
     "match_select": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
+    "finish_analysis": ("finish.cu", "tpu_deflate/codec/encode_jax.py:372", "encode"),
 }
 PROFILE_KERNELS = (
-    "stage_a_tables_kernel", "stage_a_kernel", "stage_b_kernel", "stage_dc_kernel", "compact_kernel", "expand_kernel",
-    "sweep_kernel", "crc32_lanes_kernel",
+    "stage_a_tables_kernel", "stage_a_kernel", "stage_b_kernel", "stage_c_kernel", "stage_dc_kernel",
+    "compact_kernel", "expand_kernel", "sweep_kernel", "crc32_lanes_kernel",
 )
 ENCODE_PROFILE_KERNELS = (
     "match_keys_kernel", "match_chain_kernel", "match_bucket_kernel", "match_select_kernel",
-    "parse_transfers_kernel", "parse_replay_kernel", "emit_kernel", "crc32_lanes_kernel",
+    "parse_transfers_kernel", "parse_replay_kernel", "finish_analysis_kernel", "emit_kernel", "crc32_lanes_kernel",
 )
 ENCODE_REPS = 3
 ENCODE_EFFORTS = (1, 2, 3, 5)
@@ -302,13 +318,20 @@ def bound(inputs, outputs) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def tensor_bytes(x) -> int:
-    """Bytes of the tensors in x (a tensor, or a tuple or list of them)."""
+def tensors_of(x) -> list:
+    """The tensors in x: a tensor, or a tuple, list or dict of them (nested)."""
     if hasattr(x, "element_size"):
-        return x.numel() * x.element_size()
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
     if isinstance(x, (tuple, list)):
-        return sum(tensor_bytes(t) for t in x)
-    return 0
+        return [t for item in x for t in tensors_of(item)]
+    return []
+
+
+def tensor_bytes(x) -> int:
+    """Bytes of the tensors in x (a tensor, or a tuple, list or dict of them)."""
+    return sum(t.numel() * t.element_size() for t in tensors_of(x))
 
 
 @contextlib.contextmanager
@@ -371,8 +394,9 @@ def captured(*names, per_key: int = 2):
 
 # wrapper -> its kernel's name in a profile, for the per-launch bounds
 PROFILE_NAMES = {
-    "stage_dc": "stage_dc_kernel", "compact_flat": "compact_kernel", "compact_any": "compact_kernel",
-    "sweep": "sweep_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel",
+    "stage_c": "stage_c_kernel", "stage_dc": "stage_dc_kernel", "compact_flat": "compact_kernel",
+    "compact_any": "compact_kernel", "sweep": "sweep_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel",
+    "_finish_analysis": "finish_analysis_kernel",
 }
 
 
@@ -425,7 +449,7 @@ class Kernels:
         r = self.rec.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         outs = got_full if isinstance(got_full, tuple) else (got_full,)
-        bms, by = bound(inputs, outs)
+        bms, by = bound(inputs, tensors_of(outs))
         if main_path:
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, shapes=shapes)
         log(f"{name} {shapes}: equal={equal} max_abs_err={err} kernel {ms:.4f} ms plain "
@@ -489,6 +513,97 @@ def huffman_members(gz: bytes):
     ]
 
 
+def stage_c_plain3(transfers, entry0):
+    """``decode_kernels.stage_c``'s three results from its plain version."""
+    import torch
+
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    entries, final = dk.stage_c_plain(transfers, entry0)
+    return entries, final, entries.to(torch.int32)
+
+
+FINISH_KEYS = ("is_token", "is_match", "litlen_sym", "len_eb", "len_ev", "dist_sym", "dist_eb", "dist_ev",
+               "litlen_hist", "dist_hist")
+
+
+def finish_plain(data, use, dist, replay, valid):
+    """``encode._finish_analysis``'s (analysis, flags) from its plain version."""
+    from tpu_deflate_torch.codec import encode as pe
+
+    a = pe._finish_analysis_plain(data, use, dist, replay & valid)
+    return a, pe._flags_plain(a)
+
+
+def finish_parts(out: tuple) -> tuple:
+    """``_finish_analysis``'s (analysis dict, flags) as a flat tuple, for the
+    comparisons; the dict must hold exactly the reference's keys."""
+    a, flags = out
+    require(tuple(a) == FINISH_KEYS, f"analysis keys {tuple(a)}")
+    return (*(a[k] for k in FINISH_KEYS), flags)
+
+
+PROFILE_TRIES = 3
+# aten ops that launch no device work: allocations, views, a `to` that keeps the dtype
+NO_LAUNCH_OPS = frozenset({
+    "aten::empty", "aten::empty_strided", "aten::empty_like", "aten::view", "aten::_unsafe_view", "aten::slice",
+    "aten::select", "aten::as_strided", "aten::to", "aten::lift_fresh", "aten::detach", "aten::alias",
+    "aten::expand", "aten::unsqueeze", "aten::squeeze", "aten::reshape", "aten::_reshape_alias",
+    "aten::transpose", "aten::permute", "aten::t", "aten::unbind", "aten::resolve_conj", "aten::resolve_neg",
+})
+
+
+def call_record(fn) -> tuple:
+    """One call of fn after a warm-up call: (the port's kernel launches it
+    made, by ``_build``'s counters; the aten ops it dispatched, from
+    torch.profiler's host-side record; its device events). The first two
+    are exact and count every launch: a kernel of ours moves its counter,
+    and any other device work is an aten op. The device events (CUPTI)
+    give the device time only: on the card a session that followed a
+    session of thousands of events, or a scheduled session that followed
+    another profiler, recorded no device event at all, so a session is
+    retried, at most PROFILE_TRIES times, until it records one."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_deflate_torch import _build
+
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        before = _build.all_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        after = _build.all_launches()
+        events = [e for e in prof.events() if e.device_type == cuda]
+        if events:
+            break
+    launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    ops = collections.Counter(e.name for e in prof.events() if e.device_type != cuda and e.name.startswith("aten::"))
+    return launches, ops, events
+
+
+def launch_profile(label: str, fn, kernels: dict, allowed: tuple = ()) -> list:
+    """One call of fn (``call_record``): exactly ``kernels`` ({counter:
+    launches}) of the port's kernels and no aten op that launches device
+    work but those in ``allowed`` (the zero fill of an output). Returns its
+    device events."""
+    import collections
+
+    launches, ops, events = call_record(fn)
+    names = collections.Counter(e.name for e in events)
+    log(f"{label}: one call launched {json.dumps(launches)} of the port's kernels; aten ops {json.dumps(dict(ops))}; "
+        f"device events {json.dumps(dict(names)) if events else 'not recorded'}")
+    require(launches == kernels, f"{label}: the port's kernel launches {launches}, expected {kernels}")
+    device_ops = {op: n for op, n in ops.items() if op not in NO_LAUNCH_OPS and op not in allowed}
+    require(not device_ops, f"{label}: aten ops that launch device work {device_ops}")
+    return events
+
+
 def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
     """K1-K4 and K7 on one real wave."""
     import collections
@@ -526,8 +641,14 @@ def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
         "stage_b", lambda: dk.stage_b(dt), lambda: dk.stage_b_plain(dt), [dt],
         {"delta": [L, 512, NT], "out": [L, NT, 48]},
     )
-    entries, _final = pv2.stage_c_entries(transfers, w["rem"])
-    entries = entries.to(torch.int32)
+    entries8, _final, entries = K.compare(
+        "stage_c", lambda: dk.stage_c(transfers, w["rem"]), lambda: stage_c_plain3(transfers, w["rem"]),
+        [transfers, w["rem"]], {"maps": [L, NT, 48], "out": [L, NT]},
+    )
+    require(torch.equal(pv2.stage_c_entries(transfers, w["rem"])[0], entries8),
+            "stage_c_entries differs from stage_c")
+    launch_profile("stage_c_entries on the corpus wave", lambda: pv2.stage_c_entries(transfers, w["rem"]),
+                   {"stage_c": 1})
     tokc_main = None
     for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
         tokc, _summ = K.compare(
@@ -703,6 +824,53 @@ def phase_k2_edges(device, K: Kernels) -> None:
         d = d.to(device)
         K.compare("stage_b", lambda: dk.stage_b(d), lambda: dk.stage_b_plain(d), [d],
                   {"edge": what, "delta": list(d.shape)}, main_path=False)
+
+
+def stage_c_edge_maps(device) -> list:
+    """Stage C's edge inputs: (label, maps (L, NT, 48) uint8, entry0 (L,)
+    int32) at NT of 1, 3, 128, 384 and 4224 (P 270336: 9 windows of the
+    kernel), entry0 over every byte value (and -1, 1000) where the wave has
+    258 lanes, maps mixing [0, 48), 48..126, 127, 128..254 and 255, maps
+    mostly outside the domain, and maps not 16-byte aligned (the kernel's
+    byte loads)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(16)
+
+    def maps_of(L, NT, out_share=0.02):
+        m = rng.integers(0, 48, (L, NT, 48)).astype(np.uint8)
+        u = rng.random(m.shape)
+        m[u < 0.004] = 127
+        m[(u >= 0.004) & (u < 0.007)] = 255
+        lo = (u >= 0.007) & (u < 0.007 + out_share / 2)
+        m[lo] = rng.integers(48, 127, int(lo.sum()))
+        hi = (u >= 0.007 + out_share / 2) & (u < 0.007 + out_share)
+        m[hi] = rng.integers(128, 255, int(hi.sum()))
+        return m
+
+    every = np.concatenate([np.arange(256), [-1, 1000]]).astype(np.int32)
+    cases = [(f"NT={NT}, entry0 every byte", maps_of(258, NT), every) for NT in (1, 3, 128, 384)]
+    cases.append(("NT=4224", maps_of(8, 4224), np.array([0, 1, 5, 47, 48, 127, 255, 7], np.int32)))
+    dense = rng.choice(np.array([0, 1, 47, 48, 100, 126, 127, 128, 200, 254, 255], np.uint8), (16, 700, 48))
+    cases.append(("dense sentinels and values outside the domain", dense, every[:16]))
+    out = [(label, torch.from_numpy(m).to(device), torch.from_numpy(e).to(device)) for label, m, e in cases]
+    L, NT = 64, 384
+    flat = torch.from_numpy(maps_of(L, NT).reshape(-1)).to(device)
+    buf = torch.zeros(flat.numel() + 1, dtype=torch.uint8, device=device)
+    buf[1:] = flat
+    out.append(("maps not 16-byte aligned", buf[1:].view(L, NT, 48), torch.from_numpy(every[:L]).to(device)))
+    return out
+
+
+def phase_stage_c_edges(device, K: Kernels) -> None:
+    """Stage C against its plain version on the edge maps."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    for label, maps, entry0 in stage_c_edge_maps(device):
+        L, NT, _E = maps.shape
+        K.compare("stage_c", lambda: dk.stage_c(maps, entry0), lambda: stage_c_plain3(maps, entry0), [maps, entry0],
+                  {label: [L, NT]}, main_path=False)
 
 
 def k3_edge_inputs():
@@ -1087,7 +1255,9 @@ def timed_decode(gz: bytes, corpus: bytes, reps: int, config=None) -> list[float
     return walls
 
 
-def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]:
+def phase_main_path(corpus: bytes, gz: bytes, n_huff: int, K: Kernels) -> tuple[dict, float]:
+    """The decode's main path: launches, bounds, stage C held against its
+    plain version on every wave of the run, timed runs."""
     import torch
 
     from tpu_deflate_torch import engine
@@ -1097,9 +1267,9 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
     from tpu_deflate_torch.codec import resolve as rs
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
-    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as (calls, shapes, order):
+    with recorded(*kernels) as (calls, shapes, order), captured((dk, "stage_c"), per_key=64) as caps:
         dk.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
@@ -1118,6 +1288,10 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int) -> tuple[dict, float]
             require(launches[k] > 0, f"kernel {k} was not launched on the main path")
     require(stats["device_resolved"] == n_huff, "device_resolved != Huffman member count")
     require(stats["host_resolved"] == 0, "a Huffman member took the host route")
+    require(len(caps["stage_c"]) == launches["stage_c"] == launches["stage_b"],
+            f"stage C: {len(caps['stage_c'])} calls captured, {launches['stage_c']} launches, "
+            f"{launches['stage_b']} of K2")
+    replay_calls(caps, K, "main path")
     walls = timed_decode(gz, corpus, E2E_REPS)
     med = statistics.median(walls)
     log(f"main path {E2E_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e9:.4f} GB/s, "
@@ -1205,7 +1379,8 @@ def big_members(corpus: bytes) -> tuple[bytes, list[bytes], list[bytes]]:
     return gz, chunks, payloads
 
 
-BIG_KERNELS = ("stage_a_tables", "stage_a", "stage_b", "stage_dc", "compact_flat", "expand", "sweep", "crc32_lanes")
+BIG_KERNELS = ("stage_a_tables", "stage_a", "stage_b", "stage_c", "stage_dc", "compact_flat", "expand", "sweep",
+               "crc32_lanes")
 
 
 def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels) -> dict:
@@ -1232,7 +1407,7 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
     gz, chunks, payloads = big_members(corpus)
     data = b"".join(chunks)
     n_huff = len(payloads)
-    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
     with recorded(*kernels) as (calls, shapes, order), captured(*kernels) as caps:
         dk.reset_launches()
@@ -1405,6 +1580,7 @@ def replay_calls(caps: dict, K: Kernels, label: str) -> None:
         "stage_a_tables": ("stage_a_tables", dk, dk.stage_a_tables_plain, None),
         "stage_a": ("stage_a", dk, dk.stage_a_plain, None),
         "stage_b": ("stage_b", dk, dk.stage_b_plain, None),
+        "stage_c": ("stage_c", dk, stage_c_plain3, None),
         "stage_dc": ("stage_dc", dk, lambda d, t, e, *, k1: dk.stage_dc_plain(d, t, e, k1), None),
         "compact_flat": ("compact_flat", dk, dk.compact_plain, None),
         "expand": ("expand", rs, lambda tok, *, hist=0: rs.expand_plain(tok, hist), None),
@@ -1417,6 +1593,7 @@ def replay_calls(caps: dict, K: Kernels, label: str) -> None:
         "match_chain": ("match_chain", pe, pe._match_chain_plain, int32_parts),
         "match_bucket": ("match_bucket", pe, pe._bucket_best_plain, None),
         "match_select": ("match_select", pe, pe._match_select_plain, None),
+        "_finish_analysis": ("finish_analysis", pe, finish_plain, finish_parts),
     }
     for wrapper, calls in caps.items():
         kname, module, plain, proj = plains[wrapper]
@@ -1700,16 +1877,12 @@ def phase_match_edges(corpus: bytes, device, K: Kernels) -> None:
 
 def match_finder_profile(label: str, data, lengths, lazy: bool, quality: int, hist=None, hstart=None) -> None:
     """One batch of the match finder (``encode._match_find``) on the card:
-    its launches (the device events of one call under torch.profiler, by
-    name, the call profiled after a warm-up call of the same profile, whose
-    first events the profiler may lose) and their device time, CUDA-event
+    its launches (``launch_profile``: exactly one of each of its four
+    kernels and no other device work) and their device time, CUDA-event
     median of the call and of its chain kernel alone, and its device memory
     peak; then the plain eager version's (the plain pieces on the card, as
     the port ran before its kernels) launches and time, equal outputs."""
-    import collections
-
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tpu_deflate_torch.codec import encode as pe
 
@@ -1729,28 +1902,13 @@ def match_finder_profile(label: str, data, lengths, lazy: bool, quality: int, hi
     require(all(torch.equal(a, b) for a, b in zip(kernels(), plain())),
             f"{label}: the match finder differs from its plain eager version")
     card = gpu_name_power()
-    cuda = torch.autograd.DeviceType.CUDA
-    for what, fn, reps in (("kernels", kernels, KERNEL_REPS), ("plain eager", plain, PLAIN_REPS)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        # The step's own span is a device event too; it is no launch.
-        events = [e for e in prof.events() if e.device_type == cuda and not e.name.startswith("ProfilerStep")]
-        busy = sum(e.time_range.elapsed_us() for e in events)
-        names = collections.Counter(e.name for e in events)
-        log(f"{label} match finder ({what}, quality {quality}, {list(data.shape)}): {len(events)} device launches a "
-            f"batch, {busy:.1f} us of device time; CUDA-event median {median_ms(fn, reps):.4f} ms ({card})")
-        if what == "kernels":
-            log(f"{label} match finder launches by name: {json.dumps(dict(names))}")
-            ours = {k: sum(n for name, n in names.items() if f"{k}_kernel" in name) for k in MATCH_WRAPPERS}
-            require(ours == {k: 1 for k in MATCH_WRAPPERS},
-                    f"{label}: the profile shows the match finder's kernels {ours}")
-            require(len(events) == len(MATCH_WRAPPERS),
-                    f"{label}: the match finder issued {len(events)} launches a batch")
+    events = launch_profile(f"{label} match finder", kernels, {k: 1 for k in MATCH_WRAPPERS})
+    _launches, _ops, plain_events = call_record(plain)
+    for what, fn, reps, ev in (("kernels", kernels, KERNEL_REPS, events),
+                               ("plain eager", plain, PLAIN_REPS, plain_events)):
+        busy = f"{sum(e.time_range.elapsed_us() for e in ev):.1f} us" if ev else "not recorded"
+        log(f"{label} match finder ({what}, quality {quality}, {list(data.shape)}): {len(ev)} device events a "
+            f"batch, device time {busy}; CUDA-event median {median_ms(fn, reps):.4f} ms ({card})")
     keys = pe.match_keys(data, lengths, tuple(f for f, _k, _w in families), hstart)
     log(f"{label} match finder: its chain kernel on every family's keys {list(keys.shape)} alone, CUDA-event median "
         f"{median_ms(lambda: pe.match_chain(keys), KERNEL_REPS):.4f} ms ({card})")
@@ -1762,6 +1920,95 @@ def match_finder_profile(label: str, data, lengths, lazy: bool, quality: int, hi
     torch.cuda.synchronize()
     log(f"{label} match finder: device memory peak {torch.cuda.max_memory_allocated() - mem0} bytes above the "
         f"{mem0} held before the call, {sum(t.numel() * t.element_size() for t in out)} bytes of its outputs")
+
+
+def finish_kernels(K: Kernels, what: str, rows, use, dist, replay, valid, *, main_path: bool = False,
+                   flags=None) -> None:
+    """``_finish_analysis`` against its plain version on one batch (exact
+    equality; the flags also against ``flags``, the ones the batch's emit
+    took); on the main path's batch also one call's device events (one
+    launch, the histograms' zero fill beside it), and ``torch.bincount``'s
+    time on the plain version's histogram keys, the one PyTorch call that
+    computes the histogram half."""
+    import torch
+
+    from tpu_deflate_torch.codec import encode as pe
+
+    L, S = rows.shape
+    args = (rows, use, dist, replay, valid)
+    out = K.compare("finish_analysis", lambda: pe._finish_analysis(*args), lambda: finish_plain(*args), list(args),
+                    {what: [L, S]}, main_path=main_path, proj=finish_parts)
+    a, got_flags = out
+    if flags is not None:
+        require(torch.equal(got_flags, flags), f"{what}: the emit's flags differ from the kernel's")
+    log(f"{what}: {int(a['is_token'].sum())} tokens, {int(a['is_match'].sum())} matches; histogram sums "
+        f"{int(a['litlen_hist'].sum())} / {int(a['dist_hist'].sum())}")
+    if not main_path:
+        return
+    launch_profile(f"{what} _finish_analysis", lambda: pe._finish_analysis(*args), {"finish_analysis": 1},
+                   ("aten::zeros", "aten::zero_", "aten::fill_"))
+    lanes = torch.arange(L, device=rows.device)[:, None]
+    plain = pe._finish_analysis_plain(rows, use, dist, replay & valid)
+    keys = ((torch.where(plain["is_token"], plain["litlen_sym"], 288).to(torch.int64) + lanes * 289).view(-1),
+            (torch.where(plain["is_match"], plain["dist_sym"], 30).to(torch.int64) + lanes * 31).view(-1))
+    card = gpu_name_power()
+    for k, nbins in zip(keys, (289, 31)):
+        ms = median_ms(lambda: torch.bincount(k, minlength=L * nbins), KERNEL_REPS)
+        log(f"{what}: torch.bincount of {k.numel()} int64 keys into {L} x {nbins} bins, CUDA-event median "
+            f"{ms:.4f} ms ({card})")
+
+
+def finish_edge_rows(device) -> list:
+    """``_finish_analysis``'s edge batches: (label, rows, use, dist, replay,
+    valid). 4 and 16 lanes of 65536: lane 0 sweeps every run of 3..258
+    against every distance-symbol base, the value before it and 32768, then
+    out-of-range runs and distances (clamped); lane 1 has no token; lane 2
+    every position a token (a literal of one byte value: one bin takes the
+    whole lane); the rest random. 3 lanes of 4099 columns (the kernel's
+    scalar loads and its partial last block), and inputs one element off
+    their alignment (the scalar loads again)."""
+    import numpy as np
+    import torch
+
+    bases = (1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385, 513, 769, 1025, 1537, 2049,
+             3073, 4097, 6145, 8193, 12289, 16385, 24577)
+    dists = np.array(sorted({*bases, *(b - 1 for b in bases[1:]), 32767, 32768}), np.int32)
+    rng = np.random.default_rng(17)
+
+    def batch(L, S):
+        data = rng.integers(0, 256, (L, S), dtype=np.uint8)
+        use = np.where(rng.random((L, S)) < 0.45, 0, rng.integers(3, 259, (L, S))).astype(np.int32)
+        dist = rng.integers(1, 32769, (L, S)).astype(np.int32)
+        replay = rng.random((L, S)) < 0.6
+        valid = np.ones((L, S), bool)
+        n = 2 * 256
+        use[0, :n] = np.tile(np.arange(3, 259), 2)
+        dist[0, :n] = np.resize(dists, n)
+        replay[0, :n] = True
+        use[0, n : n + 8] = [259, 300, 1000, 2**31 - 1, -5, 0, 7, 258]
+        dist[0, n : n + 8] = [40000, 0, -3, 2**31 - 1, 5, 1, 32769, 32768]
+        replay[0, n : n + 8] = True
+        replay[1] = False
+        data[2], use[2], replay[2] = 101, 0, True
+        return data, use, dist, replay, valid
+
+    out = []
+    for label, (L, S) in (("4 lanes", (4, 65536)), ("16 lanes", (16, 65536)), ("4099 columns", (3, 4099))):
+        out.append((label, *(torch.from_numpy(a).to(device) for a in batch(L, S))))
+    L, S = 4, 8192
+    parts = []
+    for a in batch(L, S):
+        t = torch.from_numpy(a.reshape(-1)).to(device)
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=device)
+        buf[1:] = t
+        parts.append(buf[1:].view(L, S))
+    out.append(("inputs off alignment", *parts))
+    return out
+
+
+def finish_edges(device, K: Kernels) -> None:
+    for label, *args in finish_edge_rows(device):
+        finish_kernels(K, label, *args)
 
 
 def phase_encode_kernels(corpus: bytes, device, K: Kernels):
@@ -1797,8 +2044,8 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
 
     b = encode_batch(corpus[: pe.ENC_LANE_BATCH * MEMBER], device)
     lengths = torch.from_numpy(b["lengths"]).to(device)
-    (use, _dist, step, _valid), _prev = match_kernels(K, "encode batch", b["rows"], lengths, 0, True,
-                                                      main_path=True)
+    (use, dist, step, valid), _prev = match_kernels(K, "encode batch", b["rows"], lengths, 0, True,
+                                                    main_path=True)
     require(torch.equal(step, b["tiles"].transpose(1, 2).reshape(step.shape)), "the batch's steps differ from the "
             "match finder's")
     log(f"encode batch: {int((use > 0).sum())} match starts of {use.numel()} positions")
@@ -1807,6 +2054,8 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
     S = NT * pp.T_P
     tok = parse_pair(b["tiles"], b["entries"], {"steps": [L, S]}, True)
     log(f"encode batch: {L} members, {int(tok.sum())} tokens of {L * S} positions")
+    finish_kernels(K, "encode batch", b["rows"], use, dist, tok, valid, main_path=True, flags=b["args"][1])
+    finish_edges(device, K)
     args = b["emit"]
     words, body_end = K.compare(
         "emit_body", lambda: em.emit_body(*args), lambda: em.emit_body_plain(*args), list(args),
@@ -1925,6 +2174,11 @@ def member_routes(gz: bytes) -> tuple[int, dict]:
 MATCH_WRAPPERS = ("match_keys", "match_chain", "match_bucket", "match_select")
 
 
+def batch_launches(launches: dict, kernel: str, batches: int, label: str) -> None:
+    """The kernel launched once a batch."""
+    require(launches[kernel] == batches, f"{label}: {launches[kernel]} launches of {kernel} for {batches} batches")
+
+
 def match_launches(launches: dict, batches: int, label: str) -> None:
     """Each batch launched each of the match finder's kernels once (every
     hash family in the same launch)."""
@@ -1948,7 +2202,8 @@ def phase_encode_main(corpus: bytes, first) -> tuple[dict, float]:
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     kernels = [(pe, k) for k in MATCH_WRAPPERS] + [
-        (pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
+        (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body"),
+        (cl, "crc32_lanes_raw8")]
     with recorded(*kernels) as (calls, shapes, order):
         _build.reset_launches()
         t0 = time.monotonic()
@@ -1962,6 +2217,7 @@ def phase_encode_main(corpus: bytes, first) -> tuple[dict, float]:
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
     match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "encode")
+    batch_launches(launches, "finish_analysis", -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
     require(engine.decompress(gz, engine="cuda") == corpus, "the port's decode of the encoded corpus differs")
     n_members, routes = member_routes(gz)
@@ -2036,7 +2292,7 @@ def continuous_batch(data: bytes, device) -> dict:
     args, tiles, entries, _choice = pe.emit_inputs(pend, final)
     lengths = torch.from_numpy((pc.HALO_COLS + pay_lens).astype(np.int32)).to(device)
     hist = torch.full((count,), pc.HALO_COLS, dtype=torch.int32, device=device)
-    return {"tiles": tiles, "entries": entries, "emit": em.body_args(args), "hstart": hstart,
+    return {"tiles": tiles, "entries": entries, "emit": em.body_args(args), "args": args, "hstart": hstart,
             "match": (dd, lengths, hist, hs)}
 
 
@@ -2057,7 +2313,7 @@ def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
     for what, data in (("continuous batch", corpus), ("F1 head lane", F1_PREFIX + corpus)):
         b = continuous_batch(data, device)
         rows, lengths, hist, hstart = b["match"]
-        (use, _dist, step, _valid), _prev = match_kernels(K, what, rows, lengths, 1, True, hist, hstart)
+        (use, dist, step, valid), _prev = match_kernels(K, what, rows, lengths, 1, True, hist, hstart)
         require(torch.equal(step, b["tiles"].transpose(1, 2).reshape(step.shape)),
                 f"{what}: the batch's steps differ from the match finder's")
         require(int(use[:, : pc.HALO_COLS].count_nonzero()) == 0, f"{what}: a match starts in the history")
@@ -2072,6 +2328,7 @@ def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
         (tok,) = K.compare("parse_replay", lambda: pp.parse_replay(b["tiles"], b["entries"]),
                            lambda: pp.parse_replay_plain(b["tiles"], b["entries"]), [steps, b["entries"]],
                            {what: [L, S], "entries": [L, NT]}, main_path=False)
+        finish_kernels(K, what, rows, use, dist, tok, valid, flags=b["args"][1])
         args = b["emit"]
         _w, body_end = K.compare("emit_body", lambda: em.emit_body(*args), lambda: em.emit_body_plain(*args),
                                  list(args), {what: [L, S], "words": [L, em.EMIT_WORDS]}, main_path=False)
@@ -2108,7 +2365,8 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
         return engine.compress(corpus, engine="cuda", effort=4)
 
     kernels = [(pe, k) for k in MATCH_WRAPPERS] + [
-        (pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body"), (cl, "crc32_lanes_raw8")]
+        (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body"),
+        (cl, "crc32_lanes_raw8")]
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2131,11 +2389,12 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the continuous encode")
     match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "continuous encode")
+    batch_launches(launches, "finish_analysis", -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "continuous encode")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the continuous encode differs")
     members = decode_np.split_members(np.frombuffer(gz, np.uint8))
     require(members is not None and len(members) == 1, "the continuous encode is not one member")
 
-    dec_kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+    dec_kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
                    (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
     with recorded(*dec_kernels) as (dec_calls, _shapes, _order):
         _build.reset_launches()
@@ -2267,9 +2526,9 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
 
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
-    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"), (dk, "compact_flat"),
-               (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"),
-               (pp, "parse_replay"), (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
+               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"),
+               (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
     with captured(*kernels) as caps:
         _build.reset_launches()
         out = timed(f"decode of the corpus over {MESH_SHARDS} shards (argument copies for the replay included)",
@@ -2421,7 +2680,7 @@ def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
         seen["fold_s"].append((a[0].shape, time.monotonic() - t))
         return out
 
-    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
     pv2._resolve_passes, rs.split_tiles_device, rs.resolve_tiles_crc, cl.crc32_fold_tiles = (
         passes_spy, split_spy, chain_spy, fold_spy)
@@ -2560,9 +2819,10 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
         require(big["members"] == BIG_ROW_MEMBERS and big["verified_members"] == big["members"]
                 and big["byte_mismatches"] == 0, "the big-member row did not verify every member")
 
-    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_dc"),
+    kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"),
-               (pp, "parse_transfers"), (pp, "parse_replay"), (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
+               (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body")] + [
+                   (pe, k) for k in MATCH_WRAPPERS]
     with recorded(*kernels) as (calls, _shapes, _order), captured(*kernels) as caps:
         _build.reset_launches()
         results = {name: run(reps=1) for name, run in rows}
@@ -2653,12 +2913,13 @@ def main(argv: list[str]) -> int:
     phase_wave_kernels(gz, device, K)
     phase_k1_edges(gz, device, K)
     phase_k2_edges(device, K)
+    phase_stage_c_edges(device, K)
     small = main_path_small_waves(gz, device)
     phase_k3_edges(small, device, K)
     phase_compact_edges(small, device, K)
     resolve_first = phase_resolve_kernels(gz, corpus, device, K)
     phase_crc_edges(corpus, device, K)
-    launches, timed_median_s, bounds = phase_main_path(corpus, gz, n_huff)
+    launches, timed_median_s, bounds = phase_main_path(corpus, gz, n_huff, K)
     if args.profile:
         phase_profile(lambda: engine.decompress(gz, engine="cuda"), "decode", args.profile, "profile",
                       PROFILE_KERNELS, timed_median_s, bounds)

@@ -49,6 +49,7 @@ SIGNATURES = {
     "td_stage_a_tables": [_P, _P, _I, _P],
     "td_stage_a": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "td_stage_b": [_P, _P, _I, _I, _P],
+    "td_stage_c": [_P] * 5 + [_I, _I, _P],
     "td_stage_dc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "td_compact": [_P, _P, _P, _P, _I, _I, _I, _P],
     "td_compact_occupancy": [_P],
@@ -64,6 +65,7 @@ SIGNATURES = {
     "td_match_bucket": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "td_match_occupancy": [_P],
     "td_match_select": [_P] * 11 + [_I, _I, _I, _P],
+    "td_finish_analysis": [_P] * 16 + [_I, _I, _P],
 }
 
 # Kernel launches per wrapper since process start (or the last reset): the
@@ -73,11 +75,11 @@ SIGNATURES = {
 # decode_v2.LAST_DECODE_STATS["launches"], which is taken from LAUNCHES by
 # difference.
 LAUNCHES = {
-    "stage_a_tables": 0, "stage_a": 0, "stage_b": 0, "stage_dc": 0, "compact_flat": 0,
+    "stage_a_tables": 0, "stage_a": 0, "stage_b": 0, "stage_c": 0, "stage_dc": 0, "compact_flat": 0,
     "compact_any": 0, "expand": 0, "sweep": 0, "crc32_lanes": 0,
 }
 ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0, "match_keys": 0, "match_chain": 0,
-                   "match_bucket": 0, "match_select": 0}
+                   "match_bucket": 0, "match_select": 0, "finish_analysis": 0}
 
 _lib = None
 _lock = threading.Lock()

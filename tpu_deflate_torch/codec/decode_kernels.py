@@ -1,7 +1,7 @@
 """The decode wave's kernels: stage A (K1, which on the card first builds
 each lane's decode tables with a kernel of its own, ``stage_a_tables``),
-stage B (K2), stage DC (K3) and level-2 compaction (K4, with K7 as its
-no-map mode).
+stage B (K2), stage C (the maps composed over tiles), stage DC (K3) and
+level-2 compaction (K4, with K7 as its no-map mode).
 
 Each wrapper checks its inputs, then runs the hand-written CUDA kernel of
 ``tpu_deflate_torch/csrc/`` on CUDA tensors, or the plain PyTorch version
@@ -13,8 +13,9 @@ The plain versions are the readable spec and the CPU path. They mirror
 the reference's integer semantics exactly: uint32 windows are held in
 int64 masked to 32 bits, and shifts follow XLA (a count outside [0, 32)
 gives 0). Layouts match the JAX package at every public function:
-``stage_a`` (L, 512, NT), ``stage_b`` (L, NT, 48) uint8, ``stage_dc``
-tokens (L, NT, k1) and summary (L, 8, NT).
+``stage_a`` (L, 512, NT), ``stage_b`` (L, NT, 48) uint8, ``stage_c``
+entries (L, NT) uint8, ``stage_dc`` tokens (L, NT, k1) and summary (L, 8,
+NT).
 """
 
 from __future__ import annotations
@@ -431,6 +432,68 @@ def stage_b(delta_t: torch.Tensor) -> torch.Tensor:
     _build.check(err, "td_stage_b")
     LAUNCHES["stage_b"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Stage C
+# ---------------------------------------------------------------------------
+
+
+def stage_c_plain(transfers: torch.Tensor, entry0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain stage C: compose the per-tile transfer maps over tiles.
+
+    transfers (L, NT, 48) uint8 with values in [0, 48) or a sentinel
+    (>= 127, passed through unchanged), as stage B produces them; entry0
+    (L,) in [0, 48). Returns the entry offset of every tile (L, NT) uint8
+    and the final state (L,) uint8: 127 (clean EOB), 255 (error) or an
+    offset (ran off the payload). A value of 48..126 is outside a map's
+    domain and becomes 255. An inclusive Hillis-Steele scan over the tile
+    axis composes maps with ``torch.gather`` (log2(NT) levels).
+    """
+    L, NT, E = transfers.shape
+    assert E == E_WIN
+    x = transfers.to(torch.int64)
+
+    def apply(f: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """f[v] per lane and tile; sentinels pass through, and a value
+        outside the map's domain is an error."""
+        got = f.gather(-1, v.clamp(0, E - 1))
+        return torch.where(v >= SENT_EOB, v, torch.where(v < E, got, SENT_ERR))
+
+    s = 1
+    while s < NT:
+        # prefix[t] = prefix[t - s] then prefix[t]
+        x = torch.cat([x[:, :s], apply(x[:, s:], x[:, :-s])], dim=1)
+        s *= 2
+    e0 = entry0.to(torch.int64).view(L, 1, 1).expand(L, NT, 1)
+    applied = apply(x, e0).view(L, NT)
+    entries = torch.cat([entry0.to(torch.int64).view(L, 1), applied[:, :-1]], dim=1)
+    return entries.to(torch.uint8), applied[:, -1].to(torch.uint8)
+
+
+def stage_c(transfers: torch.Tensor, entry0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage C: transfer maps (L, NT, 48) uint8, entry0 (L,) int32 ->
+    (entries (L, NT) uint8, final state (L,) uint8, the entries as int32,
+    the form K3 takes); one launch of ``csrc/stage_c.cu`` on the card."""
+    _build.check_tensor("transfers", transfers, torch.uint8, 3)
+    _build.check_tensor("entry0", entry0, torch.int32, 1)
+    L, NT, E = transfers.shape
+    _build.require(E == E_WIN, f"transfers: shape {tuple(transfers.shape)}, expected (L, NT, {E_WIN})")
+    _build.require(entry0.shape[0] == L, f"entry0: shape {tuple(entry0.shape)}")
+    if not _build.on_card(transfers, entry0):
+        entries, final = stage_c_plain(transfers, entry0)
+        return entries, final, entries.to(torch.int32)
+    dev = transfers.device
+    entries = torch.empty((L, NT), dtype=torch.uint8, device=dev)
+    entries32 = torch.empty((L, NT), dtype=torch.int32, device=dev)
+    final = torch.empty(L, dtype=torch.uint8, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_stage_c(transfers.data_ptr(), entry0.data_ptr(), entries.data_ptr(), entries32.data_ptr(),
+                             final.data_ptr(), L, NT, _build.stream(dev))
+    _build.check(err, "td_stage_c")
+    LAUNCHES["stage_c"] += 1
+    return entries, final, entries32
 
 
 # ---------------------------------------------------------------------------

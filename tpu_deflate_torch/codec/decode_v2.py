@@ -4,8 +4,8 @@
 The main path (:func:`_decode_single_block_device`) takes every member
 whose payload is one final Huffman block of at most 64 KiB output: waves
 go through the device body :func:`run_wave` (stage A (K1) -> stage B (K2)
--> stage C (plain PyTorch, as the reference's XLA) -> stage DC (K3) ->
-level-2 compaction with the literal map (K4)), the tokens stay on the
+-> stage C (``decode_kernels.stage_c``) -> stage DC (K3) -> level-2
+compaction with the literal map (K4)), the tokens stay on the
 device and resolve to bytes there (``resolve``: expand (K5), sweep (K6)),
 the lane CRC-32 kernel checksums each row, and only the small per-lane
 vectors and the final bytes cross to the host.
@@ -77,7 +77,6 @@ from . import resolve as rs
 from .wave_prep import (
     _ERR_END,
     _PAD_PAYLOAD,
-    E_WIN,
     P_BUCKETS_PALLAS,
     ROW_COUNT,
     ROW_EOB_HIT,
@@ -87,8 +86,6 @@ from .wave_prep import (
     ROW_ERR_TOK,
     ROW_OVERFLOW,
     ROW_SIZE_SUM,
-    SENT_EOB,
-    SENT_ERR,
     V2_L_BUCKETS,
     V2_LANE_BATCH,
     W_P,
@@ -118,28 +115,11 @@ def stage_c_entries(
     (>= 127, passed through unchanged), as stage B produces them; entry0
     (L,) in [0, 48). Returns the entry offset of every tile (L, NT) uint8
     and the final state (L,) uint8: 127 (clean EOB), 255 (error) or an
-    offset (ran off the payload). An inclusive Hillis-Steele scan over the
-    tile axis composes maps with ``torch.gather`` (log2(NT) levels).
+    offset (ran off the payload). ``decode_kernels.stage_c``: one kernel
+    launch on the card, ``stage_c_plain`` on the CPU.
     """
-    L, NT, E = transfers.shape
-    assert E == E_WIN
-    x = transfers.to(torch.int64)
-
-    def apply(f: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """f[v] per lane and tile; sentinels pass through, and a value
-        outside the map's domain is an error."""
-        got = f.gather(-1, v.clamp(0, E - 1))
-        return torch.where(v >= SENT_EOB, v, torch.where(v < E, got, SENT_ERR))
-
-    s = 1
-    while s < NT:
-        # prefix[t] = prefix[t - s] then prefix[t]
-        x = torch.cat([x[:, :s], apply(x[:, s:], x[:, :-s])], dim=1)
-        s *= 2
-    e0 = entry0.to(torch.int64).view(L, 1, 1).expand(L, NT, 1)
-    applied = apply(x, e0).view(L, NT)
-    entries = torch.cat([entry0.to(torch.int64).view(L, 1), applied[:, :-1]], dim=1)
-    return entries.to(torch.uint8), applied[:, -1].to(torch.uint8)
+    entries, final, _entries32 = dk.stage_c(transfers, entry0.to(torch.int32))
+    return entries, final
 
 
 def run_wave(w: dict, *, k1: int | None = None):
@@ -158,8 +138,8 @@ def run_wave(w: dict, *, k1: int | None = None):
     dt, tt = dk.stage_a(w["grid"], dk.build_meta(w))
     L, _W, NT = dt.shape
     transfers = dk.stage_b(dt)
-    entries, _final = stage_c_entries(transfers, w["rem"])
-    tokc, summ = dk.stage_dc(dt, tt, entries.to(torch.int32), k1=k1)
+    _entries, _final, entries = dk.stage_c(transfers, w["rem"])
+    tokc, summ = dk.stage_dc(dt, tt, entries, k1=k1)
 
     counts = summ[:, ROW_COUNT, :].sum(dim=1)
     eob_hit = summ[:, ROW_EOB_HIT, :]

@@ -18,8 +18,10 @@ All of it is PyTorch on the given device, apart from the kernels:
   ``match_bucket``, ``match_select``); on CPU tensors their plain
   versions;
 - **host entries** (``parse.host_entries``) between the phases;
-- **analyze, phase 2** (``analyze_phase2``): the parse replay (K9), the
-  symbols and extra bits of each token, and per-lane histograms;
+- **analyze, phase 2** (``analyze_phase2``): the parse replay (K9), then
+  the symbols and extra bits of each token, the per-lane histograms and
+  K10's token flags (``_finish_analysis``: one kernel of ``csrc/finish.cu``
+  on CUDA tensors, its plain version on CPU tensors);
 - **planning** (``_plan_codes``): the histograms go to the host for the
   batched Huffman lengths, canonical codes and dynamic headers; the
   stored / fixed / dynamic bit costs are compared on the device
@@ -464,8 +466,9 @@ def _match_find(data: torch.Tensor, lengths: torch.Tensor, lazy: bool, quality: 
     return match_select(data, lengths, lazy, packs[0], packs[1], q6, hist, hstart)
 
 
-def _finish_analysis(data, use, dist, is_token):
-    """Token selection -> symbols, extra bits and per-lane histograms."""
+def _finish_analysis_plain(data, use, dist, is_token):
+    """Plain ``td_finish_analysis``: token selection -> symbols, extra bits
+    and per-lane histograms, keyed as the reference's."""
     L = data.shape[0]
     is_match = is_token & (use > 0)
     rsym, reb, rev_ = _run_to_symbol(torch.where(is_match, use, 3).clamp(3, 258))
@@ -494,6 +497,46 @@ def _finish_analysis(data, use, dist, is_token):
     }
 
 
+def _flags_plain(a: dict) -> torch.Tensor:
+    """K10's token flags of an analysis: is_token | is_match << 1, int32."""
+    return a["is_token"].to(_I32) | (a["is_match"].to(_I32) << 1)
+
+
+def _finish_analysis(data: torch.Tensor, use: torch.Tensor, dist: torch.Tensor, replay: torch.Tensor,
+                     valid: torch.Tensor):
+    """``td_finish_analysis``: the rows (L, S) uint8, the chosen runs and
+    distances (L, S) int32, K9's replay bitmap and the match finder's mask
+    (L, S) bool -> (the analysis dict of :func:`_finish_analysis_plain` on
+    ``replay & valid``, K10's flags (L, S) int32); one kernel launch on the
+    card."""
+    _build.check_tensor("data", data, torch.uint8, 2)
+    for name, t, dtype in (("use", use, _I32), ("dist", dist, _I32), ("replay", replay, torch.bool),
+                           ("valid", valid, torch.bool)):
+        _build.check_tensor(name, t, dtype, 2)
+        _build.require(t.shape == data.shape, f"{name}: shape {tuple(t.shape)}, data {tuple(data.shape)}")
+    if not _build.on_card(data, use, dist, replay, valid):
+        a = _finish_analysis_plain(data, use, dist, replay & valid)
+        return a, _flags_plain(a)
+    L, S = data.shape
+    dev = data.device
+    is_token, is_match = (torch.empty((L, S), dtype=torch.bool, device=dev) for _ in range(2))
+    fields = [torch.empty((L, S), dtype=_I32, device=dev) for _ in range(7)]
+    hists = torch.zeros(L * (288 + 30), dtype=_I32, device=dev)
+    litlen_hist, dist_hist = hists[: L * 288].view(L, 288), hists[L * 288 :].view(L, 30)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_finish_analysis(
+            data.data_ptr(), use.data_ptr(), dist.data_ptr(), replay.data_ptr(), valid.data_ptr(),
+            is_token.data_ptr(), is_match.data_ptr(), *(f.data_ptr() for f in fields), litlen_hist.data_ptr(),
+            dist_hist.data_ptr(), L, S, _build.stream(dev))
+    _build.check(err, "td_finish_analysis")
+    ENCODE_LAUNCHES["finish_analysis"] += 1
+    litlen_sym, len_eb, len_ev, dist_sym, dist_eb, dist_ev, flags = fields
+    return {"is_token": is_token, "is_match": is_match, "litlen_sym": litlen_sym, "len_eb": len_eb,
+            "len_ev": len_ev, "dist_sym": dist_sym, "dist_eb": dist_eb, "dist_ev": dist_ev,
+            "litlen_hist": litlen_hist, "dist_hist": dist_hist}, flags
+
+
 def analyze_phase1(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, quality: int = 0,
                    hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
     """Match find + the parse's tile transfer maps (K8)."""
@@ -504,19 +547,26 @@ def analyze_phase1(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True,
 
 
 def analyze_phase2(data, use, dist, tiles, valid, entries):
-    """Replay the true chain (K9), then symbols and histograms."""
-    return _finish_analysis(data, use, dist, pp.parse_replay(tiles, entries) & valid)
+    """Replay the true chain (K9), then symbols and histograms ->
+    (the analysis dict, K10's flags)."""
+    return _finish_analysis(data, use, dist, pp.parse_replay(tiles, entries), valid)
 
 
-def analyze(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, quality: int = 0,
-            hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
-    """Both phases with the host walk between them: the analysis of one
-    batch, keyed as ``encode_jax.analyze_device``'s (with the same
-    ``hist``/``hstart``)."""
+def analyze_with_flags(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, quality: int = 0,
+                       hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
+    """Both phases with the host walk between them -> (the analysis of one
+    batch, K10's flags)."""
     p1 = analyze_phase1(data, lengths, lazy, quality, hist, hstart)
     entries = pp.host_entries(p1["transfers"].cpu().numpy())
     ent = torch.from_numpy(entries).to(data.device)
     return analyze_phase2(data, p1["use"], p1["dist"], p1["tiles"], p1["valid"], ent)
+
+
+def analyze(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, quality: int = 0,
+            hist: torch.Tensor | None = None, hstart: torch.Tensor | None = None):
+    """The analysis of one batch (:func:`analyze_with_flags`), keyed as
+    ``encode_jax.analyze_device``'s (with the same ``hist``/``hstart``)."""
+    return analyze_with_flags(data, lengths, lazy, quality, hist, hstart)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -665,9 +715,8 @@ def emit_inputs(pend, final: np.ndarray | None = None):
     if done is not None:
         done.synchronize()
     entries = torch.from_numpy(pp.host_entries(host.numpy())).to(dd.device)
-    a = analyze_phase2(dd, p1["use"], p1["dist"], p1["tiles"], p1["valid"], entries)
+    a, flags = analyze_phase2(dd, p1["use"], p1["dist"], p1["tiles"], p1["valid"], entries)
     ll_c, d_c, hv, hb, ev, eb, choice = _plan_codes(a, lengths, final)
-    flags = a["is_token"].to(_I32) | (a["is_match"].to(_I32) << 1)
     args = (a["litlen_sym"], flags, a["len_eb"], a["len_ev"], a["dist_sym"], a["dist_eb"],
             a["dist_ev"], ll_c, d_c, hv, hb, ev, eb)
     return args, p1["tiles"], entries, choice

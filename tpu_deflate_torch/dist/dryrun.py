@@ -51,8 +51,7 @@ def analyze_emit(data: torch.Tensor, lengths: torch.Tensor, *tables):
     from ..codec import encode as pe
     from ..codec.emit import emit_device
 
-    a = pe.analyze(data, lengths, True)
-    flags = a["is_token"].to(torch.int32) | (a["is_match"].to(torch.int32) << 1)
+    a, flags = pe.analyze_with_flags(data, lengths, True)
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(data.device) for x in tables]
     return emit_device(a["litlen_sym"], flags, a["len_eb"], a["len_ev"], a["dist_sym"], a["dist_eb"],
                        a["dist_ev"], *t)

@@ -312,8 +312,7 @@ def sharded_analyze_emit(mesh: CodecMesh, axis="data", *, lazy: bool = True, qua
         outs = []
         for (d, _l, *t), p1 in zip(shards, p1s):
             entries = torch.from_numpy(pp.host_entries(p1["transfers"].cpu().numpy())).to(d.device)
-            a = pe.analyze_phase2(d, p1["use"], p1["dist"], p1["tiles"], p1["valid"], entries)
-            flags = a["is_token"].to(torch.int32) | (a["is_match"].to(torch.int32) << 1)
+            a, flags = pe.analyze_phase2(d, p1["use"], p1["dist"], p1["tiles"], p1["valid"], entries)
             outs.append(emit_device(a["litlen_sym"], flags, a["len_eb"], a["len_ev"], a["dist_sym"],
                                     a["dist_eb"], a["dist_ev"], *t))
         return sh.gather([w for w, _b in outs]), sh.gather([b for _w, b in outs])
