@@ -20,9 +20,12 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    sentinels, deltas of 0 and 60, hops of 64 and 200, the int32 limits),
    stage C again on edge maps (NT of 1, 3, 128, 384 and 4224, entry0 over
    every byte value and -1 and 1000, maps mixing [0, 48), 48..126, 127,
-   128..254 and 255, maps mostly outside the domain, maps not 16-byte
-   aligned) and with one call's launches counted (one launch, no other
-   device work), K3
+   128..254 and 255, maps mostly outside the domain, one-lane waves of NT
+   1, 2, 15, 17, 511, 513, 4224 and every payload bucket's, with
+   states that turn 127 or 255 inside a segment and a first segment that
+   ends in 48..126, maps not 16-byte aligned) and with one call's launches
+   counted (one launch and the zero fill of its look-back scratch, no
+   other device work), K3
    again at every k1 on the main path's own 4-lane waves, on edge
    deltas (0, -5, 60, the int32 limits, dense sentinels; entries 0, 47, 48
    and 255) and on tiles of 512 one-bit deltas, K4 and K7 again on the
@@ -101,7 +104,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    random bytes; hstart 12345 and 32768), on 64 rows of zeros of 98304
    columns at quality 2 (one hash group, every compare matching the cap),
    64 rows of those records at quality 1 (every position taking all K4 =
-   32 hops) and 64 rows of random bytes; K8-K10 then on
+   32 hops) and 64 rows of random bytes, ``match_keys`` also on rows not
+   4-byte aligned, S of 65535, 4112, 4100, 4097 and 23 and F = 1 and 3,
+   with and without hstart; K8-K10 then on
    step fields of all 1, all 250, random 1..250 and one with steps <= 0
    and at the int32 limits (K9 there with entries of -1, 0, 255, 511 and
    512 in the first tiles), a batch with a lane routed FIXED, a
@@ -648,7 +653,7 @@ def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
     require(torch.equal(pv2.stage_c_entries(transfers, w["rem"])[0], entries8),
             "stage_c_entries differs from stage_c")
     launch_profile("stage_c_entries on the corpus wave", lambda: pv2.stage_c_entries(transfers, w["rem"]),
-                   {"stage_c": 1})
+                   {"stage_c": 1}, ("aten::zeros", "aten::zero_", "aten::fill_"))
     tokc_main = None
     for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
         tokc, _summ = K.compare(
@@ -828,13 +833,18 @@ def phase_k2_edges(device, K: Kernels) -> None:
 
 def stage_c_edge_maps(device) -> list:
     """Stage C's edge inputs: (label, maps (L, NT, 48) uint8, entry0 (L,)
-    int32) at NT of 1, 3, 128, 384 and 4224 (P 270336: 9 windows of the
-    kernel), entry0 over every byte value (and -1, 1000) where the wave has
-    258 lanes, maps mixing [0, 48), 48..126, 127, 128..254 and 255, maps
-    mostly outside the domain, and maps not 16-byte aligned (the kernel's
-    byte loads)."""
+    int32) at NT of 1, 3, 128, 384 and 4224 (P 270336: 9 segments of 512
+    at 8 lanes), entry0 over every byte value (and -1, 1000) where the wave
+    has 258 lanes, maps mixing [0, 48), 48..126, 127, 128..254 and 255,
+    maps mostly outside the domain, one-lane waves (NT of 1, 2, 15, 17,
+    511, 513, 4224 and every payload bucket's; states that turn
+    127 or 255 inside a segment, a first segment that ends in 48..126), and
+    maps not 16-byte aligned (the kernel's byte loads)."""
     import numpy as np
     import torch
+
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import wave_prep as wp
 
     rng = np.random.default_rng(16)
 
@@ -854,6 +864,23 @@ def stage_c_edge_maps(device) -> list:
     cases.append(("NT=4224", maps_of(8, 4224), np.array([0, 1, 5, 47, 48, 127, 255, 7], np.int32)))
     dense = rng.choice(np.array([0, 1, 47, 48, 100, 126, 127, 128, 200, 254, 255], np.uint8), (16, 700, 48))
     cases.append(("dense sentinels and values outside the domain", dense, every[:16]))
+    # One lane: NT of 1 and 2, the smallest segment length (16) - 1 and + 1,
+    # 511 and 513 (32 segments of 16; 17 of 32, the last of one tile), 4224
+    # and every payload bucket's NT (the continuous member's decode runs
+    # waves of its blocks' bucket, 1152 tiles); each with a lane whose
+    # state turns EOB and one whose state turns error inside a segment, and
+    # one whose first segment ends in a state of 48..126 (every entry of
+    # its last map 100).
+    low = dk.STAGE_C_MIN_SEGMENT
+    nts = sorted({1, 2, low - 1, low + 1, 511, 513, 4224, *(P // 64 for P in wp.P_BUCKETS_PALLAS)})
+    for NT in nts:
+        seg = dk.stage_c_segment(1, NT)
+        m = np.concatenate([maps_of(1, NT), rng.integers(0, 48, (3, NT, 48)).astype(np.uint8)])
+        inside = min(NT - 1, seg // 2 + 1)
+        m[1, inside], m[2, inside], m[3, min(NT, seg) - 1] = 127, 255, 100
+        for lane in range(4):
+            cases.append((f"L=1 NT={NT} ({-(-NT // seg)} segments of {seg}), lane {lane}", m[lane : lane + 1],
+                          np.array([5], np.int32)))
     out = [(label, torch.from_numpy(m).to(device), torch.from_numpy(e).to(device)) for label, m, e in cases]
     L, NT = 64, 384
     flat = torch.from_numpy(maps_of(L, NT).reshape(-1)).to(device)
@@ -1873,6 +1900,41 @@ def phase_match_edges(corpus: bytes, device, K: Kernels) -> None:
     match_kernels(K, "random", rand, full.clamp(max=MEMBER), 0, True)
     log("match finder: edge rows equal to their plain versions at qualities 0-2; the repeat at distance 32768 "
         "found, the one at 32769 not; no link across 65536 or 65537 columns")
+    match_keys_edges(corpus, device, K)
+
+
+def match_keys_edges(corpus: bytes, device, K: Kernels) -> None:
+    """``match_keys`` at the edges of its vector path: rows sliced one byte
+    into a buffer (not 4-byte aligned: the byte path), S of 65535, 4097
+    and 23 (not a multiple of 4 or 16: the byte path), S of 4100 and 4112
+    (a multiple of 4 and 16 ending inside a warp's runs: the vector path,
+    its last words from past S); F = 1 (each family alone) and 3, with and
+    without hstart."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch.codec import encode as pe
+
+    flat = np.frombuffer(corpus, np.uint8)
+    rng = np.random.default_rng(17)
+    L = 8
+    for S in (65536, 65535, 4112, 4100, 4097, 23):
+        rows = flat[: L * S].reshape(L, S).copy()
+        rows[1] = rng.integers(0, 256, S, dtype=np.uint8)
+        rows[2] = 0
+        lengths = torch.from_numpy(np.array([S, S, S, 0, 1, S - 1, S // 2, S], np.int32)).to(device)
+        hstart = torch.from_numpy(np.array([0, 0, 5, 0, 0, 3, S // 3, S], np.int32)).to(device)
+        buf = torch.zeros(L * S + 1, dtype=torch.uint8, device=device)
+        buf[1:] = torch.from_numpy(rows.reshape(-1)).to(device)
+        for layout, data in (("aligned", buf[1:].clone().view(L, S)), ("1 byte into a buffer", buf[1:].view(L, S))):
+            for families in ((pe.FAMILY_4,), (pe.FAMILY_3,), (pe.FAMILY_6,), (pe.FAMILY_4, pe.FAMILY_3, pe.FAMILY_6)):
+                for hs in (None, hstart):
+                    K.compare("match_keys", lambda: pe.match_keys(data, lengths, families, hs),
+                              lambda: pe._match_keys_plain(data, lengths, families, hs),
+                              [data, lengths, *([] if hs is None else [hs])],
+                              {"edge": layout, "keys": [L, S], "families": families, "hstart": hs is not None},
+                              main_path=False)
+    log("match_keys: rows not 4-byte aligned, S not a multiple of 16 and F = 1 and 3 equal to the plain version")
 
 
 def match_finder_profile(label: str, data, lengths, lazy: bool, quality: int, hist=None, hstart=None) -> None:

@@ -49,7 +49,7 @@ SIGNATURES = {
     "td_stage_a_tables": [_P, _P, _I, _P],
     "td_stage_a": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "td_stage_b": [_P, _P, _I, _I, _P],
-    "td_stage_c": [_P] * 5 + [_I, _I, _P],
+    "td_stage_c": [_P] * 6 + [_I, _I, _I, _P],
     "td_stage_dc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "td_compact": [_P, _P, _P, _P, _I, _I, _I, _P],
     "td_compact_occupancy": [_P],

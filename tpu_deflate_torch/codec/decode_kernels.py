@@ -471,10 +471,33 @@ def stage_c_plain(transfers: torch.Tensor, entry0: torch.Tensor) -> tuple[torch.
     return entries.to(torch.uint8), applied[:, -1].to(torch.uint8)
 
 
+STAGE_C_THREADS = 128  # threads a block of csrc/stage_c.cu
+STAGE_C_MIN_SEGMENT, STAGE_C_MAX_SEGMENT = 16, 512  # tiles a block of csrc/stage_c.cu
+STAGE_C_LOOK = 32  # predecessors a look-back round of csrc/stage_c.cu reads
+STAGE_C_BLOCKS = 96  # the most blocks a wave is cut into while segments can grow
+
+
+def stage_c_segment(L: int, NT: int) -> int:
+    """Tiles a block of ``csrc/stage_c.cu`` takes: the smallest power of two
+    from ``STAGE_C_MIN_SEGMENT`` up to ``STAGE_C_MAX_SEGMENT`` that leaves a
+    lane at most ``STAGE_C_LOOK`` segments (a look-back then reads every
+    predecessor in one round) and the wave at most ``STAGE_C_BLOCKS``, never
+    more than NT. A one-lane wave of a few hundred to a few thousand tiles
+    gets 17 to 32 blocks, the main path's 256-lane waves one a lane.
+    Measured on the H100 (``scripts/stage_c_segments.py``): shorter
+    segments spread a wave wider, but their look-backs take more rounds,
+    and past ~100 blocks that costs more than the SMs it fills."""
+    seg = STAGE_C_MIN_SEGMENT
+    while seg < STAGE_C_MAX_SEGMENT and (-(-NT // seg) > STAGE_C_LOOK or L * -(-NT // seg) > STAGE_C_BLOCKS):
+        seg *= 2
+    return min(seg, NT)
+
+
 def stage_c(transfers: torch.Tensor, entry0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage C: transfer maps (L, NT, 48) uint8, entry0 (L,) int32 ->
     (entries (L, NT) uint8, final state (L,) uint8, the entries as int32,
-    the form K3 takes); one launch of ``csrc/stage_c.cu`` on the card."""
+    the form K3 takes); one launch of ``csrc/stage_c.cu`` on the card, a
+    block a segment of :func:`stage_c_segment` tiles."""
     _build.check_tensor("transfers", transfers, torch.uint8, 3)
     _build.check_tensor("entry0", entry0, torch.int32, 1)
     L, NT, E = transfers.shape
@@ -487,10 +510,14 @@ def stage_c(transfers: torch.Tensor, entry0: torch.Tensor) -> tuple[torch.Tensor
     entries = torch.empty((L, NT), dtype=torch.uint8, device=dev)
     entries32 = torch.empty((L, NT), dtype=torch.int32, device=dev)
     final = torch.empty(L, dtype=torch.uint8, device=dev)
+    seg = stage_c_segment(L, NT)
+    # Each (lane, segment)'s published map (48 bytes: 6 int64) and status
+    # word, then the segments' ticket counter.
+    scratch = torch.zeros(L * -(-NT // seg) * 7 + 1, dtype=torch.int64, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.td_stage_c(transfers.data_ptr(), entry0.data_ptr(), entries.data_ptr(), entries32.data_ptr(),
-                             final.data_ptr(), L, NT, _build.stream(dev))
+                             final.data_ptr(), scratch.data_ptr(), L, NT, seg, _build.stream(dev))
     _build.check(err, "td_stage_c")
     LAUNCHES["stage_c"] += 1
     return entries, final, entries32

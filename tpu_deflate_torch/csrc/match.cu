@@ -15,7 +15,23 @@
 // td_match_keys (match_keys_kernel): h[f, l, i] (int32) = family f's 16-bit
 // multiplicative hash of the zero-extended row's bytes i..i+3 (4-byte),
 // i..i+2 (3-byte) or i..i+5 (6-byte), or -1 where i is not valid (i >=
-// lengths[l], or i < hstart[l]).
+// lengths[l], or i < hstart[l]). Every family is hashed from the same
+// registers in one pass, so the row is read once for all of them. A warp
+// takes 512 positions as four runs of 128, lane k positions 4k..4k+3 of
+// each: one 4-byte load a run gives the lane its run's bytes, shuffles from
+// lanes k + 1 and k + 2 (lanes 0 and 1 of the next run for the last two)
+// give the 8 bytes the run's windows reach past it, each position's
+// windows are funnel shifts of those three words, and each family's keys
+// of a run leave as one 16-byte store, so a warp writes 512 contiguous
+// bytes a store (streaming stores: evict first). A block (4096 positions of
+// one row) reads lengths and hstart once. Where a row is not 4-byte aligned
+// or S is not a multiple of 4, a lane gathers its 12 bytes one at a time
+// (zeros past S) and stores its keys one at a time. Bound on the H100:
+// bytes, the row read and each family's keys written once (1 + 4 F bytes a
+// position). A run of 16 positions a thread, four 16-byte stores a family
+// 64 bytes apart across the warp, took as long as a thread a position,
+// ~2.5x the bound: the stores, not the loads, were the limit
+// (scripts/keys_variants.py).
 //
 // td_match_chain (match_chain_kernel): prev[f, l, i] (uint16) = the
 // distance back from i to the nearest earlier position of the same hash,
@@ -104,6 +120,9 @@ constexpr int FAR_DIST = 4096;  // a run of 3 farther back than this is not wort
 constexpr int MAX_WORDS = 16;   // the widest compare, in 4-byte words
 
 constexpr int KEY_THREADS = 256;
+constexpr int KEY_RUNS = 4;                              // runs of 4 positions a thread, 128 apart
+constexpr int KEY_WARP = 128 * KEY_RUNS;                 // positions a warp
+constexpr int KEY_BLOCK = KEY_WARP * KEY_THREADS / 32;   // positions a block
 constexpr int CHAIN_WALKERS = 16;                            // warps a block, one a hash part
 constexpr int CHAIN_THREADS = 32 * CHAIN_WALKERS;
 constexpr int CHAIN_PART_BITS = 4;                           // a hash's part: its top 4 bits
@@ -125,25 +144,77 @@ constexpr int SEL_PER = SEL_B / SEL_THREADS;                   // positions a th
 constexpr int SEL_WORDS = (SEL_B + 1 + MAX_RUN + 31) / 32 + 1; // equality words a distance
 constexpr int SEL_STAGE = 4 + 32 * SEL_WORDS;                  // bytes from 4 before the block
 
-// keys (F, L, S): grid (ceil(S / KEY_THREADS), L, F), a thread a position;
-// family f is bits 2f..2f+1 of codes.
+__device__ __forceinline__ uint32_t byte_word(const uint8_t* row, int p, int S) {
+  uint32_t x = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) x |= (p + b < S ? (uint32_t)row[p + b] : 0u) << (8 * b);
+  return x;
+}
+
+// keys (F, L, S): grid (ceil(S / KEY_BLOCK), L); a warp takes KEY_WARP
+// positions as KEY_RUNS runs of 128, lane k positions 4k..4k+3 of each;
+// family f is bits 2f..2f+1 of codes; vec: the rows are 4-byte aligned and
+// the keys' rows 16-byte aligned (S % 4 == 0).
 __global__ void __launch_bounds__(KEY_THREADS)
     match_keys_kernel(const uint8_t* __restrict__ data, const int* __restrict__ lengths,
-                      const int* __restrict__ hstart, int* __restrict__ keys, int S, int codes) {
+                      const int* __restrict__ hstart, int* __restrict__ keys, int S, int F, int codes, int vec) {
+  __shared__ int s_len, s_hstart;
   const int l = blockIdx.y;
-  const int family = (codes >> (2 * blockIdx.z)) & 3;
-  const int i = blockIdx.x * KEY_THREADS + threadIdx.x;
-  if (i >= S) return;
+  if (threadIdx.x == 0) {
+    s_len = lengths[l];
+    s_hstart = hstart == nullptr ? 0 : hstart[l];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int wbase = blockIdx.x * KEY_BLOCK + (threadIdx.x >> 5) * KEY_WARP;
   const uint8_t* row = data + (size_t)l * S;
-  uint32_t b[6];
+  int* out = keys + (size_t)l * S;
+  const size_t plane = (size_t)gridDim.y * S;
+  const int len = s_len, hs = s_hstart;
+  uint32_t x[KEY_RUNS + 1];  // the lane's word of each run, then lanes 0 and 1 the two after the last
+  if (vec) {
 #pragma unroll
-  for (int t = 0; t < 6; ++t) b[t] = i + t < S ? row[i + t] : 0u;
-  const uint32_t w = b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24;
-  uint32_t x = w;
-  if (family == 1) x = w & 0xFFFFFFu;
-  if (family == 2) x = w ^ ((b[4] | b[5] << 8) * H6_MUL);
-  const bool valid = i < lengths[l] && (hstart == nullptr || i >= hstart[l]);
-  keys[((size_t)blockIdx.z * gridDim.y + l) * S + i] = valid ? (int)((x * HASH_MUL) >> HASH_SHIFT) : -1;
+    for (int r = 0; r <= KEY_RUNS; ++r) {
+      const int p = wbase + 128 * r + 4 * lane;
+      x[r] = (r < KEY_RUNS || lane < 2) && p < S ? __ldg(reinterpret_cast<const uint32_t*>(row + p)) : 0u;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < KEY_RUNS; ++r) {
+    const int i0 = wbase + 128 * r + 4 * lane;
+    uint32_t w0, w1, w2;  // bytes i0..i0+3, i0+4..i0+7, i0+8..i0+11
+    if (vec) {
+      const uint32_t a1 = __shfl_down_sync(0xFFFFFFFFu, x[r], 1), b1 = __shfl_sync(0xFFFFFFFFu, x[r + 1], 0);
+      const uint32_t a2 = __shfl_down_sync(0xFFFFFFFFu, x[r], 2);
+      const uint32_t b2 = __shfl_sync(0xFFFFFFFFu, x[r + 1], (lane + 2) & 31);
+      w0 = x[r];
+      w1 = lane == 31 ? b1 : a1;
+      w2 = lane >= 30 ? b2 : a2;
+    } else {
+      w0 = byte_word(row, i0, S);
+      w1 = byte_word(row, i0 + 4, S);
+      w2 = byte_word(row, i0 + 8, S);
+    }
+    for (int f = 0; f < F; ++f) {
+      const int family = (codes >> (2 * f)) & 3;
+      int h[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t a = __funnelshift_r(w0, w1, 8 * j);  // bytes i0+j..i0+j+3
+        const uint32_t b = __funnelshift_r(w1, w2, 8 * j);  // bytes i0+j+4..i0+j+7
+        const uint32_t y = family == 0 ? a : family == 1 ? (a & 0xFFFFFFu) : (a ^ ((b & 0xFFFFu) * H6_MUL));
+        h[j] = i0 + j < len && i0 + j >= hs ? (int)((y * HASH_MUL) >> HASH_SHIFT) : -1;
+      }
+      int* o = out + f * plane + i0;
+      if (vec) {
+        if (i0 < S) __stcs(reinterpret_cast<int4*>(o), make_int4(h[0], h[1], h[2], h[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (i0 + j < S) o[j] = h[j];
+      }
+    }
+  }
 }
 
 // keys (F, L, S) -> prev (F, L, S): grid (L, F), CHAIN_SMEM bytes of
@@ -522,10 +593,12 @@ __global__ void __launch_bounds__(SEL_THREADS)
 
 extern "C" int td_match_keys(const void* data, const void* lengths, const void* hstart, void* keys, int L,
                              int S, int F, int codes, void* stream) {
-  const dim3 grid((S + KEY_THREADS - 1) / KEY_THREADS, L, F);
+  const int vec = S % 4 == 0 && (reinterpret_cast<uintptr_t>(data) & 3) == 0 &&
+                  (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
+  const dim3 grid((S + KEY_BLOCK - 1) / KEY_BLOCK, L);
   match_keys_kernel<<<grid, KEY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int*>(lengths), static_cast<const int*>(hstart),
-      static_cast<int*>(keys), S, codes);
+      static_cast<int*>(keys), S, F, codes, vec);
   return (int)cudaGetLastError();
 }
 
