@@ -25,7 +25,15 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    states that turn 127 or 255 inside a segment and a first segment that
    ends in 48..126, maps not 16-byte aligned) and with one call's launches
    counted (one launch and the zero fill of its look-back scratch, no
-   other device work), K3
+   other device work), the wave summary (the fold of K3's summary rows
+   into the (7, L) vector) on that wave, with one call's launches counted
+   (one launch and its scratch's zero fill), and on edge rows (a 1-lane
+   wave of 1 and of 4224 tiles, 256 x 1152 waves with and without nlit,
+   overflow in one lane only and in the last lane only, rows over the whole
+   int32 range), the tile split on edge streams (one lane of 1024 tiles of
+   258-byte runs, straddlers as the last and the first token of a scan
+   segment, a run ending on a seam at a segment's edge, -1 runs over
+   segment edges, T = 1, tokens past tile T - 1, K = 0), K3
    again at every k1 on the main path's own 4-lane waves, on edge
    deltas (0, -5, 60, the int32 limits, dense sentinels; entries 0, 47, 48
    and 255) and on tiles of 512 one-bit deltas, K4 and K7 again on the
@@ -50,12 +58,16 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    kernel's bound;
 4. the main path: ``engine.decompress`` of the 48 MiB corpus with the
    defaults (device resolve), byte-exact, every Huffman member resolved on
-   the device and every main-path kernel launched, stage C held against
-   its plain version on every wave of the run, with each kernel's
+   the device and every main-path kernel launched, stage C and the wave
+   summary held against their plain versions on every wave of the run (one
+   wave summary a wave), one decode's launches, aten ops and device events
+   a wave, with each kernel's
    bound per launch and summed over the run (with --profile, each K3, K4,
-   K6 and lane CRC launch's device time beside its bound); 5 timed runs;
+   K6, lane CRC and wave summary launch's device time beside its bound); 5
+   timed runs;
 5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
-   byte-exact with the packed token pull (K7) launched (with --profile,
+   byte-exact with the packed token pull (K7) launched, its wave summaries
+   (with nlit) held against their plain version (with --profile,
    each K4 and K7 launch's device time beside its bound), and 3 timed runs
    of it on the 48 MiB corpus for comparison;
 6. the ``device_resolve="on"`` route: a gzip -9 stream of 1 MiB in one
@@ -67,10 +79,13 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    the card, tile split, chained K5/K6 and lane CRC) with every kernel of
    the route launched and K7 not, each kernel's bound per launch, and each
    kernel against its plain version on the arguments the route gave it
-   (its block waves, a first and a chained step of each tile group, the
-   CRC at each group's rows); its device memory peak; the split on the
-   card equal to ``split_tokens_tiles`` and each chained CRC equal to zlib
-   on the same tokens, with the split's memory a token; under a 512 KiB
+   (its block waves and their summaries, each group's split, a first and
+   a chained step of each tile group, the CRC at each group's rows); its
+   device memory peak; the split on the card equal to
+   ``split_tokens_tiles`` and to its plain version, with one call's
+   launches counted (the split kernel and its scratch's zero fill, no other
+   device work), its kernels' device time and its memory a token above its
+   output, and each chained CRC equal to zlib on the same tokens; under a 512 KiB
    batch bound and passes of 8 tiles every member on the device route, the
    1 MiB members in 2 passes each and K7 not launched, on the card and over
    a 4-shard mesh of it, byte-exact with the same stats; 3 timed runs
@@ -135,7 +150,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 12. the continuous encode's main path: ``engine.compress`` of the 48 MiB
    corpus at effort 4, one member of 768 blocks, byte-exact through
    ``gzip.decompress`` and the port's decode on the card (one member on the
-   device route, K7 not launched), the match finder's kernels (three
+   device route, K7 not launched, one tile split, one wave summary a wave,
+   both held against their plain versions), the match finder's kernels (three
    families a batch), K8-K10 and the lane CRC launched (the CRC against
    its plain version on the rows the path gave it), each kernel's bound
    per launch and summed, the device memory peak, the ratio beside effort
@@ -147,7 +163,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    7-bit random bytes in blocks of 128 KiB (F2);
 14. the mesh (``phase_mesh``): 4 shards of the card. The mesh path is
    ``engine.decompress(corpus's members, mesh=)`` (byte-exact, every
-   Huffman member resolved on the device) then ``engine.compress(corpus,
+   Huffman member resolved on the device), the big members of phase 6
+   decoded over the mesh (the tile split on each shard), then ``engine.compress(corpus,
    effort=4, mesh=)`` (byte-identical to phase 12's member), every kernel
    but K7 launched (the match finder's among them), and each kernel call of
    that run (captured: the first
@@ -166,8 +183,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    resolves it on the device route in 2 passes (device_resolved 1,
    host_resolved 0, K7 not launched, every other kernel of the route
    launched), each wrapper's bytes bound per launch, and every kernel of
-   the run (K1 tables, K1-K4 on its one-lane block waves, K5, K6 and the
-   lane CRC on its tile steps; the first calls of each shape) held against
+   the run (K1 tables, K1-K4 and the wave summary on its one-lane block
+   waves, the tile split of each pass, K5, K6 and the lane CRC on its tile
+   steps; the first calls of each shape) held against
    its plain version on the arguments the run gave it; its device memory
    peak beside the member's token bytes; K5,
    K6 and the lane CRC on pass 1's first tile step, with the tail carried
@@ -185,9 +203,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    64 x 64 KiB) and ``link_probe``. The path's run (each row once at
    reps=1): each row on the kernels ("cuda") with 0 mismatches, every
    kernel but K7 launched over the rows and K7 not, each wrapper's bytes
-   bound per launch, and every kernel of the run (K1 tables, K1-K4 on the
-   rows' waves, K5, K6 and the lane CRC on the full row's resolve batches
-   and the big row's chained steps, the match finder's kernels and K8-K10
+   bound per launch, and every kernel of the run (K1 tables, K1-K4 and the
+   wave summary on the rows' waves, the big row's tile split, K5, K6 and
+   the lane CRC on the full row's resolve batches and the big row's
+   chained steps, the match finder's kernels and K8-K10
    on the encode batch; the first
    two calls of each lane count) held against its plain version on the
    arguments the rows gave it. Then the timed run: each row printed with
@@ -252,10 +271,12 @@ KERNELS = {
     "match_bucket": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
     "match_select": ("match.cu", "tpu_deflate/codec/encode_jax.py:144", "encode"),
     "finish_analysis": ("finish.cu", "tpu_deflate/codec/encode_jax.py:372", "encode"),
+    "tile_split": ("tile_split.cu", "tpu_deflate/codec/resolve_pallas.py:620", "big"),
+    "wave_summary": ("stage_dc.cu", "tpu_deflate/codec/decode_jax_v2.py:1331", "main"),
 }
 PROFILE_KERNELS = (
     "stage_a_tables_kernel", "stage_a_kernel", "stage_b_kernel", "stage_c_kernel", "stage_dc_kernel",
-    "compact_kernel", "expand_kernel", "sweep_kernel", "crc32_lanes_kernel",
+    "compact_kernel", "expand_kernel", "sweep_kernel", "crc32_lanes_kernel", "wave_summary_kernel",
 )
 ENCODE_PROFILE_KERNELS = (
     "match_keys_kernel", "match_chain_kernel", "match_bucket_kernel", "match_select_kernel",
@@ -401,7 +422,7 @@ def captured(*names, per_key: int = 2):
 PROFILE_NAMES = {
     "stage_c": "stage_c_kernel", "stage_dc": "stage_dc_kernel", "compact_flat": "compact_kernel",
     "compact_any": "compact_kernel", "sweep": "sweep_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel",
-    "_finish_analysis": "finish_analysis_kernel",
+    "_finish_analysis": "finish_analysis_kernel", "wave_summary": "wave_summary_kernel",
 }
 
 
@@ -609,6 +630,26 @@ def launch_profile(label: str, fn, kernels: dict, allowed: tuple = ()) -> list:
     return events
 
 
+def wave_launches(fn, label: str) -> None:
+    """One decode (``call_record``): the port's kernel launches, the aten
+    ops that launch device work and the device events, in all and a wave
+    (``LAST_DECODE_STATS["waves"]``)."""
+    import collections
+
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+
+    launches, ops, events = call_record(fn)
+    waves = pv2.LAST_DECODE_STATS["waves"]
+    device_ops = collections.Counter({op: n for op, n in ops.items() if op not in NO_LAUNCH_OPS})
+    kernels = [e for e in events if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    n_ports, n_ops = sum(launches.values()), sum(device_ops.values())
+    log(f"{label}: one decode of {waves} waves: {n_ports} launches of the port's kernels "
+        f"({n_ports / waves:.1f} a wave), {n_ops} aten ops that launch device work ({n_ops / waves:.1f} a wave; "
+        f"most {json.dumps(dict(device_ops.most_common(8)))}), "
+        + (f"{len(kernels)} device kernel events ({len(kernels) / waves:.1f} a wave)" if events
+           else "device events not recorded"))
+
+
 def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
     """K1-K4 and K7 on one real wave."""
     import collections
@@ -654,9 +695,9 @@ def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
             "stage_c_entries differs from stage_c")
     launch_profile("stage_c_entries on the corpus wave", lambda: pv2.stage_c_entries(transfers, w["rem"]),
                    {"stage_c": 1}, ("aten::zeros", "aten::zero_", "aten::fill_"))
-    tokc_main = None
+    tokc_main = summ_main = None
     for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
-        tokc, _summ = K.compare(
+        tokc, summ = K.compare(
             "stage_dc",
             lambda: dk.stage_dc(dt, tt, entries, k1=k1),
             lambda: dk.stage_dc_plain(dt, tt, entries, k1),
@@ -665,7 +706,11 @@ def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
             main_path=k1 == k1_wave,
         )
         if k1 == k1_wave:
-            tokc_main = tokc
+            tokc_main, summ_main = tokc, summ
+    K.compare("wave_summary", lambda: dk.wave_summary(summ_main), lambda: dk.wave_summary_plain(summ_main),
+              [summ_main], {"summ": [L, 8, NT]})
+    launch_profile("wave_summary on the corpus wave", lambda: dk.wave_summary(summ_main), {"wave_summary": 1},
+                   ("aten::zeros", "aten::zero_", "aten::fill_"))
     flat = tokc_main.reshape(L, NT * k1_wave)
     (tokens,) = K.compare(
         "compact_flat",
@@ -898,6 +943,114 @@ def phase_stage_c_edges(device, K: Kernels) -> None:
         L, NT, _E = maps.shape
         K.compare("stage_c", lambda: dk.stage_c(maps, entry0), lambda: stage_c_plain3(maps, entry0), [maps, entry0],
                   {label: [L, NT]}, main_path=False)
+
+
+def wave_summary_edge_rows(device) -> list:
+    """(label, K3-like summary rows (L, 8, NT) int32, nlit or None) from a
+    seed: a 1-lane wave of one tile and of 4224, the main path's widest
+    wave (256 x 1152) with EOB and error hits, overflow in one lane only and
+    in the last (a padding) lane only, rows over the whole int32 range (sums
+    past int32, negative hit and overflow sums), nlit given."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch.codec import wave_prep as wp
+
+    rng = np.random.default_rng(18)
+
+    def rows(L, NT, *, eob=(), err=(), overflow=()):
+        s = np.zeros((L, 8, NT), np.int32)
+        s[:, wp.ROW_COUNT] = rng.integers(0, 177, (L, NT))
+        s[:, wp.ROW_SIZE_SUM] = rng.integers(0, 60000, (L, NT))
+        for lane in eob:
+            t = int(rng.integers(0, NT))
+            s[lane, wp.ROW_EOB_HIT, t], s[lane, wp.ROW_EOB_POS, t] = 1, rng.integers(0, wp.W_P)
+            s[lane, wp.ROW_EOB_TOK, t] = -int(rng.integers(1, 16))
+        for lane in err:
+            t = int(rng.integers(0, NT))
+            s[lane, wp.ROW_ERR_HIT, t], s[lane, wp.ROW_ERR_TOK, t] = 1, -(100 + int(rng.integers(0, 19)))
+        for lane in overflow:
+            s[lane, wp.ROW_OVERFLOW, int(rng.integers(0, NT))] = 1
+        return torch.from_numpy(s).to(device)
+
+    wild = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (7, 8, 300)).astype(np.int32)).to(device)
+    wild[0] = (1 << 31) - 1
+    wild[1, wp.ROW_EOB_HIT] = -1
+    wild[2, wp.ROW_OVERFLOW] = -3
+    nlit = torch.from_numpy(rng.integers(0, 1 << 20, 256).astype(np.int32)).to(device)
+    return [
+        ("1 lane x 1 tile", rows(1, 1, eob=(0,)), None),
+        ("1 lane x 4224 tiles", rows(1, 4224, eob=(0,), err=(0,)), None),
+        ("256 x 1152", rows(256, 1152, eob=range(0, 256, 2), err=range(1, 256, 3)), None),
+        ("256 x 1152, nlit", rows(256, 1152, eob=range(256)), nlit),
+        ("overflow in lane 3 only", rows(8, 37, eob=range(8), overflow=(3,)), None),
+        ("overflow in the padding lane only", rows(8, 37, eob=range(7), overflow=(7,)), None),
+        ("int32 range", wild, None),
+        ("int32 range, nlit", wild, nlit[:7].contiguous()),
+    ]
+
+
+def phase_wave_summary_edges(device, K: Kernels) -> None:
+    """The wave summary against its plain version on the edge rows."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    for label, summ, nlit in wave_summary_edge_rows(device):
+        K.compare("wave_summary", lambda: dk.wave_summary(summ, nlit), lambda: dk.wave_summary_plain(summ, nlit),
+                  [summ] + ([] if nlit is None else [nlit]), {label: list(summ.shape)}, main_path=False)
+
+
+def split_edge_streams(device) -> list:
+    """(label, (L, K) int32 tokens, T) for the tile split's edges: one lane
+    of 1024 tiles of 258-byte runs (every seam straddled, the last 32 bytes
+    past tile 1023); straddlers as the last token of a scan segment and as
+    the first of the next, a run ending on a seam at a segment's edge, -1
+    runs over segment edges and other negative values mid-stream; T = 1 on
+    streams of several tiles; tokens past T - 1; K = 0."""
+    import numpy as np
+    import torch
+
+    from tpu_deflate_torch.codec import resolve as rs
+
+    M, N, SEG = rs.TOKEN_MATCH_BIT, rs.N_POS, rs.TILE_SPLIT_SEGMENT
+    rng = np.random.default_rng(20)
+
+    def m(run, d=0):
+        return M | run << 16 | d
+
+    def tail(n):  # random matches and literals
+        return [m(int(r), int(d)) if r >= 3 else int(d) & 0xFF
+                for r, d in zip(rng.integers(0, 259, n), rng.integers(0, 32768, n))]
+
+    def batch(lanes, pad=0):
+        K = max(len(x) for x in lanes) + pad
+        out = np.full((len(lanes), K), -1, np.int64)
+        for i, x in enumerate(lanes):
+            out[i, : len(x)] = x
+        return torch.from_numpy(out.astype(np.int32)).to(device)
+
+    runs258 = [m(258, i & 0x7FFF) for i in range(N * 1024 // 258 + 1)]
+    at_end = [m(16, 1)] * (SEG - 2) + [7, m(258, 2)] + tail(9000)  # straddler = token 4095
+    at_start = [m(16, 1)] * (SEG - 1) + [7, m(258, 3)] + tail(9000)  # straddler = token 4096
+    on_seam = [m(16, 1)] * (SEG - 2) + [m(32, 4)] + tail(9000)  # token 4094 ends on the seam
+    holes = tail(12000)
+    holes[8000:8000] = [-1] * 300 + [-5, -(1 << 31)]  # over the edge at 8192
+    holes[SEG - 3 : SEG - 3] = [-1] * 7
+    return [
+        ("1 lane x 1024 tiles of 258-runs", batch([runs258]), 1024),
+        ("straddlers and -1 runs on segment edges", batch([at_end, at_start, on_seam, holes], pad=100), 16),
+        ("T = 1", batch([at_end, tail(3000), [5]]), 1),
+        ("tokens past T - 1", batch([runs258[: 300000 // 258], tail(20000)]), 3),
+        ("K = 0", torch.zeros((2, 0), dtype=torch.int32, device=device), 2),
+    ]
+
+
+def phase_split_edges(device, K: Kernels) -> None:
+    """The tile split against its plain version on the edge streams."""
+    from tpu_deflate_torch.codec import resolve as rs
+
+    for label, tok, T in split_edge_streams(device):
+        K.compare("tile_split", lambda: rs.split_tiles_device(tok, T), lambda: rs.split_tiles_plain(tok, T), [tok],
+                  {label: list(tok.shape), "T": T}, main_path=False)
 
 
 def k3_edge_inputs():
@@ -1295,8 +1448,9 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int, K: Kernels) -> tuple[
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as (calls, shapes, order), captured((dk, "stage_c"), per_key=64) as caps:
+               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+    with recorded(*kernels) as (calls, shapes, order), \
+            captured((dk, "stage_c"), (dk, "wave_summary"), per_key=64) as caps:
         dk.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
@@ -1318,7 +1472,11 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int, K: Kernels) -> tuple[
     require(len(caps["stage_c"]) == launches["stage_c"] == launches["stage_b"],
             f"stage C: {len(caps['stage_c'])} calls captured, {launches['stage_c']} launches, "
             f"{launches['stage_b']} of K2")
+    require(len(caps["wave_summary"]) == launches["wave_summary"] == launches["stage_dc"] == stats["waves"],
+            f"wave_summary: {len(caps['wave_summary'])} calls captured, {launches['wave_summary']} launches, "
+            f"{launches['stage_dc']} of K3, {stats['waves']} waves: expected one a wave")
     replay_calls(caps, K, "main path")
+    wave_launches(lambda: engine.decompress(gz, engine="cuda"), "main path")
     walls = timed_decode(gz, corpus, E2E_REPS)
     med = statistics.median(walls)
     log(f"main path {E2E_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e9:.4f} GB/s, "
@@ -1327,7 +1485,7 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int, K: Kernels) -> tuple[
     return launches, med, bounds
 
 
-def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None) -> dict:
+def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None, K: Kernels) -> dict:
     """The host-resolve route: K7 and the wave kernels at a smaller depth
     (with a profile dir: then profiled, each K4 and K7 launch's device time
     beside its bound), then timed at the main path's depth for
@@ -1341,7 +1499,8 @@ def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None) -> dict:
     off = DecoderConfig(device_resolve="off")
     small = bench.make_corpus(OFF_CORPUS_MB)
     gz_small = native.compress_members_native(small)
-    with recorded((dk, "compact_flat"), (dk, "compact_any")) as (calls, shapes, order):
+    with recorded((dk, "compact_flat"), (dk, "compact_any"), (dk, "wave_summary")) as (calls, shapes, order), \
+            captured((dk, "wave_summary")) as caps:
         dk.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz_small, engine="cuda", config=off)
@@ -1351,8 +1510,13 @@ def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None) -> dict:
     require(out == small, "device_resolve='off' output differs")
     log(f"off route ({OFF_CORPUS_MB} MiB): byte-exact, stats {json.dumps(stats)}, "
         f"launches {json.dumps(launches)}")
-    for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any"):
+    for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any", "wave_summary"):
         require(launches[k] > 0, f"kernel {k} was not launched on the off route")
+    require(launches["wave_summary"] == launches["stage_dc"], "the off route: not one wave_summary a wave")
+    require(all(len(args) == 2 and args[1] is not None for args, _kw in caps["wave_summary"]),
+            "the off route's wave summaries took no nlit")
+    replay_calls(caps, K, "off route")
+    del caps
     require(stats["device_resolved"] == 0 and launches["expand"] == 0, "off route resolved on device")
     if profile_dir:
         phase_profile(lambda: engine.decompress(gz_small, engine="cuda", config=off), "off route",
@@ -1406,8 +1570,8 @@ def big_members(corpus: bytes) -> tuple[bytes, list[bytes], list[bytes]]:
     return gz, chunks, payloads
 
 
-BIG_KERNELS = ("stage_a_tables", "stage_a", "stage_b", "stage_c", "stage_dc", "compact_flat", "expand", "sweep",
-               "crc32_lanes")
+BIG_KERNELS = ("stage_a_tables", "stage_a", "stage_b", "stage_c", "stage_dc", "compact_flat", "wave_summary",
+               "tile_split", "expand", "sweep", "crc32_lanes")
 
 
 def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels) -> dict:
@@ -1435,7 +1599,8 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
     data = b"".join(chunks)
     n_huff = len(payloads)
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+               (cl, "crc32_lanes_raw8")]
     with recorded(*kernels) as (calls, shapes, order), captured(*kernels) as caps:
         dk.reset_launches()
         t0 = time.monotonic()
@@ -1496,11 +1661,20 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
         require(all(y_h[i, :n].tobytes() == c for i, (n, (_st, c)) in enumerate(zip(totals, pairs))),
                 "the chained bytes differ from the members")
         split_ms = median_ms(lambda: rs.split_tiles_device(tok, T), SPLIT_REPS)
+        above = split_peak - tiles.numel() * 4
         log(f"big members, T={T}: {len(group)} lanes x {tok.shape[1]} token slots: split on the card equals "
             f"split_tokens_tiles, chained CRCs equal zlib; split {split_ms:.4f} ms (CUDA events, median of "
             f"{SPLIT_REPS}), summary rows 3 (residue) {int(summs[:, :, 3].sum())}; the split's device memory "
             f"peak {split_peak} bytes for {n_tok} tokens ({split_peak / max(n_tok, 1):.1f} bytes a token, "
-            f"its output of {tiles.numel() * 4} bytes included)")
+            f"its output of {tiles.numel() * 4} bytes included; {above} bytes above its output, "
+            f"{above / max(n_tok, 1):.4f} bytes a token)")
+        K.compare("tile_split", lambda: rs.split_tiles_device(tok, T), lambda: rs.split_tiles_plain(tok, T), [tok],
+                  {"big members": list(tok.shape), "T": T}, main_path=T == 16)
+        events = launch_profile(f"split_tiles_device, big members T={T}", lambda: rs.split_tiles_device(tok, T),
+                                {"tile_split": 1}, ("aten::zeros", "aten::zero_", "aten::fill_"))
+        us = {e.name: e.time_range.elapsed_us() for e in events if "split_" in e.name}
+        log(f"big members, T={T}: the split's kernels' device time in one call {json.dumps(us)} us "
+            f"(profiler; {sum(us.values()):.1f} us in all)")
 
     # Under a 512 KiB batch bound and passes of 8 tiles, each 1 MiB member is
     # a device-route batch of its own and resolves in 2 passes, and the 256
@@ -1575,8 +1749,9 @@ def profile_route(run, label: str, profile_dir: str, prefix: str, timed_median_s
 
     rs.split_tiles_device = annotated
     try:
-        averages = phase_profile(run, label, profile_dir, prefix, ("expand_kernel", "sweep_kernel", "crc32_lanes_kernel"),
-                                 timed_median_s, bounds)
+        averages = phase_profile(run, label, profile_dir, prefix, ("split_scan_kernel", "split_fill_kernel",
+                                                                   "expand_kernel", "sweep_kernel",
+                                                                   "crc32_lanes_kernel"), timed_median_s, bounds)
     finally:
         rs.split_tiles_device = split
     for e in averages:
@@ -1621,6 +1796,8 @@ def replay_calls(caps: dict, K: Kernels, label: str) -> None:
         "match_bucket": ("match_bucket", pe, pe._bucket_best_plain, None),
         "match_select": ("match_select", pe, pe._match_select_plain, None),
         "_finish_analysis": ("finish_analysis", pe, finish_plain, finish_parts),
+        "split_tiles_device": ("tile_split", rs, rs.split_tiles_plain, None),
+        "wave_summary": ("wave_summary", dk, dk.wave_summary_plain, None),
     }
     for wrapper, calls in caps.items():
         kname, module, plain, proj = plains[wrapper]
@@ -2457,8 +2634,10 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     require(members is not None and len(members) == 1, "the continuous encode is not one member")
 
     dec_kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-                   (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
-    with recorded(*dec_kernels) as (dec_calls, _shapes, _order):
+                   (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"),
+                   (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+    with recorded(*dec_kernels) as (dec_calls, _shapes, _order), \
+            captured((dk, "wave_summary"), (rs, "split_tiles_device"), per_key=1) as dec_caps:
         _build.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
@@ -2470,9 +2649,14 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     require(stats["device_resolved"] == 1 and stats["host_resolved"] == 0,
             "the continuous member did not resolve on the device route")
     require(dec_launches["compact_any"] == 0, "the continuous member's decode launched K7")
+    require(dec_launches["tile_split"] == 1 and dec_launches["wave_summary"] == stats["waves"],
+            f"the continuous member's decode: {dec_launches['tile_split']} splits (1 expected), "
+            f"{dec_launches['wave_summary']} wave summaries for {stats['waves']} waves")
     log(f"continuous decode: {dec_wall:.3f} s ({len(corpus) / dec_wall / 1e9:.4f} GB/s), {stats['waves']} waves, "
         f"stats {json.dumps(stats)}, launches {json.dumps(dec_launches)}")
     path_bounds("continuous decode", dec_calls)
+    replay_calls(dec_caps, K, "continuous decode")
+    del dec_caps
 
     t0 = time.monotonic()
     z9 = len(zlib.compress(corpus, 9))
@@ -2589,13 +2773,18 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"),
-               (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
+               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+               (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"),
+               (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
+    big_gz, big_chunks, _payloads = big_members(corpus)
     with captured(*kernels) as caps:
         _build.reset_launches()
         out = timed(f"decode of the corpus over {MESH_SHARDS} shards (argument copies for the replay included)",
                     lambda: engine.decompress(gz, engine="cuda", mesh=mesh))
         stats = dict(pv2.LAST_DECODE_STATS)
+        big_out = timed(f"decode of the big members over {MESH_SHARDS} shards (argument copies included)",
+                        lambda: engine.decompress(big_gz, engine="cuda", mesh=mesh))
+        big_stats = dict(pv2.LAST_DECODE_STATS)
         member = timed(f"engine.compress(corpus, effort=4) over {MESH_SHARDS} shards (argument copies for the "
                        "replay included)", lambda: engine.compress(corpus, engine="cuda", effort=4, mesh=mesh))
         launches = _build.all_launches()
@@ -2605,8 +2794,12 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     require(stats["device_resolved"] == n_huff and stats["host_resolved"] == 0,
             f"device_resolved {stats['device_resolved']} != {n_huff} Huffman members over the mesh")
     require(member == cont_gz, "the sharded continuous encode differs from the one-device member")
-    log(f"mesh decode stats {json.dumps(stats)}")
-    log(f"launches on the mesh path (decode, then the effort-4 encode): {json.dumps(launches)}")
+    require(big_out == b"".join(big_chunks), "the big members' sharded decode differs")
+    require(big_stats["device_resolved"] == len(big_chunks) and big_stats["host_resolved"] == 0,
+            f"a big member left the device route over the mesh: {big_stats}")
+    log(f"mesh decode stats {json.dumps(stats)}; big members {json.dumps(big_stats)}")
+    log(f"launches on the mesh path (decode, the big members' decode, then the effort-4 encode): "
+        f"{json.dumps(launches)}")
     for k in MESH_PATH_KERNELS:
         require(launches[k] > 0, f"kernel {k} was not launched on the mesh path")
 
@@ -2743,7 +2936,8 @@ def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
         return out
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+               (cl, "crc32_lanes_raw8")]
     pv2._resolve_passes, rs.split_tiles_device, rs.resolve_tiles_crc, cl.crc32_fold_tiles = (
         passes_spy, split_spy, chain_spy, fold_spy)
     try:
@@ -2882,9 +3076,9 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
                 and big["byte_mismatches"] == 0, "the big-member row did not verify every member")
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8"),
-               (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body")] + [
-                   (pe, k) for k in MATCH_WRAPPERS]
+               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+               (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"),
+               (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
     with recorded(*kernels) as (calls, _shapes, _order), captured(*kernels) as caps:
         _build.reset_launches()
         results = {name: run(reps=1) for name, run in rows}
@@ -2976,6 +3170,8 @@ def main(argv: list[str]) -> int:
     phase_k1_edges(gz, device, K)
     phase_k2_edges(device, K)
     phase_stage_c_edges(device, K)
+    phase_wave_summary_edges(device, K)
+    phase_split_edges(device, K)
     small = main_path_small_waves(gz, device)
     phase_k3_edges(small, device, K)
     phase_compact_edges(small, device, K)
@@ -2985,7 +3181,7 @@ def main(argv: list[str]) -> int:
     if args.profile:
         phase_profile(lambda: engine.decompress(gz, engine="cuda"), "decode", args.profile, "profile",
                       PROFILE_KERNELS, timed_median_s, bounds)
-    off_launches = phase_off_route(corpus, gz, args.profile)
+    off_launches = phase_off_route(corpus, gz, args.profile, K)
     phase_on_route(corpus)
     big_launches = phase_big_members(corpus, device, args.profile, K)
     phase_interop(corpus, gz, device)

@@ -150,17 +150,17 @@ def one_tree(tree: str) -> dict:
 
     # Stage C on the main path's waves.
     waves = []
-    run_wave = pv2.run_wave
+    wave_stages = pv2.wave_stages
 
     def spy(w, **kw):
         waves.append(w)
-        return run_wave(w, **kw)
+        return wave_stages(w, **kw)
 
-    pv2.run_wave = spy
+    pv2.wave_stages = spy
     try:
         assert engine.decompress(gz, engine="cuda") == corpus
     finally:
-        pv2.run_wave = run_wave
+        pv2.wave_stages = wave_stages
     inputs = [(dk.stage_b(dk.stage_a(w["grid"], dk.build_meta(w))[0]), w["rem"]) for w in waves]
     del waves
 

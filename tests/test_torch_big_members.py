@@ -336,13 +336,13 @@ def test_route_overflow_rerun_keeps_tokens_on_device(monkeypatch):
     """A member of 1- and 2-bit literal codes overflows the wave's k1; the
     k1 = 512 rerun's tokens stay on the device and resolve there."""
     k1s = []
-    run_wave = pv2.run_wave
+    wave_stages = pv2.wave_stages
 
     def spy(w, *, k1=None):
         k1s.append(k1)
-        return run_wave(w, k1=k1)
+        return wave_stages(w, k1=k1)
 
-    monkeypatch.setattr(pv2, "run_wave", spy)
+    monkeypatch.setattr(pv2, "wave_stages", spy)
     data = bytes([0, 1]) * 40000
     co = zlib.compressobj(9, zlib.DEFLATED, -15, 9, zlib.Z_HUFFMAN_ONLY)
     gz = _td_member(co.compress(data) + co.flush(), len(data), zlib.crc32(data))

@@ -172,13 +172,13 @@ def test_overflow_rerun(monkeypatch):
     """A degenerate stream whose tiles hold more tokens than the largest
     k1 (1- and 2-bit literal codes) reruns its wave with k1 = 512."""
     k1s = []
-    run_wave = pv2.run_wave
+    wave_stages = pv2.wave_stages
 
     def spy(w, *, k1=None):
         k1s.append(k1)
-        return run_wave(w, k1=k1)
+        return wave_stages(w, k1=k1)
 
-    monkeypatch.setattr(pv2, "run_wave", spy)
+    monkeypatch.setattr(pv2, "wave_stages", spy)
     data = bytes([0, 1]) * 40000
     co = zlib.compressobj(9, zlib.DEFLATED, -15, 9, zlib.Z_HUFFMAN_ONLY)
     raw = co.compress(data) + co.flush()
@@ -202,7 +202,7 @@ def test_wave_k1_matches_reference():
         assert v2._lane_k1(mtb) == wp._lane_k1(mtb)
     assert dk.LAUNCHES.keys() == {
         "stage_a_tables", "stage_a", "stage_b", "stage_c", "stage_dc", "compact_flat", "compact_any",
-        "expand", "sweep", "crc32_lanes",
+        "expand", "sweep", "crc32_lanes", "tile_split", "wave_summary",
     }
 
 

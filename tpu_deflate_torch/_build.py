@@ -66,6 +66,8 @@ SIGNATURES = {
     "td_match_occupancy": [_P],
     "td_match_select": [_P] * 11 + [_I, _I, _I, _P],
     "td_finish_analysis": [_P] * 16 + [_I, _I, _P],
+    "td_tile_split": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "td_wave_summary": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 # Kernel launches per wrapper since process start (or the last reset): the
@@ -76,7 +78,7 @@ SIGNATURES = {
 # difference.
 LAUNCHES = {
     "stage_a_tables": 0, "stage_a": 0, "stage_b": 0, "stage_c": 0, "stage_dc": 0, "compact_flat": 0,
-    "compact_any": 0, "expand": 0, "sweep": 0, "crc32_lanes": 0,
+    "compact_any": 0, "expand": 0, "sweep": 0, "crc32_lanes": 0, "tile_split": 0, "wave_summary": 0,
 }
 ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0, "match_keys": 0, "match_chain": 0,
                    "match_bucket": 0, "match_select": 0, "finish_analysis": 0}

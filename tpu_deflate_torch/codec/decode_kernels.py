@@ -1,7 +1,8 @@
 """The decode wave's kernels: stage A (K1, which on the card first builds
 each lane's decode tables with a kernel of its own, ``stage_a_tables``),
 stage B (K2), stage C (the maps composed over tiles), stage DC (K3) and
-level-2 compaction (K4, with K7 as its no-map mode).
+level-2 compaction (K4, with K7 as its no-map mode), and the fold of K3's
+summary rows into the wave's per-lane vector (``wave_summary``).
 
 Each wrapper checks its inputs, then runs the hand-written CUDA kernel of
 ``tpu_deflate_torch/csrc/`` on CUDA tensors, or the plain PyTorch version
@@ -46,6 +47,14 @@ from .wave_prep import (
     MA_MW,
     MA_PBITS,
     META_W,
+    ROW_COUNT,
+    ROW_EOB_HIT,
+    ROW_EOB_POS,
+    ROW_EOB_TOK,
+    ROW_ERR_HIT,
+    ROW_ERR_TOK,
+    ROW_OVERFLOW,
+    ROW_SIZE_SUM,
     SENT_EOB,
     SENT_ERR,
     TOKEN_MATCH_BIT,
@@ -603,6 +612,82 @@ def stage_dc(
     _build.check(err, "td_stage_dc")
     LAUNCHES["stage_dc"] += 1
     return tokens, summ
+
+
+# ---------------------------------------------------------------------------
+# The wave's summary fold (K3's summary rows -> the per-lane vector)
+# ---------------------------------------------------------------------------
+
+
+def wave_sums_plain(summ: torch.Tensor):
+    """The reference wave body's per-lane results from K3's summary rows
+    (L, 8, NT) int32: (counts, has_eob bool, eob_exit, err_code, out_total,
+    each (L,) int32, and overflow, a bool over the whole wave)."""
+    NT = summ.shape[2]
+    counts = summ[:, ROW_COUNT, :].sum(dim=1)
+    eob_hit = summ[:, ROW_EOB_HIT, :]
+    has_eob = eob_hit.sum(dim=1) > 0
+    tile_base = (torch.arange(NT, device=summ.device) * W_P).view(1, NT)
+    eob_pos = (summ[:, ROW_EOB_POS, :] + eob_hit * tile_base).sum(dim=1)
+    eob_tok = summ[:, ROW_EOB_TOK, :].sum(dim=1)
+    eob_exit = torch.where(has_eob, eob_pos + (-eob_tok - 1), 0)
+    err_hit = summ[:, ROW_ERR_HIT, :].sum(dim=1) > 0
+    err_tok = summ[:, ROW_ERR_TOK, :].sum(dim=1)
+    err_code = torch.where(err_hit, -err_tok - 100, 0)
+    out_total = summ[:, ROW_SIZE_SUM, :].sum(dim=1)
+    overflow = summ[:, ROW_OVERFLOW, :].sum() > 0
+    i32 = torch.int32
+    return counts.to(i32), has_eob, eob_exit.to(i32), err_code.to(i32), out_total.to(i32), overflow
+
+
+def pack_small(counts, has_eob, eob_exit, err_code, out_total, overflow, nlit=None):
+    """Stack a wave's per-lane results into one (7, L) int32 tensor, so the
+    host pulls one array instead of seven."""
+    L = counts.shape[0]
+    if nlit is None:
+        nlit = torch.zeros(L, dtype=torch.int32, device=counts.device)
+    return torch.stack(
+        [
+            counts.to(torch.int32),
+            has_eob.to(torch.int32),
+            eob_exit.to(torch.int32),
+            err_code.to(torch.int32),
+            out_total.to(torch.int32),
+            overflow.to(torch.int32).expand(L),
+            nlit.to(torch.int32),
+        ]
+    )
+
+
+def wave_summary_plain(summ: torch.Tensor, nlit: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain summary fold: :func:`pack_small` of :func:`wave_sums_plain`."""
+    return pack_small(*wave_sums_plain(summ), nlit=nlit)
+
+
+def wave_summary(summ: torch.Tensor, nlit: torch.Tensor | None = None) -> torch.Tensor:
+    """K3's summary rows (L, 8, NT) int32 -> the wave's (7, L) int32 vector
+    of :func:`pack_small`: counts, has_eob, eob_exit, err_code, out_total,
+    overflow (the whole wave's, in every lane) and ``nlit`` (L,) int32 (0
+    without it). On the card one launch of ``csrc/stage_dc.cu``'s
+    ``wave_summary_kernel`` after the zero fill of its two scratch words."""
+    _build.check_tensor("summ", summ, torch.int32, 3)
+    L, R, NT = summ.shape
+    _build.require(R == 8, f"summ: shape {tuple(summ.shape)}, expected (L, 8, NT)")
+    if nlit is not None:
+        _build.check_tensor("nlit", nlit, torch.int32, 1)
+        _build.require(nlit.shape[0] == L, f"nlit: shape {tuple(nlit.shape)}, expected ({L},)")
+    if not _build.on_card(summ, *([] if nlit is None else [nlit])):
+        return wave_summary_plain(summ, nlit)
+    dev = summ.device
+    out = torch.empty((7, L), dtype=torch.int32, device=dev)
+    scratch = torch.zeros(2, dtype=torch.int64, device=dev)  # the overflow total, the blocks done
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_wave_summary(summ.data_ptr(), None if nlit is None else nlit.data_ptr(), out.data_ptr(),
+                                  scratch.data_ptr(), L, NT, _build.stream(dev))
+    _build.check(err, "td_wave_summary")
+    LAUNCHES["wave_summary"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,16 +3,17 @@
 
 The main path (:func:`_decode_single_block_device`) takes every member
 whose payload is one final Huffman block of at most 64 KiB output: waves
-go through the device body :func:`run_wave` (stage A (K1) -> stage B (K2)
--> stage C (``decode_kernels.stage_c``) -> stage DC (K3) -> level-2
-compaction with the literal map (K4)), the tokens stay on the
-device and resolve to bytes there (``resolve``: expand (K5), sweep (K6)),
-the lane CRC-32 kernel checksums each row, and only the small per-lane
-vectors and the final bytes cross to the host.
+go through the device stages :func:`wave_stages` (stage A (K1) -> stage B
+(K2) -> stage C (``decode_kernels.stage_c``) -> stage DC (K3) -> level-2
+compaction with the literal map (K4)) and the fold of K3's summary rows
+into each lane's vector (``decode_kernels.wave_summary``), the tokens stay
+on the device and resolve to bytes there (``resolve``: expand (K5), sweep
+(K6)), the lane CRC-32 kernel checksums each row, and only the small
+per-lane vectors and the final bytes cross to the host.
 
 Every other Huffman member (several blocks, more than 64 KiB, or a lane
 the main path hands back) walks its raw DEFLATE block chain on the host,
-one block of each lane per wave through :func:`run_wave`. On the device
+one block of each lane per wave through the same stages. On the device
 route (:func:`_decode_chained_device`) each block's tokens stay on the
 device, each lane's segments concatenate there, split into 64 KiB tiles
 (``resolve.split_tiles_device``) and resolve and CRC in chained tiles with
@@ -78,14 +79,6 @@ from .wave_prep import (
     _ERR_END,
     _PAD_PAYLOAD,
     P_BUCKETS_PALLAS,
-    ROW_COUNT,
-    ROW_EOB_HIT,
-    ROW_EOB_POS,
-    ROW_EOB_TOK,
-    ROW_ERR_HIT,
-    ROW_ERR_TOK,
-    ROW_OVERFLOW,
-    ROW_SIZE_SUM,
     V2_L_BUCKETS,
     V2_LANE_BATCH,
     W_P,
@@ -122,16 +115,16 @@ def stage_c_entries(
     return entries, final
 
 
-def run_wave(w: dict, *, k1: int | None = None):
-    """Device body of one wave (``_run_wave_pallas_impl``).
-
-    ``w`` is a wave dict of tensors (:func:`wave_prep.wave_to_tensors`).
-    Returns the reference's 7-tuple (tokens (L, NT*k1) int32 front-
-    compacted with literal bytes mapped, counts, has_eob, eob_exit,
-    err_code, out_total, overflow), all on the wave's device. ``k1``
-    defaults to the wave's bucket; past the largest bucket a tile can still
-    overflow, and the wave loop then reruns the wave with k1 = 512, which
-    cannot.
+def wave_stages(w: dict, *, k1: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device stages of one wave (``_run_wave_pallas_impl`` up to its
+    summary fold): stage A (K1), stage B (K2), stage C, stage DC (K3) and
+    level-2 compaction (K4). ``w`` is a wave dict of tensors
+    (:func:`wave_prep.wave_to_tensors`). Returns (tokens (L, NT*k1) int32
+    front-compacted with literal bytes mapped, K3's summary rows (L, 8, NT)
+    int32), on the wave's device; ``decode_kernels.wave_summary`` folds the
+    rows into the (7, L) vector the host pulls. ``k1`` defaults to the
+    wave's bucket; past the largest bucket a tile can still overflow, and
+    the wave loop then reruns the wave with k1 = 512, which cannot.
     """
     if k1 is None:
         k1 = _lane_k1(w.get("_min_tok_bits", 1))
@@ -140,50 +133,19 @@ def run_wave(w: dict, *, k1: int | None = None):
     transfers = dk.stage_b(dt)
     _entries, _final, entries = dk.stage_c(transfers, w["rem"])
     tokc, summ = dk.stage_dc(dt, tt, entries, k1=k1)
-
-    counts = summ[:, ROW_COUNT, :].sum(dim=1)
-    eob_hit = summ[:, ROW_EOB_HIT, :]
-    has_eob = eob_hit.sum(dim=1) > 0
-    tile_base = (torch.arange(NT, device=dt.device) * W_P).view(1, NT)
-    eob_pos = (summ[:, ROW_EOB_POS, :] + eob_hit * tile_base).sum(dim=1)
-    eob_tok = summ[:, ROW_EOB_TOK, :].sum(dim=1)
-    eob_exit = torch.where(has_eob, eob_pos + (-eob_tok - 1), 0)
-    err_hit = summ[:, ROW_ERR_HIT, :].sum(dim=1) > 0
-    err_tok = summ[:, ROW_ERR_TOK, :].sum(dim=1)
-    err_code = torch.where(err_hit, -err_tok - 100, 0)
-    out_total = summ[:, ROW_SIZE_SUM, :].sum(dim=1)
-    overflow = summ[:, ROW_OVERFLOW, :].sum() > 0
-
     tokens = dk.compact_flat(tokc.reshape(L, NT * k1), w["lit_planes"])
-    i32 = torch.int32
-    return (
-        tokens,
-        counts.to(i32),
-        has_eob,
-        eob_exit.to(i32),
-        err_code.to(i32),
-        out_total.to(i32),
-        overflow,
-    )
+    return tokens, summ
 
 
-def pack_small(counts, has_eob, eob_exit, err_code, out_total, overflow, nlit=None):
-    """Stack a wave's per-lane results into one (7, L) int32 tensor, so the
-    host pulls one array instead of seven."""
-    L = counts.shape[0]
-    if nlit is None:
-        nlit = torch.zeros(L, dtype=torch.int32, device=counts.device)
-    return torch.stack(
-        [
-            counts.to(torch.int32),
-            has_eob.to(torch.int32),
-            eob_exit.to(torch.int32),
-            err_code.to(torch.int32),
-            out_total.to(torch.int32),
-            overflow.to(torch.int32).expand(L),
-            nlit.to(torch.int32),
-        ]
-    )
+def run_wave(w: dict, *, k1: int | None = None):
+    """Device body of one wave (``_run_wave_pallas_impl``):
+    :func:`wave_stages`, then the summary fold (``decode_kernels.
+    wave_summary``). Returns the reference's 7-tuple (tokens, counts,
+    has_eob, eob_exit, err_code, out_total, overflow), the per-lane fields
+    rows of the fold's (7, L) vector, all on the wave's device."""
+    tokens, summ = wave_stages(w, k1=k1)
+    small = dk.wave_summary(summ)
+    return tokens, small[0], small[1] > 0, small[2], small[3], small[4], small[5, 0] > 0
 
 
 def pack_tokens(tokens: torch.Tensor):
@@ -481,12 +443,12 @@ def _dispatch_block_stages(wave, rows, row_bits, hp, truncated, runner: WaveRunn
     on_device = wave[0].device_cap is not None  # one route for every lane of a chain batch
     shards = []
     for _a, _b, w in runner.dispatch(w_np, len(wave)):
-        tokens, *rest = run_wave(w)
+        tokens, summ = wave_stages(w)
         if on_device:
-            shards.append((w, ("device", tokens), pack_small(*rest)))
+            shards.append((w, ("device", tokens), dk.wave_summary(summ)))
         else:
             bitmap, lit8, match32, nlit = pack_tokens(tokens)
-            shards.append((w, ("packed", bitmap, lit8, match32), pack_small(*rest, nlit=nlit)))
+            shards.append((w, ("packed", bitmap, lit8, match32), dk.wave_summary(summ, nlit)))
     if stats is not None:
         stats["waves"] = stats.get("waves", 0) + 1
     return wave, shift2, truncated, shards
@@ -516,9 +478,9 @@ def _apply_small(wave, shift2, truncated, shards):
         # Some tile held more than k1 tokens (degenerate short-code
         # stream): rerun the wave with k1 = 512, which cannot overflow,
         # and take the raw token array.
-        reruns = [run_wave(w, k1=W_P) for w, _p, _s in shards]
-        small_h = np.concatenate([pack_small(*rest).cpu().numpy() for _t, *rest in reruns], axis=1)
-        tokens = [t for t, *_rest in reruns]
+        reruns = [wave_stages(w, k1=W_P) for w, _p, _s in shards]
+        small_h = np.concatenate([dk.wave_summary(summ).cpu().numpy() for _t, summ in reruns], axis=1)
+        tokens = [t for t, _summ in reruns]
         if on_device:
             return wave, shift2, truncated, ("device", tokens), small_h
         kmax = int(small_h[0, :n].max()) if wave else 0
@@ -660,10 +622,10 @@ def _single_block_eligible(buf: np.ndarray, m: dnp.MemberIndex) -> bool:
 
 def _single_block_shards(payloads: list[bytes], runner: WaveRunner, stats: dict | None):
     """The main path's waves: payloads grouped by payload bucket and k1,
-    each group's waves through :func:`run_wave`, shard by shard. Returns
-    (the payload index of each row, rows in wave order, and per shard that
-    ran (the positions of its rows in that order, the per-lane vectors (7,
-    n) int32 of :func:`pack_small`, the tokens (n, N_POS) int32 padded or
+    each group's waves through :func:`wave_stages` and the summary fold,
+    shard by shard. Returns (the payload index of each row, rows in wave
+    order, and per shard that ran (the positions of its rows in that order,
+    the per-lane vectors (7, n) int32 of ``decode_kernels.wave_summary``, the tokens (n, N_POS) int32 padded or
     cut to N_POS slots), on the shard's device)."""
     N = rs.N_POS
     k1s = _k1_groups(payloads, [0] * len(payloads))
@@ -678,13 +640,13 @@ def _single_block_shards(payloads: list[bytes], runner: WaveRunner, stats: dict 
             chunk = idxs[base : base + lmax]
             w = _prep_wave([payloads[i] for i in chunk], runner.lanes(len(chunk)))
             for d, (a, b, wt) in enumerate(runner.dispatch(w, len(chunk))):
-                tokens, *rest = run_wave(wt)
+                tokens, summ = wave_stages(wt)
                 n = min(b, len(chunk)) - a
                 t = tokens[:n, :N]
                 rows, smalls, toks = shards.setdefault(d, ([], [], []))
                 rows += range(len(order) + a, len(order) + a + n)
                 toks.append(torch.nn.functional.pad(t, (0, N - t.shape[1]), value=-1))
-                smalls.append(pack_small(*rest)[:, :n])
+                smalls.append(dk.wave_summary(summ)[:, :n])
             if stats is not None:
                 stats["waves"] = stats.get("waves", 0) + 1
             order += chunk
@@ -695,7 +657,7 @@ def single_block_tokens(
     payloads: list[bytes], device: torch.device, stats: dict | None = None
 ) -> tuple[list[int], torch.Tensor, torch.Tensor]:
     """The main path's waves on one device: (the payload index of each
-    row, the per-lane vectors (7, n) int32 of :func:`pack_small`, the
+    row, the per-lane vectors (7, n) int32 of ``decode_kernels.wave_summary``, the
     tokens (n, N_POS) int32 padded or cut to N_POS slots), rows in wave
     order and all on ``device``. ``payloads`` must not be empty."""
     order, ((_rows, small, T),) = _single_block_shards(payloads, WaveRunner.on(device), stats)
@@ -776,9 +738,8 @@ BIG_BATCH_POSITIONS = 1 << 26
 the device route may claim together in their trailers (ISIZE). Members are
 batched in stream order under it, and it bounds what the route holds on the
 device at a time: a batch's tokens (int32, at most one a position), their
-padded copy, the tile split's int64 temporaries (PERF.md gives their
-measured bytes a token) and the tiles (4 bytes a position) with their byte
-buffer (1). A member that claims more (more than 64 MiB of output) is a
+padded copy, the tile split's scratch (8 bytes a 4096 tokens, 12 bytes a
+tile) and the tiles (4 bytes a position) with their byte buffer (1). A member that claims more (more than 64 MiB of output) is a
 batch of its own and resolves in passes of at most this many bytes
 (BIG_BATCH_POSITIONS // N_POS = 1024 tiles, :func:`_resolve_passes`), so
 one pass holds no more on the device than a batch at the bound: no member

@@ -247,23 +247,16 @@ def split_tokens_tiles(tokens: np.ndarray) -> np.ndarray:
     return out
 
 
-def split_tiles_device(tokens: torch.Tensor, T: int) -> torch.Tensor:
-    """Split (L, K) int32 token streams into N_POS output tiles on their
-    device, -1 entries ignored wherever they stand -> (L, T, N_POS) int32,
-    -1 padded: tile t holds the second half of the match straddling from
-    tile t-1, if any, then the tokens that start in t, in stream order; a
-    straddling match keeps its distance with run ``cut - start`` before the
-    seam and ``end - cut`` after it. Tokens past tile T-1 are dropped.
-    Bit-identical to the reference's ``resolve_pallas.split_tiles_device``
-    (which sorts each tile) and to :func:`split_tokens_tiles`.
-
-    One pass: each token's end (a cumulative sum in int64: a stream may
-    pass 2**31 bytes), its start and first tile t0, and its rank among the
-    valid tokens of t0 (plus one where the match straddling into t0 heads
-    it) give its slot; one scatter places the first parts, another the
-    straddlers' second halves at slot 0 of the next tile. Runs are at most
-    1023 < N_POS, so a token spans at most two tiles; a slot past N_POS,
-    which only runs of 0 could reach, is dropped as the reference drops it.
+def split_tiles_plain(tokens: torch.Tensor, T: int) -> torch.Tensor:
+    """Plain tile split, :func:`split_tiles_device`'s spec and its CPU
+    path, in one pass: each token's end (a cumulative sum in int64: a
+    stream may pass 2**31 bytes), its start and first tile t0, and its rank
+    among the valid tokens of t0 (plus one where the match straddling into
+    t0 heads it) give its slot; one scatter places the first parts, another
+    the straddlers' second halves at slot 0 of the next tile. Runs are at
+    most 1023 < N_POS, so a token spans at most two tiles; a slot past
+    N_POS, which only runs of 0 could reach, is dropped as the reference
+    drops it.
     """
     L, K = tokens.shape
     dev = tokens.device
@@ -306,6 +299,48 @@ def split_tiles_device(tokens: torch.Tensor, T: int) -> torch.Tensor:
     out.scatter_(1, torch.where(keep, t * N_POS + rank, T * N_POS), torch.where(keep, first, -1))
     out = out[:, : T * N_POS].view(L, T, N_POS)
     out[:, :, 0] = torch.where(has_head[:, :T], heads[:, :T].to(torch.int32), out[:, :, 0])
+    return out
+
+
+TILE_SPLIT_SEGMENT = 4096  # tokens a block of csrc/tile_split.cu's scan
+
+
+def split_tiles_device(tokens: torch.Tensor, T: int) -> torch.Tensor:
+    """Split (L, K) int32 token streams into N_POS output tiles on their
+    device, -1 entries ignored wherever they stand -> (L, T, N_POS) int32,
+    -1 padded: tile t holds the second half of the match straddling from
+    tile t-1, if any, then the tokens that start in t, in stream order; a
+    straddling match keeps its distance with run ``cut - start`` before the
+    seam and ``end - cut`` after it. Tokens past tile T-1 are dropped.
+    Bit-identical to the reference's ``resolve_pallas.split_tiles_device``
+    (which sorts each tile) and to :func:`split_tokens_tiles`.
+
+    On the card two launches of ``csrc/tile_split.cu`` (a scan of each
+    lane's runs, cut into segments of TILE_SPLIT_SEGMENT tokens joined by a
+    look-back, then a block a tile writing it whole), after a zero fill of
+    the scan's status words; its scratch is 8 bytes a segment and 12 bytes a
+    tile. On the CPU :func:`split_tiles_plain`."""
+    _build.require(isinstance(tokens, torch.Tensor) and tokens.dtype == torch.int32 and tokens.dim() == 2,
+                   f"tokens: expected a 2-d int32 tensor, got {getattr(tokens, 'dtype', type(tokens))}")
+    _build.require(tokens.is_contiguous(), "tokens: must be contiguous")
+    L, K = tokens.shape
+    _build.require(L >= 1 and T >= 1, f"tokens: shape {tuple(tokens.shape)}, T={T}")
+    if not _build.on_card(tokens):
+        return split_tiles_plain(tokens, T)
+    # The scan's prefix saturates at T * N_POS + 1024 and adds up to 2**22
+    # in a segment: both must stay within int32.
+    _build.require(T * N_POS + (1 << 23) < 1 << 31, f"T={T}: at most {((1 << 31) - (1 << 23)) // N_POS - 1} tiles")
+    _build.require(L <= 65535 and K < (1 << 31) - TILE_SPLIT_SEGMENT, f"tokens: shape {tuple(tokens.shape)}")
+    dev = tokens.device
+    out = torch.empty((L, T, N_POS), dtype=torch.int32, device=dev)
+    status = torch.zeros(L * -(-K // TILE_SPLIT_SEGMENT) + 1, dtype=torch.int64, device=dev)
+    meta = torch.empty(L * (3 * T + 1), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_tile_split(tokens.data_ptr(), out.data_ptr(), status.data_ptr(), meta.data_ptr(), L, K, T,
+                                _build.stream(dev))
+    _build.check(err, "td_tile_split")
+    LAUNCHES["tile_split"] += 1
     return out
 
 

@@ -208,3 +208,98 @@ extern "C" int td_stage_dc(const void* delta, const void* token, const void* ent
   if ((long)L * NT >= 32L * 256) return launch<32>(delta, token, entries, tok_out, summ, L, NT, k1, s);
   return launch<8>(delta, token, entries, tok_out, summ, L, NT, k1, s);
 }
+
+// ---------------------------------------------------------------------------
+// The wave's summary fold: K3's summary rows -> the per-lane vector.
+//
+// Replaces the tail of tpu_deflate/codec/decode_jax_v2.py:_run_wave_pallas_impl
+// (:1331-1342, compiled into the jitted wave program of :1298) and
+// _pack_small (:1363, jit). Exactly decode_kernels.wave_summary_plain: from
+// summ (L, 8, NT) int32, out (7, L) int32 holds per lane the sums of rows
+// ROW_COUNT (row 0 of out), ROW_EOB_HIT > 0 (1), eob_pos - eob_tok - 1 where
+// an EOB was hit, else 0, with eob_pos the sum of ROW_EOB_POS + ROW_EOB_HIT
+// * t * W_P (2), -err_tok - 100 where ROW_ERR_HIT sums above 0, else 0 (3),
+// ROW_SIZE_SUM (4), the sum of ROW_OVERFLOW over every lane and tile > 0,
+// the same in every lane (5), and nlit or 0 (6). Sums are taken in 64 bits
+// and compared signed, then cut to 32 bits, as the plain version's int64.
+//
+// One 256-thread block a lane: each thread sums a column of tiles, then a
+// shuffle and a shared-memory reduction. Row 5 needs every lane: each block
+// adds its overflow sum to a 64-bit total, fences and counts itself done;
+// the block that counts last reads the total and writes row 5 of all L
+// lanes. The total and the count are the call's own zeroed scratch, so
+// calls on other streams do not share them.
+//
+// Bound on the H100: bytes, the rows read once (32 bytes a tile) and out
+// written; a launch is latency (two dependent reductions and an atomic).
+namespace {
+
+constexpr int WS_THREADS = 256;
+constexpr int WS_WARPS = WS_THREADS / 32;
+constexpr int WS_SUMS = 8;
+
+__global__ void __launch_bounds__(WS_THREADS)
+    wave_summary_kernel(const int* __restrict__ summ, const int* __restrict__ nlit, int* __restrict__ out,
+                        unsigned long long* __restrict__ scratch, int L, int NT) {
+  __shared__ unsigned long long part[WS_SUMS][WS_WARPS];
+  __shared__ int s_last, s_flag;
+  const int tid = threadIdx.x;
+  const int lid = tid & 31;
+  const int wid = tid >> 5;
+  const int l = blockIdx.x;
+  const int* r = summ + (size_t)l * 8 * NT;
+  // count, eob hits, eob_pos, eob_tok, err hits, err_tok, size, overflow
+  unsigned long long a[WS_SUMS] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int t = tid; t < NT; t += WS_THREADS) {
+    const long long hit = r[5 * NT + t];
+    a[0] += (long long)r[t];
+    a[1] += hit;
+    a[2] += (long long)r[NT + t] + hit * ((long long)t * td::W_P);
+    a[3] += (long long)r[2 * NT + t];
+    a[4] += (long long)r[6 * NT + t];
+    a[5] += (long long)r[3 * NT + t];
+    a[6] += (long long)r[4 * NT + t];
+    a[7] += (long long)r[7 * NT + t];
+  }
+#pragma unroll
+  for (int k = 0; k < WS_SUMS; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a[k] += __shfl_xor_sync(0xffffffffu, a[k], o);
+    if (lid == 0) part[k][wid] = a[k];
+  }
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int k = 0; k < WS_SUMS; ++k) {
+      a[k] = 0;
+      for (int w = 0; w < WS_WARPS; ++w) a[k] += part[k][w];
+    }
+    const bool eob = (long long)a[1] > 0, err = (long long)a[4] > 0;
+    out[l] = (int)a[0];
+    out[L + l] = eob;
+    out[2 * L + l] = eob ? (int)(a[2] - a[3] - 1) : 0;
+    out[3 * L + l] = err ? (int)(0ull - a[5] - 100) : 0;
+    out[4 * L + l] = (int)a[6];
+    out[6 * L + l] = nlit ? nlit[l] : 0;
+    atomicAdd(&scratch[0], a[7]);
+    __threadfence();
+    s_last = atomicAdd(&scratch[1], 1ull) == (unsigned long long)(L - 1);
+    if (s_last) s_flag = (long long)atomicAdd(&scratch[0], 0ull) > 0;
+  }
+  __syncthreads();
+  if (s_last)
+    for (int j = tid; j < L; j += WS_THREADS) out[5 * L + j] = s_flag;
+}
+
+}  // namespace
+
+// scratch: 2 uint64, 0 (the overflow total and the count of blocks done);
+// nlit may be null.
+extern "C" int td_wave_summary(const void* summ, const void* nlit, void* out, void* scratch, int L, int NT,
+                               void* stream) {
+  if (L < 1 || NT < 1) return (int)cudaErrorInvalidValue;
+  wave_summary_kernel<<<L, WS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(summ), static_cast<const int*>(nlit), static_cast<int*>(out),
+      static_cast<unsigned long long*>(scratch), L, NT);
+  return (int)cudaGetLastError();
+}

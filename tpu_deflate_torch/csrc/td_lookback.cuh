@@ -1,4 +1,5 @@
-// Decoupled look-back over a lane's segments (K4 compaction, K10 emit).
+// Decoupled look-back over a lane's segments (K4 compaction, K10 emit, the
+// tile split).
 //
 // A kernel cuts each lane into segments, one block each, and needs every
 // segment's exclusive prefix of a per-segment count over the lane. Blocks
@@ -16,15 +17,22 @@ namespace td {
 
 constexpr unsigned long long FLAG_AGG = 1ull << 32, FLAG_PREFIX = 2ull << 32;
 
+struct Plus {
+  __device__ int operator()(int a, int b) const { return a + b; }
+};
+
 // The segment's exclusive prefix in its lane, starting at init: publish
-// this segment's aggregate, add the predecessors' aggregates back to the
-// nearest inclusive prefix (32 segments per round, one per thread of the
-// warp), publish the inclusive prefix. status points at the lane's first
-// segment. Run by one whole warp.
-__device__ __forceinline__ int look_back(unsigned long long* status, int seg, int agg, int init) {
+// this segment's aggregate, combine the predecessors' aggregates back to
+// the nearest inclusive prefix (32 segments per round, one per thread of
+// the warp), publish the inclusive prefix. op combines two values (any
+// associative and commutative operation whose identity is 0; a sum by
+// default). status points at the lane's first segment. Run by one whole
+// warp.
+template <class Op = Plus>
+__device__ __forceinline__ int look_back(unsigned long long* status, int seg, int agg, int init, Op op = Op()) {
   const int lid = threadIdx.x & 31;
   if (seg == 0) {
-    if (lid == 0) atomicExch(&status[0], FLAG_PREFIX | (uint32_t)(init + agg));
+    if (lid == 0) atomicExch(&status[0], FLAG_PREFIX | (uint32_t)op(init, agg));
     return init;
   }
   if (lid == 0) atomicExch(&status[seg], FLAG_AGG | (uint32_t)agg);
@@ -43,11 +51,11 @@ __device__ __forceinline__ int look_back(unsigned long long* status, int seg, in
     const int stop = prefix ? __ffs(prefix) - 1 : 31;  // nearest prefix in this round
     int x = lid <= stop ? (int)(uint32_t)v : 0;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    excl += x;
+    for (int o = 16; o > 0; o >>= 1) x = op(x, __shfl_xor_sync(0xffffffffu, x, o));
+    excl = op(excl, x);
     if (prefix) break;
   }
-  if (lid == 0) atomicExch(&status[seg], FLAG_PREFIX | (uint32_t)(excl + agg));
+  if (lid == 0) atomicExch(&status[seg], FLAG_PREFIX | (uint32_t)op(excl, agg));
   return excl;
 }
 
