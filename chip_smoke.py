@@ -26,13 +26,15 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    ends in 48..126, maps not 16-byte aligned) and with one call's launches
    counted (one launch and the zero fill of its look-back scratch, no
    other device work), the wave summary (the fold of K3's summary rows
-   into the (7, L) vector) on that wave, with one call's launches counted
-   (one launch and its scratch's zero fill), and on edge rows (a 1-lane
+   into the (7, L) vector, K3's epilogue, run alone on given rows by
+   ``wave_summary``) on that wave, with one call's launches counted (one
+   launch and no zero fill; and K3 with the fold, one launch), and on
+   edge rows (a 1-lane
    wave of 1 and of 4224 tiles, 256 x 1152 waves with and without nlit,
    overflow in one lane only and in the last lane only, rows over the whole
    int32 range), the tile split on edge streams (one lane of 1024 tiles of
-   258-byte runs, straddlers as the last and the first token of a scan
-   segment, a run ending on a seam at a segment's edge, -1 runs over
+   258-byte runs, straddlers as the last and the first token of a place
+   pass segment, a run ending on a seam at a segment's edge, -1 runs over
    segment edges, T = 1, tokens past tile T - 1, K = 0), K3
    again at every k1 on the main path's own 4-lane waves, on edge
    deltas (0, -5, 60, the int32 limits, dense sentinels; entries 0, 47, 48
@@ -58,16 +60,18 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    kernel's bound;
 4. the main path: ``engine.decompress`` of the 48 MiB corpus with the
    defaults (device resolve), byte-exact, every Huffman member resolved on
-   the device and every main-path kernel launched, stage C and the wave
-   summary held against their plain versions on every wave of the run (one
-   wave summary a wave), one decode's launches, aten ops and device events
-   a wave, with each kernel's
+   the device and every main-path kernel launched, stage C and K3's
+   summary fold (its (7, L) vector against ``wave_summary_plain`` of its
+   rows) held against their plain versions on every wave of the run (one
+   K3 a wave, the fold launched alone never), one decode's launches, aten
+   ops and device events a wave, with each kernel's
    bound per launch and summed over the run (with --profile, each K3, K4,
-   K6, lane CRC and wave summary launch's device time beside its bound); 5
+   K6 and lane CRC launch's device time beside its bound); 5
    timed runs;
 5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
-   byte-exact with the packed token pull (K7) launched, its wave summaries
-   (with nlit) held against their plain version (with --profile,
+   byte-exact with the packed token pull (K7) launched, K3's fold on every
+   wave and each pulled vector (K3's, with the pull's nlit in row 6) held
+   against their plain version (with --profile,
    each K4 and K7 launch's device time beside its bound), and 3 timed runs
    of it on the 48 MiB corpus for comparison;
 6. the ``device_resolve="on"`` route: a gzip -9 stream of 1 MiB in one
@@ -79,12 +83,12 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    the card, tile split, chained K5/K6 and lane CRC) with every kernel of
    the route launched and K7 not, each kernel's bound per launch, and each
    kernel against its plain version on the arguments the route gave it
-   (its block waves and their summaries, each group's split, a first and
+   (its block waves and K3's folds of them, each group's split, a first and
    a chained step of each tile group, the CRC at each group's rows); its
    device memory peak; the split on the card equal to
    ``split_tokens_tiles`` and to its plain version, with one call's
-   launches counted (the split kernel and its scratch's zero fill, no other
-   device work), its kernels' device time and its memory a token above its
+   launches counted (the split's one kernel, no zero fill and no other
+   device work), its kernel's device time and its memory a token above its
    output, and each chained CRC equal to zlib on the same tokens; under a 512 KiB
    batch bound and passes of 8 tiles every member on the device route, the
    1 MiB members in 2 passes each and K7 not launched, on the card and over
@@ -150,7 +154,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 12. the continuous encode's main path: ``engine.compress`` of the 48 MiB
    corpus at effort 4, one member of 768 blocks, byte-exact through
    ``gzip.decompress`` and the port's decode on the card (one member on the
-   device route, K7 not launched, one tile split, one wave summary a wave,
+   device route, K7 not launched, one tile split, K3's summary fold every wave,
    both held against their plain versions), the match finder's kernels (three
    families a batch), K8-K10 and the lane CRC launched (the CRC against
    its plain version on the rows the path gave it), each kernel's bound
@@ -183,7 +187,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    resolves it on the device route in 2 passes (device_resolved 1,
    host_resolved 0, K7 not launched, every other kernel of the route
    launched), each wrapper's bytes bound per launch, and every kernel of
-   the run (K1 tables, K1-K4 and the wave summary on its one-lane block
+   the run (K1 tables, K1-K4 and K3's summary fold on its one-lane block
    waves, the tile split of each pass, K5, K6 and the lane CRC on its tile
    steps; the first calls of each shape) held against
    its plain version on the arguments the run gave it; its device memory
@@ -204,7 +208,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    reps=1): each row on the kernels ("cuda") with 0 mismatches, every
    kernel but K7 launched over the rows and K7 not, each wrapper's bytes
    bound per launch, and every kernel of the run (K1 tables, K1-K4 and the
-   wave summary on the rows' waves, the big row's tile split, K5, K6 and
+   K3's summary fold on the rows' waves, the big row's tile split, K5, K6 and
    the lane CRC on the full row's resolve batches and the big row's
    chained steps, the match finder's kernels and K8-K10
    on the encode batch; the first
@@ -274,9 +278,13 @@ KERNELS = {
     "tile_split": ("tile_split.cu", "tpu_deflate/codec/resolve_pallas.py:620", "big"),
     "wave_summary": ("stage_dc.cu", "tpu_deflate/codec/decode_jax_v2.py:1331", "main"),
 }
+# kernel -> the counter of its launches where another kernel runs it: the
+# summary fold is K3's epilogue, launched with K3 (the wave_summary counter
+# counts only its launches alone, on given rows)
+COUNTERS = {"wave_summary": "stage_dc"}
 PROFILE_KERNELS = (
     "stage_a_tables_kernel", "stage_a_kernel", "stage_b_kernel", "stage_c_kernel", "stage_dc_kernel",
-    "compact_kernel", "expand_kernel", "sweep_kernel", "crc32_lanes_kernel", "wave_summary_kernel",
+    "compact_kernel", "expand_kernel", "sweep_kernel", "crc32_lanes_kernel",
 )
 ENCODE_PROFILE_KERNELS = (
     "match_keys_kernel", "match_chain_kernel", "match_bucket_kernel", "match_select_kernel",
@@ -422,7 +430,7 @@ def captured(*names, per_key: int = 2):
 PROFILE_NAMES = {
     "stage_c": "stage_c_kernel", "stage_dc": "stage_dc_kernel", "compact_flat": "compact_kernel",
     "compact_any": "compact_kernel", "sweep": "sweep_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel",
-    "_finish_analysis": "finish_analysis_kernel", "wave_summary": "wave_summary_kernel",
+    "_finish_analysis": "finish_analysis_kernel",
 }
 
 
@@ -547,6 +555,48 @@ def stage_c_plain3(transfers, entry0):
 
     entries, final = dk.stage_c_plain(transfers, entry0)
     return entries, final, entries.to(torch.int32)
+
+
+def stage_dc_plain3(delta, token, entries, k1):
+    """``decode_kernels.stage_dc``'s three results from the plain versions:
+    K3's tokens and rows, and the summary fold of the rows."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    tokens, summ = dk.stage_dc_plain(delta, token, entries, k1)
+    return tokens, summ, dk.wave_summary_plain(summ)
+
+
+@contextlib.contextmanager
+def folds_checked(K, label: str, keep: bool = False):
+    """Wrap ``decode_kernels.stage_dc`` for the block: each call's (7, L)
+    vector, K3's summary fold, held equal to ``wave_summary_plain`` of the
+    call's own rows as it returns (exact; its max_abs_err kept under
+    ``wave_summary``). Yields a list with an entry a call: (a copy of the
+    rows, the vector the path goes on with) with ``keep``, else None."""
+    import torch
+
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    seen = []
+    stage_dc = dk.stage_dc
+
+    def wrapper(*args, **kwargs):
+        tok, summ, vec = stage_dc(*args, **kwargs)
+        want = dk.wave_summary_plain(summ)
+        err = max_abs_err(vec, want)
+        r = K.rec.setdefault("wave_summary", {"max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        require(torch.equal(vec, want), f"{label}: K3's summary fold differs from its plain version at "
+                                        f"{list(summ.shape)}")
+        seen.append((summ.clone(), vec) if keep else None)
+        return tok, summ, vec
+
+    dk.stage_dc = wrapper
+    try:
+        yield seen
+    finally:
+        dk.stage_dc = stage_dc
+    log(f"{label}: K3's summary fold equal to wave_summary_plain on all {len(seen)} waves")
 
 
 FINISH_KEYS = ("is_token", "is_match", "litlen_sym", "len_eb", "len_ev", "dist_sym", "dist_eb", "dist_ev",
@@ -697,10 +747,10 @@ def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
                    {"stage_c": 1}, ("aten::zeros", "aten::zero_", "aten::fill_"))
     tokc_main = summ_main = None
     for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
-        tokc, summ = K.compare(
+        tokc, summ, _vec = K.compare(
             "stage_dc",
             lambda: dk.stage_dc(dt, tt, entries, k1=k1),
-            lambda: dk.stage_dc_plain(dt, tt, entries, k1),
+            lambda: stage_dc_plain3(dt, tt, entries, k1),
             [dt, tt, entries],
             {"delta": [L, 512, NT], "k1": k1},
             main_path=k1 == k1_wave,
@@ -709,8 +759,9 @@ def phase_wave_kernels(gz: bytes, device, K: Kernels) -> None:
             tokc_main, summ_main = tokc, summ
     K.compare("wave_summary", lambda: dk.wave_summary(summ_main), lambda: dk.wave_summary_plain(summ_main),
               [summ_main], {"summ": [L, 8, NT]})
-    launch_profile("wave_summary on the corpus wave", lambda: dk.wave_summary(summ_main), {"wave_summary": 1},
-                   ("aten::zeros", "aten::zero_", "aten::fill_"))
+    launch_profile("wave_summary on the corpus wave", lambda: dk.wave_summary(summ_main), {"wave_summary": 1})
+    launch_profile("stage_dc (the summary fold in its epilogue) on the corpus wave",
+                   lambda: dk.stage_dc(dt, tt, entries, k1=k1_wave), {"stage_dc": 1})
     flat = tokc_main.reshape(L, NT * k1_wave)
     (tokens,) = K.compare(
         "compact_flat",
@@ -991,7 +1042,8 @@ def wave_summary_edge_rows(device) -> list:
 
 
 def phase_wave_summary_edges(device, K: Kernels) -> None:
-    """The wave summary against its plain version on the edge rows."""
+    """The summary fold (K3's epilogue, run alone on given rows) against
+    its plain version on the edge rows."""
     from tpu_deflate_torch.codec import decode_kernels as dk
 
     for label, summ, nlit in wave_summary_edge_rows(device):
@@ -1125,7 +1177,7 @@ def phase_k3_edges(small: list, device, K: Kernels) -> None:
         ("512 one-bit deltas", *(x.to(device) for x in k3_chain_inputs()))]
     for what, d, tk, e in cases:
         for k1 in sorted(set(wp.K1_CHOICES) | {wp.W_P}):
-            K.compare("stage_dc", lambda: dk.stage_dc(d, tk, e, k1=k1), lambda: dk.stage_dc_plain(d, tk, e, k1),
+            K.compare("stage_dc", lambda: dk.stage_dc(d, tk, e, k1=k1), lambda: stage_dc_plain3(d, tk, e, k1),
                       [d, tk, e], {"edge": what, "delta": list(d.shape), "k1": k1}, main_path=False)
 
 
@@ -1175,7 +1227,7 @@ def phase_compact_edges(small: list, device, K: Kernels) -> None:
     for what, d, tk, e, planes in small:
         L, _, NT = d.shape
         for k1 in (104, wp.W_P):
-            tokc, _summ = dk.stage_dc(d, tk, e, k1=k1)
+            tokc, _summ, _vec = dk.stage_dc(d, tk, e, k1=k1)
             cases.append((f"{what.rsplit(' k1=', 1)[0]} tokens at k1={k1}", tokc.reshape(L, NT * k1), planes))
     for M in (128, 1001, 4099, 5120, 8228):
         for reps in (1, 96):
@@ -1448,9 +1500,9 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int, K: Kernels) -> tuple[
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as (calls, shapes, order), \
-            captured((dk, "stage_c"), (dk, "wave_summary"), per_key=64) as caps:
+               (dk, "compact_flat"), (rs, "expand"), (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+    with recorded(*kernels) as (calls, shapes, order), captured((dk, "stage_c"), per_key=64) as caps, \
+            folds_checked(K, "main path") as folds:
         dk.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
@@ -1466,15 +1518,15 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int, K: Kernels) -> tuple[
     bounds = launch_bounds(calls, shapes, order)
     for k, (_src, _tpu, path) in KERNELS.items():
         if path == "main":
-            require(launches[k] > 0, f"kernel {k} was not launched on the main path")
+            require(launches[COUNTERS.get(k, k)] > 0, f"kernel {k} was not launched on the main path")
     require(stats["device_resolved"] == n_huff, "device_resolved != Huffman member count")
     require(stats["host_resolved"] == 0, "a Huffman member took the host route")
     require(len(caps["stage_c"]) == launches["stage_c"] == launches["stage_b"],
             f"stage C: {len(caps['stage_c'])} calls captured, {launches['stage_c']} launches, "
             f"{launches['stage_b']} of K2")
-    require(len(caps["wave_summary"]) == launches["wave_summary"] == launches["stage_dc"] == stats["waves"],
-            f"wave_summary: {len(caps['wave_summary'])} calls captured, {launches['wave_summary']} launches, "
-            f"{launches['stage_dc']} of K3, {stats['waves']} waves: expected one a wave")
+    require(len(folds) == launches["stage_dc"] == stats["waves"] and launches["wave_summary"] == 0,
+            f"the summary fold: {len(folds)} K3 vectors checked, {launches['stage_dc']} launches of K3, "
+            f"{launches['wave_summary']} of the fold alone, {stats['waves']} waves: expected K3's one a wave")
     replay_calls(caps, K, "main path")
     wave_launches(lambda: engine.decompress(gz, engine="cuda"), "main path")
     walls = timed_decode(gz, corpus, E2E_REPS)
@@ -1490,6 +1542,8 @@ def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None, K: Kernel
     (with a profile dir: then profiled, each K4 and K7 launch's device time
     beside its bound), then timed at the main path's depth for
     comparison."""
+    import torch
+
     import bench
     from tpu_deflate_torch import engine, native
     from tpu_deflate_torch.codec import decode_kernels as dk
@@ -1499,24 +1553,39 @@ def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None, K: Kernel
     off = DecoderConfig(device_resolve="off")
     small = bench.make_corpus(OFF_CORPUS_MB)
     gz_small = native.compress_members_native(small)
-    with recorded((dk, "compact_flat"), (dk, "compact_any"), (dk, "wave_summary")) as (calls, shapes, order), \
-            captured((dk, "wave_summary")) as caps:
-        dk.reset_launches()
-        t0 = time.monotonic()
-        out = engine.decompress(gz_small, engine="cuda", config=off)
-        wall = time.monotonic() - t0
-        launches = dict(dk.LAUNCHES)
+    pack = pv2.pack_tokens
+    nlits = []
+
+    def pack_spy(tokens):
+        out = pack(tokens)
+        nlits.append((len(folds), out[3].clone()))  # after the wave's K3 (the last vector checked)
+        return out
+
+    pv2.pack_tokens = pack_spy
+    try:
+        with recorded((dk, "compact_flat"), (dk, "compact_any")) as (calls, shapes, order), \
+                folds_checked(K, "off route", keep=True) as folds:
+            dk.reset_launches()
+            t0 = time.monotonic()
+            out = engine.decompress(gz_small, engine="cuda", config=off)
+            wall = time.monotonic() - t0
+            launches = dict(dk.LAUNCHES)
+    finally:
+        pv2.pack_tokens = pack
     stats = dict(pv2.LAST_DECODE_STATS)
     require(out == small, "device_resolve='off' output differs")
     log(f"off route ({OFF_CORPUS_MB} MiB): byte-exact, stats {json.dumps(stats)}, "
         f"launches {json.dumps(launches)}")
-    for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any", "wave_summary"):
+    for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any"):
         require(launches[k] > 0, f"kernel {k} was not launched on the off route")
-    require(launches["wave_summary"] == launches["stage_dc"], "the off route: not one wave_summary a wave")
-    require(all(len(args) == 2 and args[1] is not None for args, _kw in caps["wave_summary"]),
-            "the off route's wave summaries took no nlit")
-    replay_calls(caps, K, "off route")
-    del caps
+    require(len(nlits) == len(folds) == launches["stage_dc"], f"the off route: {len(nlits)} token pulls for "
+            f"{len(folds)} waves")
+    for i, nlit in nlits:  # the vector the route pulled: K3's, with nlit in row 6
+        summ, vec = folds[i - 1]
+        require(torch.equal(vec, dk.wave_summary_plain(summ, nlit)),
+                "the off route's vector differs from wave_summary_plain with nlit")
+    log(f"off route: every wave's pulled vector equal to wave_summary_plain with its nlit ({len(nlits)} waves)")
+    del folds, nlits
     require(stats["device_resolved"] == 0 and launches["expand"] == 0, "off route resolved on device")
     if profile_dir:
         phase_profile(lambda: engine.decompress(gz_small, engine="cuda", config=off), "off route",
@@ -1570,8 +1639,8 @@ def big_members(corpus: bytes) -> tuple[bytes, list[bytes], list[bytes]]:
     return gz, chunks, payloads
 
 
-BIG_KERNELS = ("stage_a_tables", "stage_a", "stage_b", "stage_c", "stage_dc", "compact_flat", "wave_summary",
-               "tile_split", "expand", "sweep", "crc32_lanes")
+BIG_KERNELS = ("stage_a_tables", "stage_a", "stage_b", "stage_c", "stage_dc", "compact_flat", "tile_split",
+               "expand", "sweep", "crc32_lanes")
 
 
 def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels) -> dict:
@@ -1599,9 +1668,10 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
     data = b"".join(chunks)
     n_huff = len(payloads)
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+               (dk, "compact_flat"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
                (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as (calls, shapes, order), captured(*kernels) as caps:
+    with recorded(*kernels) as (calls, shapes, order), captured(*kernels) as caps, \
+            folds_checked(K, "big members") as folds:
         dk.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
@@ -1619,6 +1689,7 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
     for k in BIG_KERNELS:
         require(launches[k] > 0, f"kernel {k} was not launched on the big-members route")
     require(launches["compact_any"] == 0, "the big-members route launched K7")
+    require(len(folds) == launches["stage_dc"] == stats["waves"], "the big members: not one K3 fold a wave")
     path_bounds("big-members route", calls)
     bounds = launch_bounds(calls, shapes, order)
     replay_calls(caps, K, "big members")
@@ -1671,7 +1742,7 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
         K.compare("tile_split", lambda: rs.split_tiles_device(tok, T), lambda: rs.split_tiles_plain(tok, T), [tok],
                   {"big members": list(tok.shape), "T": T}, main_path=T == 16)
         events = launch_profile(f"split_tiles_device, big members T={T}", lambda: rs.split_tiles_device(tok, T),
-                                {"tile_split": 1}, ("aten::zeros", "aten::zero_", "aten::fill_"))
+                                {"tile_split": 1})
         us = {e.name: e.time_range.elapsed_us() for e in events if "split_" in e.name}
         log(f"big members, T={T}: the split's kernels' device time in one call {json.dumps(us)} us "
             f"(profiler; {sum(us.values()):.1f} us in all)")
@@ -1749,8 +1820,7 @@ def profile_route(run, label: str, profile_dir: str, prefix: str, timed_median_s
 
     rs.split_tiles_device = annotated
     try:
-        averages = phase_profile(run, label, profile_dir, prefix, ("split_scan_kernel", "split_fill_kernel",
-                                                                   "expand_kernel", "sweep_kernel",
+        averages = phase_profile(run, label, profile_dir, prefix, ("split_kernel", "expand_kernel", "sweep_kernel",
                                                                    "crc32_lanes_kernel"), timed_median_s, bounds)
     finally:
         rs.split_tiles_device = split
@@ -1783,7 +1853,7 @@ def replay_calls(caps: dict, K: Kernels, label: str) -> None:
         "stage_a": ("stage_a", dk, dk.stage_a_plain, None),
         "stage_b": ("stage_b", dk, dk.stage_b_plain, None),
         "stage_c": ("stage_c", dk, stage_c_plain3, None),
-        "stage_dc": ("stage_dc", dk, lambda d, t, e, *, k1: dk.stage_dc_plain(d, t, e, k1), None),
+        "stage_dc": ("stage_dc", dk, lambda d, t, e, *, k1: stage_dc_plain3(d, t, e, k1), None),
         "compact_flat": ("compact_flat", dk, dk.compact_plain, None),
         "expand": ("expand", rs, lambda tok, *, hist=0: rs.expand_plain(tok, hist), None),
         "sweep": ("sweep", rs, rs.sweep_plain, lambda out: (out[0], out[1][:, 0])),
@@ -2634,10 +2704,11 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     require(members is not None and len(members) == 1, "the continuous encode is not one member")
 
     dec_kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-                   (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"),
-                   (rs, "sweep"), (cl, "crc32_lanes_raw8")]
+                   (dk, "compact_flat"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+                   (cl, "crc32_lanes_raw8")]
     with recorded(*dec_kernels) as (dec_calls, _shapes, _order), \
-            captured((dk, "wave_summary"), (rs, "split_tiles_device"), per_key=1) as dec_caps:
+            captured((rs, "split_tiles_device"), per_key=1) as dec_caps, \
+            folds_checked(K, "continuous decode") as folds:
         _build.reset_launches()
         t0 = time.monotonic()
         out = engine.decompress(gz, engine="cuda")
@@ -2649,9 +2720,9 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     require(stats["device_resolved"] == 1 and stats["host_resolved"] == 0,
             "the continuous member did not resolve on the device route")
     require(dec_launches["compact_any"] == 0, "the continuous member's decode launched K7")
-    require(dec_launches["tile_split"] == 1 and dec_launches["wave_summary"] == stats["waves"],
+    require(dec_launches["tile_split"] == 1 and len(folds) == dec_launches["stage_dc"] == stats["waves"],
             f"the continuous member's decode: {dec_launches['tile_split']} splits (1 expected), "
-            f"{dec_launches['wave_summary']} wave summaries for {stats['waves']} waves")
+            f"{len(folds)} K3 folds checked for {stats['waves']} waves")
     log(f"continuous decode: {dec_wall:.3f} s ({len(corpus) / dec_wall / 1e9:.4f} GB/s), {stats['waves']} waves, "
         f"stats {json.dumps(stats)}, launches {json.dumps(dec_launches)}")
     path_bounds("continuous decode", dec_calls)
@@ -2773,11 +2844,11 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+               (dk, "compact_flat"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
                (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"),
                (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
     big_gz, big_chunks, _payloads = big_members(corpus)
-    with captured(*kernels) as caps:
+    with captured(*kernels) as caps, folds_checked(K, "mesh") as folds:
         _build.reset_launches()
         out = timed(f"decode of the corpus over {MESH_SHARDS} shards (argument copies for the replay included)",
                     lambda: engine.decompress(gz, engine="cuda", mesh=mesh))
@@ -2801,7 +2872,8 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     log(f"launches on the mesh path (decode, the big members' decode, then the effort-4 encode): "
         f"{json.dumps(launches)}")
     for k in MESH_PATH_KERNELS:
-        require(launches[k] > 0, f"kernel {k} was not launched on the mesh path")
+        require(launches[COUNTERS.get(k, k)] > 0, f"kernel {k} was not launched on the mesh path")
+    require(len(folds) == launches["stage_dc"], "the mesh path: a K3 fold not checked")
 
     walls = []
     for _ in range(MESH_DECODE_REPS):
@@ -2936,12 +3008,13 @@ def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
         return out
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+               (dk, "compact_flat"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
                (cl, "crc32_lanes_raw8")]
     pv2._resolve_passes, rs.split_tiles_device, rs.resolve_tiles_crc, cl.crc32_fold_tiles = (
         passes_spy, split_spy, chain_spy, fold_spy)
     try:
-        with recorded(*kernels) as (calls, shapes, order), captured(*kernels) as caps:
+        with recorded(*kernels) as (calls, shapes, order), captured(*kernels) as caps, \
+                folds_checked(K, "passes") as folds:
             _build.reset_launches()
             t0 = time.monotonic()
             out = engine.decompress(gz, engine="cuda")
@@ -2959,6 +3032,7 @@ def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
     require(launches["compact_any"] == 0, "the pass route launched K7")
     for k in BIG_KERNELS:
         require(launches[k] > 0, f"kernel {k} was not launched on the pass route")
+    require(len(folds) == launches["stage_dc"], "the pass route: a K3 fold not checked")
     (shape, fold_s), = seen["fold_s"]
     log(f"passes: CRC fold over {shape[1]} tile registers on the host {fold_s * 1e3:.3f} ms")
     path_bounds("pass route", calls)
@@ -3076,10 +3150,11 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
                 and big["byte_mismatches"] == 0, "the big-member row did not verify every member")
 
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
-               (dk, "compact_flat"), (dk, "wave_summary"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
+               (dk, "compact_flat"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
                (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"),
                (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
-    with recorded(*kernels) as (calls, _shapes, _order), captured(*kernels) as caps:
+    with recorded(*kernels) as (calls, _shapes, _order), captured(*kernels) as caps, \
+            folds_checked(K, "kernel rows") as folds:
         _build.reset_launches()
         results = {name: run(reps=1) for name, run in rows}
         launches = _build.all_launches()
@@ -3089,7 +3164,8 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
         if k == "compact_any":
             require(launches[k] == 0, "K7 launched in the kernel rows")
         else:
-            require(launches[k] > 0, f"kernel {k} was not launched in the kernel rows")
+            require(launches[COUNTERS.get(k, k)] > 0, f"kernel {k} was not launched in the kernel rows")
+    require(len(folds) == launches["stage_dc"], "the kernel rows: a K3 fold not checked")
     path_bounds("kernel rows", calls)
     del calls
     replay_calls(caps, K, "kernel rows")
@@ -3214,8 +3290,9 @@ def main(argv: list[str]) -> int:
             "source": CSRC + src,
             "replaces": tpu,
             "path": path,
-            "launches": path_launches[path][name],
-            "launches_by_path": {p: n[name] for p, n in path_launches.items() if name in n},
+            "launches": path_launches[path][COUNTERS.get(name, name)],
+            "launches_by_path": {p: n[COUNTERS.get(name, name)] for p, n in path_launches.items()
+                                 if COUNTERS.get(name, name) in n},
             "max_abs_err": K.rec[name]["max_abs_err"],
             "ms": K.rec[name]["ms"],
             "plain_ms": K.rec[name]["plain_ms"],

@@ -23,11 +23,18 @@ For a tree:
   bytes bound (the tokens read once, the tiles written once);
 - the main path's decode of the corpus's members (``engine.decompress``):
   its device events (kernels and copies, torch.profiler) and host-side
-  aten ops that launch device work, in all and a wave; the summary fold on
-  K3's rows of every wave, captured from ``decode_kernels.stage_dc`` and
-  replayed (``decode_kernels.wave_summary`` where the tree has it, else the
-  eager sums and stack the tree's ``run_wave`` and ``pack_small`` ran): its
-  device time a wave and its launches.
+  aten ops that launch device work, in all and a wave;
+- K3 (``decode_kernels.stage_dc``) on the main path's waves and on the
+  first 64 of the continuous member's decode, its inputs captured and
+  replayed: its device time a launch (the profiler's ``stage_dc_kernel``
+  events; where the tree folds the summary in K3's epilogue, the fold
+  included);
+- the summary fold on K3's rows of every wave of both decodes: where the
+  tree folds in K3 (``stage_dc`` returns the vector), no launch and no
+  device time of its own; else replayed (``decode_kernels.wave_summary``
+  where the tree has it, else the eager sums and stack the tree's
+  ``run_wave`` and ``pack_small`` ran): its device time a wave and its
+  launches.
 
 Every figure stands beside the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``)."""
@@ -46,6 +53,7 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: longer than one call's enqueue
 REPS = 5
+K3_WAVES = 64  # waves of each decode whose K3 inputs are kept and replayed
 
 
 def card() -> str:
@@ -156,22 +164,29 @@ def one_tree(tree: str) -> dict:
         }
         del inputs, calls
 
-    # The main path: launches a wave; the summary fold on every wave's rows.
+    # The main path and the continuous member's decode: K3's rows of every
+    # wave, its inputs of the first K3_WAVES, and whether K3 returned the
+    # folded vector.
     stage_dc = dk.stage_dc
-    rows = []
+    rec: list = []
 
     def dc_spy(*a, **kw):
-        tokc, summ = stage_dc(*a, **kw)
-        rows.append(summ.clone())
-        return tokc, summ
+        res = stage_dc(*a, **kw)
+        args = (tuple(x.clone() for x in a), dict(kw)) if len(rec) < K3_WAVES else None
+        rec.append((args, res[1].clone(), len(res) == 3))
+        return res
 
+    captured_waves = {}
     dk.stage_dc = dc_spy
     try:
-        assert engine.decompress(gz, engine="cuda") == corpus
+        for label, stream, want in (("main path", gz, corpus), ("continuous decode", cont, corpus)):
+            rec = []
+            assert engine.decompress(stream, engine="cuda") == want
+            assert len(rec) == pv2.LAST_DECODE_STATS["waves"], (len(rec), pv2.LAST_DECODE_STATS["waves"])
+            captured_waves[label] = rec
     finally:
         dk.stage_dc = stage_dc
-    waves = pv2.LAST_DECODE_STATS["waves"]
-    assert len(rows) == waves, (len(rows), waves)
+    waves = len(captured_waves["main path"])
     launches, ops, events = cs.call_record(lambda: engine.decompress(gz, engine="cuda"))
     device_ops = sum(n for op, n in ops.items() if op not in cs.NO_LAUNCH_OPS)
     out["main path"] = {
@@ -179,22 +194,47 @@ def one_tree(tree: str) -> dict:
         "aten_device_ops": device_ops, "aten_device_ops_a_wave": round(device_ops / waves, 2),
         "port_launches": sum(launches.values()), "port_launches_a_wave": round(sum(launches.values()) / waves, 2),
     }
-    if hasattr(dk, "wave_summary"):
-        fold = dk.wave_summary
-    else:  # the eager fold of the tree's run_wave and pack_small
-        def fold(summ):
-            sums = dk.wave_sums_plain(summ) if hasattr(dk, "wave_sums_plain") else eager_sums(summ)
-            return pv2.pack_small(*sums)
-    calls = [lambda s=s: fold(s) for s in rows]
-    prof = profiled(calls)
-    out["summary fold"] = {
-        "shapes": [list(s.shape) for s in rows], "device_us": prof["us"],
-        "device_us_a_wave": round(prof["us"] / waves, 3), "events_a_wave": round(prof["events"] / waves, 2),
-        "by_name": prof["by_name"], "queued_us": [round(queued_us(fn), 3) for fn in calls],
-        "bound_us": [round((s.numel() * 4 + 7 * s.shape[0] * 4) / HBM_BYTES_PER_S * 1e6, 3) for s in rows],
-        "crc": zlib.crc32(b"".join(fn().cpu().numpy().tobytes() for fn in calls)),
-    }
+    for label, rec in captured_waves.items():
+        fused = rec[0][2]
+        k3 = [lambda a=a, kw=kw: stage_dc(*a, **kw) for (a, kw), _s, _f in rec[:K3_WAVES]]
+        prof = profiled(k3)
+        k3_us = sum(us for name, us in prof["by_name"].items() if "stage_dc_kernel" in name)
+        out[f"K3 {label}"] = {
+            "fused_fold": fused, "launches": len(k3), "device_us": prof["us"],
+            "k3_us_a_launch": round(k3_us / len(k3), 3), "by_name": prof["by_name"],
+            "queued_us": [round(queued_us(fn), 3) for fn in k3[:5]],
+        }
+        rows = [summ for _a, summ, _f in rec]
+        if fused:  # the fold is K3's epilogue: no launch of its own
+            out[f"summary fold {label}"] = {"in_k3": True, "waves": len(rows), "device_us": 0.0,
+                                            "device_us_a_wave": 0.0, "events_a_wave": 0.0, "by_name": {},
+                                            "queued_us": [], "crc": fold_crc(rows)}
+            continue
+        if hasattr(dk, "wave_summary"):
+            fold = dk.wave_summary
+        else:  # the eager fold of the tree's run_wave and pack_small
+            def fold(summ):
+                sums = dk.wave_sums_plain(summ) if hasattr(dk, "wave_sums_plain") else eager_sums(summ)
+                return pv2.pack_small(*sums)
+        calls = [lambda s=s: fold(s) for s in rows]
+        prof = profiled(calls)
+        out[f"summary fold {label}"] = {
+            "in_k3": False, "waves": len(rows), "device_us": prof["us"],
+            "device_us_a_wave": round(prof["us"] / len(rows), 3),
+            "events_a_wave": round(prof["events"] / len(rows), 2), "by_name": prof["by_name"],
+            "queued_us": [round(queued_us(fn), 3) for fn in calls[:5]],
+            "bound_us": [round((s.numel() * 4 + 7 * s.shape[0] * 4) / HBM_BYTES_PER_S * 1e6, 3) for s in rows[:5]],
+            "crc": zlib.crc32(b"".join(fn().cpu().numpy().tobytes() for fn in calls)),
+        }
     return out
+
+
+def fold_crc(rows) -> int:
+    """CRC of the plain folds of the rows (the vectors K3 returned equal
+    these; chip_smoke.py checks it on every wave)."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    return zlib.crc32(b"".join(dk.wave_summary_plain(s).cpu().numpy().tobytes() for s in rows))
 
 
 def eager_sums(summ):
@@ -228,13 +268,21 @@ FIGURES = (
     ("split big members", "by_name"),
     ("split continuous member", "device_us"), ("split continuous member", "events"),
     ("split continuous member", "queued_us"), ("split continuous member", "bound_us"),
-    ("split continuous member", "peak_above_output_per_token"),
+    ("split continuous member", "peak_above_output_per_token"), ("split continuous member", "by_name"),
     ("main path", "waves"), ("main path", "device_events_a_wave"), ("main path", "aten_device_ops_a_wave"),
     ("main path", "port_launches_a_wave"),
-    ("summary fold", "device_us_a_wave"), ("summary fold", "events_a_wave"), ("summary fold", "queued_us"),
-    ("summary fold", "bound_us"), ("summary fold", "by_name"),
+    ("K3 main path", "launches"), ("K3 main path", "k3_us_a_launch"), ("K3 main path", "device_us"),
+    ("K3 main path", "queued_us"),
+    ("K3 continuous decode", "launches"), ("K3 continuous decode", "k3_us_a_launch"),
+    ("K3 continuous decode", "device_us"),
+    ("summary fold main path", "in_k3"), ("summary fold main path", "device_us"),
+    ("summary fold main path", "device_us_a_wave"), ("summary fold main path", "events_a_wave"),
+    ("summary fold main path", "queued_us"), ("summary fold main path", "by_name"),
+    ("summary fold continuous decode", "waves"), ("summary fold continuous decode", "device_us"),
+    ("summary fold continuous decode", "device_us_a_wave"), ("summary fold continuous decode", "events_a_wave"),
 )
-SAME = ("split big members", "split continuous member", "summary fold")
+SAME = ("split big members", "split continuous member", "summary fold main path",
+        "summary fold continuous decode")
 
 
 def ab(parent: str, change: str) -> int:
@@ -250,8 +298,7 @@ def ab(parent: str, change: str) -> int:
     for part, key in FIGURES:
         print(f"{part} {key}: " + " / ".join(json.dumps(r[part][key]) for r in runs))
     print(f"split calls: big members {json.dumps(runs[1]['split big members']['calls'])}, continuous member "
-          f"{json.dumps(runs[1]['split continuous member']['calls'])}; fold shapes "
-          f"{json.dumps(runs[1]['summary fold']['shapes'])}")
+          f"{json.dumps(runs[1]['split continuous member']['calls'])}")
     same = {part: len({r[part]["crc"] for r in runs}) == 1 for part in SAME}
     print(f"outputs identical across the four runs: {json.dumps(same)}")
     for r in runs:

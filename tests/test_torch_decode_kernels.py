@@ -134,12 +134,13 @@ def test_stage_dc_matches_pallas(random_wave, k1):
     delta[0, :, 2] = 1
     token[0, :, 2] = np.arange(dp.W_P) % 256
     entries[0, 2] = 0
-    got_t, got_s = dk.stage_dc(_t(delta), _t(token), _t(entries), k1=k1)
+    got_t, got_s, got_v = dk.stage_dc(_t(delta), _t(token), _t(entries), k1=k1)
     want_t, want_s = dp.stage_dc_pallas(
         jnp.asarray(delta), jnp.asarray(token), jnp.asarray(entries), k1=k1, interpret=True
     )
     _eq(got_t, want_t)
     _eq(got_s, want_s)
+    assert torch.equal(got_v, dk.wave_summary_plain(got_s))  # K3's summary fold
     assert int(got_s[0, wp.ROW_OVERFLOW, 2]) == int(k1 < dp.W_P)
 
 
@@ -161,12 +162,13 @@ def test_stage_dc_matches_pallas_at_edge_deltas(random_wave, k1):
     delta = delta.astype(np.int32)
     entries = rng.integers(0, dp.E_WIN, (L, NT)).astype(np.int32)
     entries[:, :4] = (0, 47, 48, 255)
-    got_t, got_s = dk.stage_dc(_t(delta), _t(token), _t(entries), k1=k1)
+    got_t, got_s, got_v = dk.stage_dc(_t(delta), _t(token), _t(entries), k1=k1)
     want_t, want_s = dp.stage_dc_pallas(
         jnp.asarray(delta), jnp.asarray(token), jnp.asarray(entries), k1=k1, interpret=True
     )
     _eq(got_t, want_t)
     _eq(got_s, want_s)
+    assert torch.equal(got_v, dk.wave_summary_plain(got_s))  # K3's summary fold
     adv = {127: 4096, 255: 8192}
     for t in range(NT):
         cur, count = int(entries[0, t]), 0

@@ -5,21 +5,27 @@ wrapper runs on CPU tensors) against the JAX package's NumPy split
 jitted ``split_tiles_device`` at two small shapes, and a NumPy mirror of
 the kernel's two launches against the plain version.
 
-The mirror repeats the kernel's decomposition: each lane cut into
-segments, each segment's runs summed by threads of consecutive tokens and a
-block scan, its prefix from a decoupled look-back whose sum saturates at T
-* N_POS + 1024 (run in any order the kernel allows: each predecessor has
-published its aggregate or its inclusive prefix), the crossing token of
-every seam writing the tile's first index, head and the tile before's
-straddler, the lane's last segment the seams past its total; then a block
-a tile ranking its range's valid tokens round by round (items of
-consecutive threads, warp ballots, one scan of the (item, warp) counts).
-It checks that every scratch word and every output word is written exactly
-once. Segment lengths put a straddler, a token ending on a seam and a -1
-run on a segment's edge. Inputs are made from a numpy seed; the split is
-integer-only, so every comparison is exact equality."""
+The mirror repeats the kernel's decomposition and runs its blocks in a
+random interleaving, at most a few at once and started in ticket order:
+each lane cut into segments, each segment's runs and valid tokens summed by
+threads of consecutive tokens and a block scan, its two prefixes from a
+decoupled look-back over (bytes, count) pairs whose bytes saturate at T *
+N_POS + 1024 (rounds of 32 or 128 predecessors folded down to the nearest
+inclusive prefix, a block blocked where any word of its round is still
+unpublished), the crossing token of every seam publishing its tile's base
+less its head and writing the head, each block waiting for the base of the
+tile it opens in, every valid token placed at its slot by rank, the
+crossing tokens and the lane's last segment publishing each tile's filled
+length; the later tickets padding a chunk of a tile each once its filled
+length is published. It checks that every output word is written exactly
+once, every filled length once, every tile word at most once, and that no
+interleaving hangs. Segment lengths put a straddler, a token ending on a
+seam and a -1 run on a segment's edge. Inputs are made from a numpy seed;
+the split is integer-only, so every comparison is exact equality."""
 
 from __future__ import annotations
+
+import random
 
 import numpy as np
 import pytest
@@ -157,6 +163,7 @@ def test_plain_drops_slots_past_n_pos():
 # ---------------------------------------------------------------------------
 
 UNSET = np.iinfo(np.int64).min
+WARP = 32
 
 
 def _runs(tok: np.ndarray) -> np.ndarray:
@@ -164,123 +171,219 @@ def _runs(tok: np.ndarray) -> np.ndarray:
     return np.where(x < 0, 0, np.where(x & MATCH, (x >> 16) & 0x3FF, 1))
 
 
-def _look_back(aggs: list[int], seg: int, incl: list[int], rng, sat) -> int:
-    """The segment's exclusive prefix as the kernel's warp finds it: rounds
-    of 32 predecessors back from seg - 1, each round folding the aggregates
-    down to its nearest published inclusive prefix. Any predecessor may
-    still show only its aggregate (a coin flip); segment 0 publishes its
-    prefix at once."""
-    if seg == 0:
-        return 0
-    excl, top = 0, seg - 1
-    while True:
-        x, stop = 0, False
-        for j in range(top, top - 32, -1):
-            if j <= 0 or rng.random() < 0.5:  # before segment 0: nothing to add
-                x = sat(x, incl[j] if j >= 0 else 0)
-                stop = True
+class _Block:
+    """One block of the place pass: its segment's staged tokens and sums,
+    advanced phase by phase (``step``) in whatever order the scheduler
+    picks, blocked where the kernel would spin."""
+
+    def __init__(self, sim, ticket: int):
+        self.sim, self.lane, self.seg = sim, ticket // sim.nseg, ticket % sim.nseg
+        seg0 = self.seg * sim.seg_len
+        sl = slice(seg0, seg0 + sim.seg_len)
+        self.x, self.run, self.valid = sim.tok[self.lane, sl].astype(np.int64), sim.runs[self.lane, sl], \
+            sim.valid[self.lane, sl]
+        self.agg = (int(self.run.sum()), int(self.valid.sum()))
+        if self.agg[1]:
+            # threads of `per` consecutive tokens: their sums, a block scan, then each thread's chain
+            starts = np.arange(0, len(self.x), sim.per)
+            ex_b = np.concatenate([[0], np.cumsum(np.add.reduceat(self.run, starts))[:-1]])
+            ex_c = np.concatenate([[0], np.cumsum(np.add.reduceat(self.valid, starts))[:-1]])
+            th = np.arange(len(self.x)) // sim.per
+            first = starts[th]
+            cb, cv = np.cumsum(self.run) - self.run, np.cumsum(self.valid) - self.valid
+            self.ex_bytes = ex_b[th] + cb - cb[first]
+            self.ex_count = ex_c[th] + cv - cv[first]
+        self.phase, self.excl, self.top = "publish", (0, 0), self.seg - 1
+
+    def step(self) -> bool:
+        """Advance one phase; False where the kernel would spin."""
+        return getattr(self, "_" + self.phase)()
+
+    def _publish(self):
+        st = self.sim.status[self.lane]
+        st[self.seg] = ("P", self.agg) if self.seg == 0 else ("A", self.agg)
+        self.phase = "seams" if self.seg == 0 else "look_back"
+        return True
+
+    def _look_back(self):
+        """One round: WARP lanes of `items` status words each, 32 * items
+        predecessors back from top, folded down to the nearest inclusive
+        prefix; every word of the round must be published."""
+        sim, st = self.sim, self.sim.status[self.lane]
+        lo = self.top - WARP * sim.items  # the round reads (lo, top]
+        if any(w is None for w in st[max(lo + 1, 0) : self.top + 1]):
+            return False
+        x, found = (0, 0), lo < 0
+        for j in range(self.top, max(lo, -1), -1):  # nearest first, down to the nearest prefix
+            flag, v = st[j]
+            x = sim.op(x, v)
+            if flag == "P":
+                found = True
                 break
-            x = sat(x, aggs[j])
-        excl = sat(excl, x)
-        if stop:
-            return excl
-        top -= 32
+        self.excl = sim.op(self.excl, x)
+        if found:
+            st[self.seg] = ("P", sim.op(self.excl, self.agg))
+            self.phase = "seams"
+        else:
+            self.top = lo
+        return True
+
+    def _seams(self):
+        """Each crossing token publishes its tile's off and head, from the
+        prefixes alone."""
+        sim = self.sim
+        pb, pc = self.excl
+        self.s_off = {}
+        self.phase = "wait"
+        if not self.agg[1]:  # no valid token: no seam
+            return True
+        self.s = np.minimum(pb + self.ex_bytes, sim.cap)
+        self.r = pc + self.ex_count
+        e = self.s + self.run
+        c = (self.s // N + 1) * N
+        for k in np.flatnonzero((self.s < sim.TN) & (c <= e) & (c < sim.TN)):
+            t, hd = int(c[k] // N), bool(e[k] > c[k])
+            off = int(self.r[k]) + 1 - hd
+            self.s_off[t] = off
+            sim.put(sim.tiles, sim.tile_writes, (self.lane, t), off)
+            if hd:
+                sim.put(sim.out, sim.out_writes, (self.lane, t, 0), match(int(e[k] - c[k]), int(self.x[k]) & 0xFFFF))
+        return True
+
+    def _wait(self):
+        """off(tf) of the tile the segment opens in, from an earlier block."""
+        sim = self.sim
+        pb, _pc = self.excl
+        tf = pb // N
+        if pb < sim.TN and tf > 0:
+            if sim.tiles[self.lane, tf] == UNSET:
+                return False
+            self.s_off[tf] = int(sim.tiles[self.lane, tf])
+        else:
+            self.s_off[tf] = 0
+        self.phase = "place"
+        return True
+
+    def _place(self):
+        """Every valid token's value and slot, staged by rank and stored;
+        the crossing tokens and the lane's last segment publish the filled
+        lengths of the tiles they end."""
+        sim, lane = self.sim, self.lane
+        pb, pc = self.excl
+        self.phase = "done"
+        total = min(pb + self.agg[0], sim.cap)
+        if self.seg == sim.nseg - 1 and total < sim.TN:
+            tl = total // N
+            sim.put(sim.fills, sim.fill_writes, (lane, tl), min(N, pc + self.agg[1] - self.s_off[tl]))
+            for t in range(tl + 1, sim.T):
+                sim.put(sim.fills, sim.fill_writes, (lane, t), 0)
+        if self.agg[1]:
+            self._store()
+        return True
+
+    def _store(self):
+        sim, lane = self.sim, self.lane
+        pb, pc = self.excl
+        keep = (self.x >= 0) & (self.s < sim.TN)
+        s, r, x, run = self.s[keep], self.r[keep], self.x[keep], self.run[keep]
+        t = s // N
+        off = np.array([self.s_off[int(u)] for u in t], np.int64)
+        e, c = s + run, (t + 1) * N
+        is_m = (x & MATCH) != 0
+        val = np.where(is_m, np.where(c < e, MATCH | (c - s) << 16 | (x & 0xFFFF), x & FIELDS), x)
+        for k in np.flatnonzero(c <= e):  # the token ends its tile
+            sim.put(sim.fills, sim.fill_writes, (lane, int(t[k])), min(N, int(r[k]) + 1 - int(off[k])))
+        slot = r - off
+        ok = slot < N
+        flat = sim.out[lane].reshape(-1)
+        idx = t[ok] * N + slot[ok]
+        flat[idx] = val[ok]
+        np.add.at(sim.out_writes[lane].reshape(-1), idx, 1)
 
 
-def mirror_split(tok: np.ndarray, T: int, seg_len: int, per: int, seed: int,
-                 threads: int = 64, fill_per: int = 4) -> np.ndarray:
-    L, K = tok.shape
-    cap = T * N + 1024
-    TN = T * N
+class _PadBlock:
+    """A padding block: -1 over [max(n_t, lo), hi) of its tile once the
+    tile's fill word is published (no wait for K = 0: n_t = 0)."""
 
-    def sat(a, b):
-        return min(a + b, cap)
+    def __init__(self, sim, q: int):
+        chunks = N // sim.pad
+        self.sim, self.lane, self.t = sim, q // chunks // sim.T, q // chunks % sim.T
+        self.lo, self.hi = q % chunks * sim.pad, (q % chunks + 1) * sim.pad
+        self.phase = "pad"
 
-    first = np.full((L, T + 1), UNSET, np.int64)
-    head = np.full((L, T), UNSET, np.int64)
-    tail = np.full((L, T), UNSET, np.int64)
-    writes = [np.zeros(a.shape, np.int64) for a in (first, head, tail)]
+    def step(self) -> bool:
+        sim = self.sim
+        n = 0
+        if sim.tok.shape[1]:
+            if sim.fills[self.lane, self.t] == UNSET:
+                return False
+            n = int(sim.fills[self.lane, self.t])
+        lo = max(n, self.lo)
+        sim.out[self.lane, self.t, lo : self.hi] = -1
+        sim.out_writes[self.lane, self.t, lo : self.hi] += 1
+        self.phase = "done"
+        return True
 
-    def put(which: int, arr, lane: int, t: int, v: int):
-        arr[lane, t] = v
-        writes[which][lane, t] += 1
 
-    rng = np.random.default_rng(seed)
-    if K:
-        nseg = -(-K // seg_len)
-        runs = _runs(tok)
-        for lane in range(L):
-            aggs = [int(runs[lane, s * seg_len : (s + 1) * seg_len].sum()) for s in range(nseg)]
-            incl: list = [None] * nseg
-            for seg in range(nseg):
-                prefix = _look_back(aggs, seg, incl, rng, sat)
-                incl[seg] = sat(prefix, aggs[seg])
-                seg0 = seg * seg_len
-                x = tok[lane, seg0 : seg0 + seg_len].astype(np.int64)
-                r = runs[lane, seg0 : seg0 + seg_len]
-                # threads of `per` consecutive tokens: exclusive sums, then each thread's chain
-                sums = np.add.reduceat(r, np.arange(0, len(r), per))
-                excl = np.concatenate([[0], np.cumsum(sums)[:-1]])
-                if seg == 0:
-                    put(0, first, lane, 0, 0)
-                    put(1, head, lane, 0, -1)
-                for th in range(len(sums)):
-                    s = sat(prefix, int(excl[th]))
-                    for k in range(th * per, min((th + 1) * per, len(r))):
-                        if s < TN:
-                            e = s + int(r[k])
-                            c = (s // N + 1) * N
-                            if c <= e:
-                                t, d = c // N, int(x[k]) & 0xFFFF
-                                put(0, first, lane, t, seg0 + k + 1)
-                                if t < T:
-                                    put(1, head, lane, t, match(e - c, d) if e > c else -1)
-                                put(2, tail, lane, t - 1, match(c - s, d) if e > c else -1)
-                        s = sat(s, int(r[k]))
-                if seg == nseg - 1:
-                    for t in range(incl[seg] // N + 1, T + 1):
-                        put(0, first, lane, t, K)
-                        if t < T:
-                            put(1, head, lane, t, -1)
-                        put(2, tail, lane, t - 1, -1)
-        for w in writes:
-            assert (w == 1).all(), "a scratch word written other than once"
+class _SplitSim:
+    """The kernel's blocks scheduled in a random interleaving (at most
+    `resident` blocks at once, started in ticket order): the placing blocks,
+    then the padding blocks."""
 
-    out = np.full((L, T, N), UNSET, np.int64)
-    out_writes = np.zeros((L, T, N), np.int64)
-    rnd = threads * fill_per
-    warps = threads // 32
-    for lane in range(L):
-        for t in range(T):
-            lo, hi, hd, st = (0, 0, -1, -1) if K == 0 else (
-                int(first[lane, t]), int(first[lane, t + 1]), int(head[lane, t]), int(tail[lane, t]))
-            o, ow = out[lane, t], out_writes[lane, t]
-            if hd >= 0:
-                o[0] = hd
-                ow[0] += 1
-            base = int(hd >= 0)
-            c = lo
-            while c < hi and base < N:
-                idx = c + np.arange(fill_per)[:, None] * threads + np.arange(threads)[None, :]  # (item, thread)
-                v = np.where(idx < hi, tok[lane, np.minimum(idx, K - 1)].astype(np.int64), -1)
-                v = np.where((v >= 0) & ((v & MATCH) != 0), v & FIELDS, v)
-                v = np.where((idx == hi - 1) & (st >= 0), st, v)
-                ok = v >= 0
-                by_warp = ok.reshape(fill_per, warps, 32)
-                counts = by_warp.sum(2).ravel()  # (item, warp), item-major
-                wexcl = np.concatenate([[0], np.cumsum(counts)[:-1]]).reshape(fill_per, warps)
-                lane_rank = np.cumsum(by_warp, 2) - by_warp  # valid lanes below, in the warp
-                rank = base + wexcl[:, :, None] + lane_rank
-                keep = by_warp & (rank < N)
-                o[rank[keep]] = v.reshape(fill_per, warps, 32)[keep]
-                np.add.at(ow, rank[keep], 1)
-                base += int(counts.sum())
-                c += rnd
-            n = min(base, N)
-            o[n:] = -1
-            ow[n:] += 1
-    assert (out_writes == 1).all(), "an output word written other than once"
-    return out.astype(np.int32)
+    def __init__(self, tok, T, seg_len, per, items, seed, pad=16384, resident=6):
+        self.tok, self.T, self.seg_len, self.per, self.items, self.pad = tok, T, seg_len, per, items, pad
+        L, K = tok.shape
+        self.cap, self.TN = T * N + 1024, T * N
+        self.nseg = -(-K // seg_len)
+        self.runs, self.valid = _runs(tok), (tok >= 0).astype(np.int64)
+        self.status = [[None] * self.nseg for _ in range(L)]
+        self.tiles = np.full((L, T), UNSET, np.int64)
+        self.tile_writes = np.zeros((L, T), np.int64)
+        self.fills = np.full((L, T), UNSET, np.int64)
+        self.fill_writes = np.zeros((L, T), np.int64)
+        self.blocks = L * self.nseg + L * T * (N // pad)
+        self.out = np.full((L, T, N), UNSET, np.int64)
+        self.out_writes = np.zeros((L, T, N), np.int64)
+        self.rng = random.Random(seed)
+        self.resident = resident
+
+    def op(self, a, b):
+        """(bytes, count) pairs: bytes add saturating at cap, counts add."""
+        return min(a[0] + b[0], self.cap), a[1] + b[1]
+
+    def put(self, arr, writes, at, v):
+        arr[at] = v
+        writes[at] += 1
+
+    def run(self):
+        L, K = self.tok.shape
+        place = L * self.nseg
+        tickets, active = iter(range(self.blocks)), []
+        more = True
+        while more or active:
+            while more and len(active) < self.resident:
+                t = next(tickets, None)
+                more = t is not None
+                if more:
+                    active.append(_Block(self, t) if t < place else _PadBlock(self, t - place))
+            first = self.rng.randrange(len(active))
+            for i in [(first + d) % len(active) for d in range(len(active))]:  # the first that can move moves
+                b = active[i]
+                if b.step():
+                    if b.phase == "done":
+                        active.pop(i)
+                    break
+            else:
+                raise AssertionError("no block can move: the kernel would hang")
+        assert (self.tile_writes[:, 1:] <= 1).all(), "a tile word written more than once"
+        assert K == 0 or (self.fill_writes == 1).all(), "a fill word written other than once"
+        assert (self.out_writes == 1).all(), "an output word written other than once"
+        return self.out.astype(np.int32)
+
+
+def mirror_split(tok: np.ndarray, T: int, seg_len: int, per: int, seed: int, items: int = 1,
+                 pad: int = 16384) -> np.ndarray:
+    return _SplitSim(tok, T, seg_len, per, items, seed, pad).run()
 
 
 def _edge_lengths(tok: np.ndarray, T: int) -> list[int]:
@@ -291,7 +394,7 @@ def _edge_lengths(tok: np.ndarray, T: int) -> list[int]:
     e = np.cumsum(r)
     s = e - r
     cross = (s // N + 1) * N
-    lens = {4096, 7}
+    lens = {rs.TILE_SPLIT_SEGMENT, 7}
     last = np.flatnonzero(x >= 0)[-1] if (x >= 0).any() else -1
     for hits in ((cross < e) & (s < T * N), (cross == e) & (r > 0), (x < 0) & (np.arange(len(x)) < last)):
         idx = np.flatnonzero(hits)
@@ -308,9 +411,10 @@ MIRROR_CASES = {**{k: CASES[k] for k in ("seams", "on_seam", "holes", "past_T", 
 def test_mirror_matches_plain(case):
     tok, T = MIRROR_CASES[case]()
     want = rs.split_tiles_plain(torch.from_numpy(tok), T).numpy()
-    lens = _edge_lengths(tok, T) if tok.shape[1] else [4096]
+    lens = _edge_lengths(tok, T) if tok.shape[1] else [rs.TILE_SPLIT_SEGMENT]
     for i, seg_len in enumerate(lens):
-        got = mirror_split(tok, T, seg_len, per=4 if seg_len % 4 == 0 else 3, seed=i)
+        got = mirror_split(tok, T, seg_len, per=4 if seg_len % 4 == 0 else 3, seed=i, items=1 + 3 * (i % 2),
+                           pad=16384 >> (i % 2))
         np.testing.assert_array_equal(got, want, err_msg=f"segments of {seg_len}")
 
 

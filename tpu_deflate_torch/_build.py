@@ -44,13 +44,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry point -> argument types (all return cudaError_t as int).
 SIGNATURES = {
     "td_stage_a_tables": [_P, _P, _I, _P],
     "td_stage_a": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "td_stage_b": [_P, _P, _I, _I, _P],
     "td_stage_c": [_P] * 6 + [_I, _I, _I, _P],
-    "td_stage_dc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "td_stage_dc": [_P] * 7 + [_I, _I, _I, _P],
     "td_compact": [_P, _P, _P, _P, _I, _I, _I, _P],
     "td_compact_occupancy": [_P],
     "td_expand": [_P, _P, _P, _P, _I, _I, _P],
@@ -66,8 +67,8 @@ SIGNATURES = {
     "td_match_occupancy": [_P],
     "td_match_select": [_P] * 11 + [_I, _I, _I, _P],
     "td_finish_analysis": [_P] * 16 + [_I, _I, _P],
-    "td_tile_split": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "td_wave_summary": [_P, _P, _P, _P, _I, _I, _P],
+    "td_tile_split": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "td_wave_summary": [_P] * 4 + [_I, _I, _P],
 }
 
 # Kernel launches per wrapper since process start (or the last reset): the
@@ -217,3 +218,51 @@ def on_card(*tensors: torch.Tensor) -> bool:
 
 def stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+# (name, device index, stream) -> its kept-zero scratch (int64), or for
+# alternating_halves [the (2, n) buffer, the half to use next, the words of
+# the other half the last call used]
+_KEPT_ZERO: dict = {}
+
+
+def _kept_key(name: str, dev: torch.device) -> tuple:
+    return name, dev.index if dev.index is not None else torch.cuda.current_device(), stream(dev)
+
+
+def kept_zero(name: str, dev: torch.device, words: int) -> torch.Tensor:
+    """At least ``words`` int64 zeros on ``dev`` for a kernel that puts back
+    to 0 every word it uses before it ends (the tile split, K3's summary
+    fold): one buffer per (name, device, current stream), kept across calls,
+    so a call launches no zero fill; only a buffer that grows is zeroed,
+    once. Calls on other streams (a mesh's shards) share nothing."""
+    key = _kept_key(name, dev)
+    buf = _KEPT_ZERO.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 2 * buf.numel() if buf is not None else 0), dtype=torch.int64, device=dev)
+        _KEPT_ZERO[key] = buf
+    return buf
+
+
+def alternating_halves(name: str, dev: torch.device, words: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Scratch for a kernel that zeroes, while it runs, the words the call
+    before it on the stream used (the tile split): (a half of at least
+    ``words`` int64 zeros, the other half, the words of the other half to
+    put back to 0). Calls on a stream take the halves in turn: stream order
+    ends the call before a call starts, so no zero fill is launched; only a
+    buffer that grows is zeroed, once. One pair per (name, device, current
+    stream)."""
+    key = _kept_key(name, dev)
+    state = _KEPT_ZERO.get(key)
+    if state is None or state[0].shape[1] < words:
+        n = max(words, 2 * state[0].shape[1] if state is not None else 0)
+        state = _KEPT_ZERO[key] = [torch.zeros((2, n), dtype=torch.int64, device=dev), 0, 0]
+    buf, half, dirty = state
+    state[1], state[2] = 1 - half, words
+    return buf[half], buf[1 - half], dirty
+
+
+def drop_kept_zero(name: str, dev: torch.device) -> None:
+    """Forget ``name``'s scratch on ``dev``'s current stream (after a failed
+    launch, which may leave it dirty)."""
+    _KEPT_ZERO.pop(_kept_key(name, dev), None)

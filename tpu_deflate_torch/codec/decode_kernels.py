@@ -1,8 +1,9 @@
 """The decode wave's kernels: stage A (K1, which on the card first builds
 each lane's decode tables with a kernel of its own, ``stage_a_tables``),
 stage B (K2), stage C (the maps composed over tiles), stage DC (K3) and
-level-2 compaction (K4, with K7 as its no-map mode), and the fold of K3's
-summary rows into the wave's per-lane vector (``wave_summary``).
+level-2 compaction (K4, with K7 as its no-map mode). K3's epilogue folds
+its summary rows into the wave's per-lane vector (``wave_summary`` runs
+that fold alone on given rows).
 
 Each wrapper checks its inputs, then runs the hand-written CUDA kernel of
 ``tpu_deflate_torch/csrc/`` on CUDA tensors, or the plain PyTorch version
@@ -15,8 +16,8 @@ the reference's integer semantics exactly: uint32 windows are held in
 int64 masked to 32 bits, and shifts follow XLA (a count outside [0, 32)
 gives 0). Layouts match the JAX package at every public function:
 ``stage_a`` (L, 512, NT), ``stage_b`` (L, NT, 48) uint8, ``stage_c``
-entries (L, NT) uint8, ``stage_dc`` tokens (L, NT, k1) and summary (L, 8,
-NT).
+entries (L, NT) uint8, ``stage_dc`` tokens (L, NT, k1), summary (L, 8,
+NT) and the (7, L) vector.
 """
 
 from __future__ import annotations
@@ -584,12 +585,19 @@ def stage_dc_plain(
     return tokens.to(torch.int32), wrap_int32(summary).to(torch.int32)
 
 
+FOLD_WORDS = 16  # int64 counts of the summary fold a lane (csrc/stage_dc.cu's FOLD_STRIDE)
+
+
 def stage_dc(
     delta_t: torch.Tensor, token_t: torch.Tensor, entries: torch.Tensor, *, k1: int
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage DC (K3): delta/token (L, 512, NT) int32, entries (L, NT) int32
     (>= 48 is a dead tile) -> (tokens (L, NT, k1) int32 with -1 padding,
-    summary (L, 8, NT) int32)."""
+    summary (L, 8, NT) int32, the wave's (7, L) int32 vector of
+    :func:`wave_summary` with row 6 (nlit) 0). On the card one launch: the
+    summary fold is K3's epilogue (its scratch kept zeroed between calls,
+    ``_build.kept_zero``); on the CPU :func:`stage_dc_plain` and
+    :func:`wave_summary_plain`."""
     _build.check_tensor("delta_t", delta_t, torch.int32, 3)
     _build.check_tensor("token_t", token_t, torch.int32, 3)
     _build.check_tensor("entries", entries, torch.int32, 2)
@@ -599,19 +607,24 @@ def stage_dc(
     _build.require(tuple(entries.shape) == (L, NT), f"entries: shape {tuple(entries.shape)}")
     _build.require(1 <= k1 <= W_P, f"k1={k1} outside [1, {W_P}]")
     if not _build.on_card(delta_t, token_t, entries):
-        return stage_dc_plain(delta_t, token_t, entries, k1)
+        tokens, summ = stage_dc_plain(delta_t, token_t, entries, k1)
+        return tokens, summ, wave_summary_plain(summ)
     dev = delta_t.device
     tokens = torch.empty((L, NT, k1), dtype=torch.int32, device=dev)
     summ = torch.empty((L, 8, NT), dtype=torch.int32, device=dev)
+    vec = torch.empty((7, L), dtype=torch.int32, device=dev)
+    counts = _build.kept_zero("wave_fold", dev, FOLD_WORDS * (L + 1))
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.td_stage_dc(
             delta_t.data_ptr(), token_t.data_ptr(), entries.data_ptr(), tokens.data_ptr(),
-            summ.data_ptr(), L, NT, k1, _build.stream(dev),
+            summ.data_ptr(), vec.data_ptr(), counts.data_ptr(), L, NT, k1, _build.stream(dev),
         )
+    if err:
+        _build.drop_kept_zero("wave_fold", dev)
     _build.check(err, "td_stage_dc")
     LAUNCHES["stage_dc"] += 1
-    return tokens, summ
+    return tokens, summ, vec
 
 
 # ---------------------------------------------------------------------------
@@ -665,11 +678,13 @@ def wave_summary_plain(summ: torch.Tensor, nlit: torch.Tensor | None = None) -> 
 
 
 def wave_summary(summ: torch.Tensor, nlit: torch.Tensor | None = None) -> torch.Tensor:
-    """K3's summary rows (L, 8, NT) int32 -> the wave's (7, L) int32 vector
-    of :func:`pack_small`: counts, has_eob, eob_exit, err_code, out_total,
+    """Summary rows (L, 8, NT) int32 -> the wave's (7, L) int32 vector of
+    :func:`pack_small`: counts, has_eob, eob_exit, err_code, out_total,
     overflow (the whole wave's, in every lane) and ``nlit`` (L,) int32 (0
-    without it). On the card one launch of ``csrc/stage_dc.cu``'s
-    ``wave_summary_kernel`` after the zero fill of its two scratch words."""
+    without it). The decode takes this vector from K3 (:func:`stage_dc`),
+    whose epilogue folds it; this runs the same epilogue on given rows (one
+    32-thread block a strip of K3's, ``csrc/stage_dc.cu``'s
+    ``wave_fold_kernel``), so that any rows can check it."""
     _build.check_tensor("summ", summ, torch.int32, 3)
     L, R, NT = summ.shape
     _build.require(R == 8, f"summ: shape {tuple(summ.shape)}, expected (L, 8, NT)")
@@ -680,11 +695,13 @@ def wave_summary(summ: torch.Tensor, nlit: torch.Tensor | None = None) -> torch.
         return wave_summary_plain(summ, nlit)
     dev = summ.device
     out = torch.empty((7, L), dtype=torch.int32, device=dev)
-    scratch = torch.zeros(2, dtype=torch.int64, device=dev)  # the overflow total, the blocks done
+    counts = _build.kept_zero("wave_fold", dev, FOLD_WORDS * (L + 1))
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.td_wave_summary(summ.data_ptr(), None if nlit is None else nlit.data_ptr(), out.data_ptr(),
-                                  scratch.data_ptr(), L, NT, _build.stream(dev))
+                                  counts.data_ptr(), L, NT, _build.stream(dev))
+    if err:
+        _build.drop_kept_zero("wave_fold", dev)
     _build.check(err, "td_wave_summary")
     LAUNCHES["wave_summary"] += 1
     return out

@@ -4,9 +4,9 @@
 The main path (:func:`_decode_single_block_device`) takes every member
 whose payload is one final Huffman block of at most 64 KiB output: waves
 go through the device stages :func:`wave_stages` (stage A (K1) -> stage B
-(K2) -> stage C (``decode_kernels.stage_c``) -> stage DC (K3) -> level-2
-compaction with the literal map (K4)) and the fold of K3's summary rows
-into each lane's vector (``decode_kernels.wave_summary``), the tokens stay
+(K2) -> stage C (``decode_kernels.stage_c``) -> stage DC (K3, whose
+epilogue folds its summary rows into each lane's vector) -> level-2
+compaction with the literal map (K4)), the tokens stay
 on the device and resolve to bytes there (``resolve``: expand (K5), sweep
 (K6)), the lane CRC-32 kernel checksums each row, and only the small
 per-lane vectors and the final bytes cross to the host.
@@ -115,14 +115,14 @@ def stage_c_entries(
     return entries, final
 
 
-def wave_stages(w: dict, *, k1: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The device stages of one wave (``_run_wave_pallas_impl`` up to its
-    summary fold): stage A (K1), stage B (K2), stage C, stage DC (K3) and
-    level-2 compaction (K4). ``w`` is a wave dict of tensors
-    (:func:`wave_prep.wave_to_tensors`). Returns (tokens (L, NT*k1) int32
-    front-compacted with literal bytes mapped, K3's summary rows (L, 8, NT)
-    int32), on the wave's device; ``decode_kernels.wave_summary`` folds the
-    rows into the (7, L) vector the host pulls. ``k1`` defaults to the
+def wave_stages(w: dict, *, k1: int | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The device stages of one wave (``_run_wave_pallas_impl`` with its
+    summary fold): stage A (K1), stage B (K2), stage C, stage DC (K3, the
+    fold in its epilogue) and level-2 compaction (K4). ``w`` is a wave dict
+    of tensors (:func:`wave_prep.wave_to_tensors`). Returns (tokens (L,
+    NT*k1) int32 front-compacted with literal bytes mapped, K3's summary
+    rows (L, 8, NT) int32, the (7, L) int32 vector the host pulls, with
+    row 6 (nlit) 0), on the wave's device. ``k1`` defaults to the
     wave's bucket; past the largest bucket a tile can still overflow, and
     the wave loop then reruns the wave with k1 = 512, which cannot.
     """
@@ -132,19 +132,17 @@ def wave_stages(w: dict, *, k1: int | None = None) -> tuple[torch.Tensor, torch.
     L, _W, NT = dt.shape
     transfers = dk.stage_b(dt)
     _entries, _final, entries = dk.stage_c(transfers, w["rem"])
-    tokc, summ = dk.stage_dc(dt, tt, entries, k1=k1)
+    tokc, summ, small = dk.stage_dc(dt, tt, entries, k1=k1)
     tokens = dk.compact_flat(tokc.reshape(L, NT * k1), w["lit_planes"])
-    return tokens, summ
+    return tokens, summ, small
 
 
 def run_wave(w: dict, *, k1: int | None = None):
     """Device body of one wave (``_run_wave_pallas_impl``):
-    :func:`wave_stages`, then the summary fold (``decode_kernels.
-    wave_summary``). Returns the reference's 7-tuple (tokens, counts,
+    :func:`wave_stages`. Returns the reference's 7-tuple (tokens, counts,
     has_eob, eob_exit, err_code, out_total, overflow), the per-lane fields
-    rows of the fold's (7, L) vector, all on the wave's device."""
-    tokens, summ = wave_stages(w, k1=k1)
-    small = dk.wave_summary(summ)
+    rows of K3's (7, L) vector, all on the wave's device."""
+    tokens, _summ, small = wave_stages(w, k1=k1)
     return tokens, small[0], small[1] > 0, small[2], small[3], small[4], small[5, 0] > 0
 
 
@@ -443,12 +441,13 @@ def _dispatch_block_stages(wave, rows, row_bits, hp, truncated, runner: WaveRunn
     on_device = wave[0].device_cap is not None  # one route for every lane of a chain batch
     shards = []
     for _a, _b, w in runner.dispatch(w_np, len(wave)):
-        tokens, summ = wave_stages(w)
+        tokens, _summ, small = wave_stages(w)
         if on_device:
-            shards.append((w, ("device", tokens), dk.wave_summary(summ)))
+            shards.append((w, ("device", tokens), small))
         else:
             bitmap, lit8, match32, nlit = pack_tokens(tokens)
-            shards.append((w, ("packed", bitmap, lit8, match32), dk.wave_summary(summ, nlit)))
+            small[6] = nlit
+            shards.append((w, ("packed", bitmap, lit8, match32), small))
     if stats is not None:
         stats["waves"] = stats.get("waves", 0) + 1
     return wave, shift2, truncated, shards
@@ -479,8 +478,8 @@ def _apply_small(wave, shift2, truncated, shards):
         # stream): rerun the wave with k1 = 512, which cannot overflow,
         # and take the raw token array.
         reruns = [wave_stages(w, k1=W_P) for w, _p, _s in shards]
-        small_h = np.concatenate([dk.wave_summary(summ).cpu().numpy() for _t, summ in reruns], axis=1)
-        tokens = [t for t, _summ in reruns]
+        small_h = np.concatenate([small.cpu().numpy() for _t, _summ, small in reruns], axis=1)
+        tokens = [t for t, _summ, _small in reruns]
         if on_device:
             return wave, shift2, truncated, ("device", tokens), small_h
         kmax = int(small_h[0, :n].max()) if wave else 0
@@ -622,10 +621,10 @@ def _single_block_eligible(buf: np.ndarray, m: dnp.MemberIndex) -> bool:
 
 def _single_block_shards(payloads: list[bytes], runner: WaveRunner, stats: dict | None):
     """The main path's waves: payloads grouped by payload bucket and k1,
-    each group's waves through :func:`wave_stages` and the summary fold,
+    each group's waves through :func:`wave_stages` (the summary fold in K3),
     shard by shard. Returns (the payload index of each row, rows in wave
     order, and per shard that ran (the positions of its rows in that order,
-    the per-lane vectors (7, n) int32 of ``decode_kernels.wave_summary``, the tokens (n, N_POS) int32 padded or
+    the per-lane vectors (7, n) int32 of K3's summary fold, the tokens (n, N_POS) int32 padded or
     cut to N_POS slots), on the shard's device)."""
     N = rs.N_POS
     k1s = _k1_groups(payloads, [0] * len(payloads))
@@ -640,13 +639,13 @@ def _single_block_shards(payloads: list[bytes], runner: WaveRunner, stats: dict 
             chunk = idxs[base : base + lmax]
             w = _prep_wave([payloads[i] for i in chunk], runner.lanes(len(chunk)))
             for d, (a, b, wt) in enumerate(runner.dispatch(w, len(chunk))):
-                tokens, summ = wave_stages(wt)
+                tokens, _summ, small = wave_stages(wt)
                 n = min(b, len(chunk)) - a
                 t = tokens[:n, :N]
                 rows, smalls, toks = shards.setdefault(d, ([], [], []))
                 rows += range(len(order) + a, len(order) + a + n)
                 toks.append(torch.nn.functional.pad(t, (0, N - t.shape[1]), value=-1))
-                smalls.append(dk.wave_summary(summ)[:, :n])
+                smalls.append(small[:, :n])
             if stats is not None:
                 stats["waves"] = stats.get("waves", 0) + 1
             order += chunk
@@ -657,7 +656,7 @@ def single_block_tokens(
     payloads: list[bytes], device: torch.device, stats: dict | None = None
 ) -> tuple[list[int], torch.Tensor, torch.Tensor]:
     """The main path's waves on one device: (the payload index of each
-    row, the per-lane vectors (7, n) int32 of ``decode_kernels.wave_summary``, the
+    row, the per-lane vectors (7, n) int32 of K3's summary fold, the
     tokens (n, N_POS) int32 padded or cut to N_POS slots), rows in wave
     order and all on ``device``. ``payloads`` must not be empty."""
     order, ((_rows, small, T),) = _single_block_shards(payloads, WaveRunner.on(device), stats)

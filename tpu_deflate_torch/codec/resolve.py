@@ -302,7 +302,7 @@ def split_tiles_plain(tokens: torch.Tensor, T: int) -> torch.Tensor:
     return out
 
 
-TILE_SPLIT_SEGMENT = 4096  # tokens a block of csrc/tile_split.cu's scan
+TILE_SPLIT_SEGMENT = 4096  # tokens a block of csrc/tile_split.cu
 
 
 def split_tiles_device(tokens: torch.Tensor, T: int) -> torch.Tensor:
@@ -315,11 +315,14 @@ def split_tiles_device(tokens: torch.Tensor, T: int) -> torch.Tensor:
     Bit-identical to the reference's ``resolve_pallas.split_tiles_device``
     (which sorts each tile) and to :func:`split_tokens_tiles`.
 
-    On the card two launches of ``csrc/tile_split.cu`` (a scan of each
-    lane's runs, cut into segments of TILE_SPLIT_SEGMENT tokens joined by a
-    look-back, then a block a tile writing it whole), after a zero fill of
-    the scan's status words; its scratch is 8 bytes a segment and 12 bytes a
-    tile. On the CPU :func:`split_tiles_plain`."""
+    On the card one launch of ``csrc/tile_split.cu``: its first blocks
+    read the tokens once (segments of TILE_SPLIT_SEGMENT tokens joined by a
+    look-back over their byte and token counts) and write every token and
+    head to its slot, the later ones write -1 behind each tile's tokens
+    once the tile is placed. Its scratch (8 bytes a segment, 16 a tile)
+    comes in two halves that calls take in turn, each call zeroing the one
+    the call before it used (``_build.alternating_halves``), so a call
+    launches nothing else. On the CPU :func:`split_tiles_plain`."""
     _build.require(isinstance(tokens, torch.Tensor) and tokens.dtype == torch.int32 and tokens.dim() == 2,
                    f"tokens: expected a 2-d int32 tensor, got {getattr(tokens, 'dtype', type(tokens))}")
     _build.require(tokens.is_contiguous(), "tokens: must be contiguous")
@@ -327,18 +330,20 @@ def split_tiles_device(tokens: torch.Tensor, T: int) -> torch.Tensor:
     _build.require(L >= 1 and T >= 1, f"tokens: shape {tuple(tokens.shape)}, T={T}")
     if not _build.on_card(tokens):
         return split_tiles_plain(tokens, T)
-    # The scan's prefix saturates at T * N_POS + 1024 and adds up to 2**22
-    # in a segment: both must stay within int32.
+    # The byte prefix saturates at T * N_POS + 1024 and adds up to 2**22 in
+    # a segment: both must stay within int32.
     _build.require(T * N_POS + (1 << 23) < 1 << 31, f"T={T}: at most {((1 << 31) - (1 << 23)) // N_POS - 1} tiles")
     _build.require(L <= 65535 and K < (1 << 31) - TILE_SPLIT_SEGMENT, f"tokens: shape {tuple(tokens.shape)}")
     dev = tokens.device
     out = torch.empty((L, T, N_POS), dtype=torch.int32, device=dev)
-    status = torch.zeros(L * -(-K // TILE_SPLIT_SEGMENT) + 1, dtype=torch.int64, device=dev)
-    meta = torch.empty(L * (3 * T + 1), dtype=torch.int32, device=dev)
+    scratch, other, dirty = _build.alternating_halves("tile_split", dev,
+                                                      L * -(-K // TILE_SPLIT_SEGMENT) + 2 * L * T + 1)
     lib = _build.load()
     with torch.cuda.device(dev):
-        err = lib.td_tile_split(tokens.data_ptr(), out.data_ptr(), status.data_ptr(), meta.data_ptr(), L, K, T,
-                                _build.stream(dev))
+        err = lib.td_tile_split(tokens.data_ptr(), out.data_ptr(), scratch.data_ptr(), other.data_ptr(), dirty, L, K,
+                                T, _build.stream(dev))
+    if err:
+        _build.drop_kept_zero("tile_split", dev)
     _build.check(err, "td_tile_split")
     LAUNCHES["tile_split"] += 1
     return out

@@ -38,6 +38,8 @@
 //    contiguous warp stores, and sums the summary rows by warp reductions
 //    that wrap like uint32. The block writes the summary rows of its strip
 //    as TB-wide coalesced rows.
+// 4. Fold. One warp folds the strip's rows into the wave's per-lane vector
+//    (fold_strip below): K3's epilogue, in place of a launch of its own.
 //
 // Marking the chain by K9's pointer jumping (a warp per tile, up to nine
 // rounds over all 512 positions) and staging the tokens as well (64 KiB
@@ -51,6 +53,112 @@
 namespace {
 
 using namespace td;
+
+// ---------------------------------------------------------------------------
+// The wave's summary fold: the summary rows -> the per-lane (7, L) vector.
+//
+// Replaces the tail of tpu_deflate/codec/decode_jax_v2.py:_run_wave_pallas_impl
+// (:1331-1342, compiled into the jitted wave program of :1298) and
+// _pack_small (:1363, jit). Exactly decode_kernels.wave_summary_plain: from
+// the rows (L, 8, NT), vec (7, L) int32 holds per lane the sums of rows
+// ROW_COUNT (row 0 of vec), ROW_EOB_HIT > 0 (1), eob_pos - eob_tok - 1 where
+// an EOB was hit, else 0, with eob_pos the sum of ROW_EOB_POS + ROW_EOB_HIT
+// * t * W_P (2), -err_tok - 100 where ROW_ERR_HIT sums above 0, else 0 (3),
+// ROW_SIZE_SUM (4), the sum of ROW_OVERFLOW over every lane and tile > 0,
+// the same in every lane (5), and nlit or 0 (6). Sums are taken in 64 bits
+// and compared signed, then cut to 32 bits, as the plain version's int64.
+//
+// It runs as the epilogue of every block (x, l) of K3's strips x of lane l
+// (or wave_fold_kernel's, on given rows), by warp 0. A block adds its
+// strip's eight 64-bit partial sums to its lane's totals (fire-and-forget
+// reductions), fences and counts itself done. The lane's last strip, block
+// (strips - 1, l), adds its own, waits until the others are counted, reads
+// the totals, writes the lane's rows, adds the lane's overflow to the
+// wave's and counts the lane done: the last lane to count writes row 5 into
+// every lane. A block waits only on blocks of lower index, which the card
+// starts first, and at most L blocks wait, fewer than the card holds (a
+// wait that never ends traps). Whoever reads a total or a count puts it
+// back to 0, so the counts are zero after every launch and the next one
+// needs no zero fill (the wrapper keeps them per device and stream).
+// Designs tried (PERF.md, PR 19): every block learning from an atomic
+// count, or from its order when it started, whether it was last; partial
+// sums in slots of their own with spread counts (the polls of a 256-lane
+// wave cost more). The fences are acquire-release (fence.acq_rel.gpu),
+// lighter than __threadfence().
+//
+// counts (uint64, FOLD_STRIDE (L + 1), 0 before and after): lane l's 8 sums
+// (count, eob hits, eob_pos, eob_tok, err hits, err_tok, size, overflow)
+// at FOLD_STRIDE l and its strips done at FOLD_STRIDE l + 8, then the
+// wave's overflow sum and its lanes done at FOLD_STRIDE L.
+constexpr int FOLD_STRIDE = 16;  // words from a lane's totals to the next's: a 128-byte line each
+
+__device__ __forceinline__ void fence_acq_rel() { asm volatile("fence.acq_rel.gpu;" ::: "memory"); }
+
+// Warp 0 of block (x, l) of a grid of strips x L blocks, after the strip's
+// rows are in ssum (tile t0 + i in column i).
+template <int TB>
+__device__ __forceinline__ void fold_strip(const uint32_t (&ssum)[8][TB], int t0, int NT, int x, int l, int strips,
+                                           int L, const int* __restrict__ nlit, int* __restrict__ vec,
+                                           unsigned long long* __restrict__ counts) {
+  static_assert(TB <= 32, "a lane of the warp a tile");
+  const int lid = threadIdx.x & 31;
+  // count, eob hits, eob_pos, eob_tok, err hits, err_tok, size, overflow
+  unsigned long long a[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (lid < TB && t0 + lid < NT) {
+    const long long hit = (int)ssum[5][lid];
+    a[0] = (long long)(int)ssum[0][lid];
+    a[1] = hit;
+    a[2] = (long long)(int)ssum[1][lid] + hit * ((long long)(t0 + lid) * W_P);
+    a[3] = (long long)(int)ssum[2][lid];
+    a[4] = (long long)(int)ssum[6][lid];
+    a[5] = (long long)(int)ssum[3][lid];
+    a[6] = (long long)(int)ssum[4][lid];
+    a[7] = (long long)(int)ssum[7][lid];
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a[k] += __shfl_xor_sync(0xffffffffu, a[k], o);
+  int last_lane = 0, flag = 0;
+  if (lid == 0) {
+    unsigned long long* acc = counts + (size_t)l * FOLD_STRIDE;
+    unsigned long long* wave = counts + (size_t)L * FOLD_STRIDE;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) atomicAdd(acc + k, a[k]);
+    if (x != strips - 1) {
+      fence_acq_rel();  // the sums before the count
+      atomicAdd(acc + 8, 1ull);
+    } else {  // the lane's last strip
+      const volatile unsigned long long* done = acc + 8;
+      for (unsigned spins = 0; *done != (unsigned long long)(strips - 1); ++spins)
+        if (spins > (1u << 28)) __trap();
+      fence_acq_rel();
+      unsigned long long t[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) t[k] = atomicExch(acc + k, 0ull);
+      atomicExch(acc + 8, 0ull);
+      const bool eob = (long long)t[1] > 0, err = (long long)t[4] > 0;
+      vec[l] = (int)t[0];
+      vec[L + l] = eob;
+      vec[2 * L + l] = eob ? (int)(t[2] - t[3] - 1) : 0;
+      vec[3 * L + l] = err ? (int)(0ull - t[5] - 100) : 0;
+      vec[4 * L + l] = (int)t[6];
+      vec[6 * L + l] = nlit ? nlit[l] : 0;
+      atomicAdd(wave, t[7]);
+      fence_acq_rel();  // the lane's overflow before its count
+      if (atomicAdd(wave + 1, 1ull) == (unsigned long long)(L - 1)) {  // the wave's last lane
+        fence_acq_rel();
+        last_lane = 1;
+        flag = (long long)atomicExch(wave, 0ull) > 0;
+        atomicExch(wave + 1, 0ull);
+      }
+    }
+  }
+  if (__shfl_sync(0xffffffffu, last_lane, 0)) {
+    flag = __shfl_sync(0xffffffffu, flag, 0);
+    for (int j = lid; j < L; j += 32) vec[5 * L + j] = flag;
+  }
+}
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -116,12 +224,14 @@ __device__ __forceinline__ Sums emit_tile(const uint16_t* __restrict__ list, int
 }
 
 // delta, token (L, 512, NT), entries (L, NT) -> tok_out (L, NT, k1),
-// summ (L, 8, NT). Grid (ceil(NT / TB), L), THREADS threads.
+// summ (L, 8, NT), vec (7, L) (the fold; counts as fold_strip's). Grid
+// (ceil(NT / TB), L), THREADS threads.
 template <int TB>
 __global__ void __launch_bounds__(THREADS)
     stage_dc_kernel(const int* __restrict__ delta, const int* __restrict__ token,
                     const int* __restrict__ entries, int* __restrict__ tok_out,
-                    int* __restrict__ summ, int NT, int k1) {
+                    int* __restrict__ summ, int* __restrict__ vec, unsigned long long* __restrict__ counts,
+                    int NT, int k1) {
   constexpr int HW = W_P / 2 + 32 / TB;  // words of a tile's hop table (see staging)
   __shared__ uint32_t hopw[TB * HW];
   __shared__ int reach[TB];
@@ -186,120 +296,68 @@ __global__ void __launch_bounds__(THREADS)
     const int row = idx / TB, tt = idx % TB;
     if (t0 + tt < NT) summ[((size_t)l * 8 + row) * NT + t0 + tt] = (int)ssum[row][tt];
   }
+
+  // 4. Fold (ssum is complete since the barrier above).
+  if (warp == 0) fold_strip<TB>(ssum, t0, NT, blockIdx.x, l, gridDim.x, gridDim.y, nullptr, vec, counts);
 }
 
+// The fold alone on given rows (L, 8, NT) (with nlit (L,) or null): a
+// warp a strip of TB tiles, the same epilogue as K3's.
 template <int TB>
-int launch(const void* delta, const void* token, const void* entries, void* tok_out, void* summ, int L,
-           int NT, int k1, cudaStream_t stream) {
-  dim3 blocks((NT + TB - 1) / TB, L);
-  stage_dc_kernel<TB><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const int*>(delta), static_cast<const int*>(token), static_cast<const int*>(entries),
-      static_cast<int*>(tok_out), static_cast<int*>(summ), NT, k1);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(32)
+    wave_fold_kernel(const int* __restrict__ summ, const int* __restrict__ nlit, int* __restrict__ vec,
+                     unsigned long long* __restrict__ counts, int NT) {
+  __shared__ uint32_t ssum[8][TB];
+  const int lid = threadIdx.x, l = blockIdx.y, t0 = blockIdx.x * TB;
+  if (lid < TB)
+#pragma unroll
+    for (int row = 0; row < 8; ++row)
+      ssum[row][lid] = t0 + lid < NT ? (uint32_t)summ[((size_t)l * 8 + row) * NT + t0 + lid] : 0u;
+  __syncwarp();
+  fold_strip<TB>(ssum, t0, NT, blockIdx.x, l, gridDim.x, gridDim.y, nlit, vec, counts);
 }
-
-}  // namespace
 
 // Strips of 32 tiles where the wave has 256 blocks of them, else of 8
 // (the decode's 4-lane waves: 64 and 512 blocks).
-extern "C" int td_stage_dc(const void* delta, const void* token, const void* entries,
-                           void* tok_out, void* summ, int L, int NT, int k1, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if ((long)L * NT >= 32L * 256) return launch<32>(delta, token, entries, tok_out, summ, L, NT, k1, s);
-  return launch<8>(delta, token, entries, tok_out, summ, L, NT, k1, s);
+template <int TB>
+int launch(const void* delta, const void* token, const void* entries, void* tok_out, void* summ, void* vec,
+           void* counts, int L, int NT, int k1, cudaStream_t stream) {
+  dim3 blocks((NT + TB - 1) / TB, L);
+  stage_dc_kernel<TB><<<blocks, THREADS, 0, stream>>>(
+      static_cast<const int*>(delta), static_cast<const int*>(token), static_cast<const int*>(entries),
+      static_cast<int*>(tok_out), static_cast<int*>(summ), static_cast<int*>(vec),
+      static_cast<unsigned long long*>(counts), NT, k1);
+  return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The wave's summary fold: K3's summary rows -> the per-lane vector.
-//
-// Replaces the tail of tpu_deflate/codec/decode_jax_v2.py:_run_wave_pallas_impl
-// (:1331-1342, compiled into the jitted wave program of :1298) and
-// _pack_small (:1363, jit). Exactly decode_kernels.wave_summary_plain: from
-// summ (L, 8, NT) int32, out (7, L) int32 holds per lane the sums of rows
-// ROW_COUNT (row 0 of out), ROW_EOB_HIT > 0 (1), eob_pos - eob_tok - 1 where
-// an EOB was hit, else 0, with eob_pos the sum of ROW_EOB_POS + ROW_EOB_HIT
-// * t * W_P (2), -err_tok - 100 where ROW_ERR_HIT sums above 0, else 0 (3),
-// ROW_SIZE_SUM (4), the sum of ROW_OVERFLOW over every lane and tile > 0,
-// the same in every lane (5), and nlit or 0 (6). Sums are taken in 64 bits
-// and compared signed, then cut to 32 bits, as the plain version's int64.
-//
-// One 256-thread block a lane: each thread sums a column of tiles, then a
-// shuffle and a shared-memory reduction. Row 5 needs every lane: each block
-// adds its overflow sum to a 64-bit total, fences and counts itself done;
-// the block that counts last reads the total and writes row 5 of all L
-// lanes. The total and the count are the call's own zeroed scratch, so
-// calls on other streams do not share them.
-//
-// Bound on the H100: bytes, the rows read once (32 bytes a tile) and out
-// written; a launch is latency (two dependent reductions and an atomic).
-namespace {
-
-constexpr int WS_THREADS = 256;
-constexpr int WS_WARPS = WS_THREADS / 32;
-constexpr int WS_SUMS = 8;
-
-__global__ void __launch_bounds__(WS_THREADS)
-    wave_summary_kernel(const int* __restrict__ summ, const int* __restrict__ nlit, int* __restrict__ out,
-                        unsigned long long* __restrict__ scratch, int L, int NT) {
-  __shared__ unsigned long long part[WS_SUMS][WS_WARPS];
-  __shared__ int s_last, s_flag;
-  const int tid = threadIdx.x;
-  const int lid = tid & 31;
-  const int wid = tid >> 5;
-  const int l = blockIdx.x;
-  const int* r = summ + (size_t)l * 8 * NT;
-  // count, eob hits, eob_pos, eob_tok, err hits, err_tok, size, overflow
-  unsigned long long a[WS_SUMS] = {0, 0, 0, 0, 0, 0, 0, 0};
-  for (int t = tid; t < NT; t += WS_THREADS) {
-    const long long hit = r[5 * NT + t];
-    a[0] += (long long)r[t];
-    a[1] += hit;
-    a[2] += (long long)r[NT + t] + hit * ((long long)t * td::W_P);
-    a[3] += (long long)r[2 * NT + t];
-    a[4] += (long long)r[6 * NT + t];
-    a[5] += (long long)r[3 * NT + t];
-    a[6] += (long long)r[4 * NT + t];
-    a[7] += (long long)r[7 * NT + t];
-  }
-#pragma unroll
-  for (int k = 0; k < WS_SUMS; ++k) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) a[k] += __shfl_xor_sync(0xffffffffu, a[k], o);
-    if (lid == 0) part[k][wid] = a[k];
-  }
-  __syncthreads();
-  if (tid == 0) {
-#pragma unroll
-    for (int k = 0; k < WS_SUMS; ++k) {
-      a[k] = 0;
-      for (int w = 0; w < WS_WARPS; ++w) a[k] += part[k][w];
-    }
-    const bool eob = (long long)a[1] > 0, err = (long long)a[4] > 0;
-    out[l] = (int)a[0];
-    out[L + l] = eob;
-    out[2 * L + l] = eob ? (int)(a[2] - a[3] - 1) : 0;
-    out[3 * L + l] = err ? (int)(0ull - a[5] - 100) : 0;
-    out[4 * L + l] = (int)a[6];
-    out[6 * L + l] = nlit ? nlit[l] : 0;
-    atomicAdd(&scratch[0], a[7]);
-    __threadfence();
-    s_last = atomicAdd(&scratch[1], 1ull) == (unsigned long long)(L - 1);
-    if (s_last) s_flag = (long long)atomicAdd(&scratch[0], 0ull) > 0;
-  }
-  __syncthreads();
-  if (s_last)
-    for (int j = tid; j < L; j += WS_THREADS) out[5 * L + j] = s_flag;
+template <int TB>
+int launch_fold(const void* summ, const void* nlit, void* vec, void* counts, int L, int NT, cudaStream_t stream) {
+  wave_fold_kernel<TB><<<dim3((NT + TB - 1) / TB, L), 32, 0, stream>>>(
+      static_cast<const int*>(summ), static_cast<const int*>(nlit), static_cast<int*>(vec),
+      static_cast<unsigned long long*>(counts), NT);
+  return (int)cudaGetLastError();
 }
+
+bool wide(int L, int NT) { return (long)L * NT >= 32L * 256; }
 
 }  // namespace
 
-// scratch: 2 uint64, 0 (the overflow total and the count of blocks done);
-// nlit may be null.
-extern "C" int td_wave_summary(const void* summ, const void* nlit, void* out, void* scratch, int L, int NT,
+// The fold's counts: FOLD_STRIDE (L + 1) uint64, 0 before the launch and
+// left 0 (fold_strip's).
+extern "C" int td_stage_dc(const void* delta, const void* token, const void* entries, void* tok_out, void* summ,
+                           void* vec, void* counts, int L, int NT, int k1, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (L < 1 || L > 65535 || NT < 1) return (int)cudaErrorInvalidValue;
+  if (wide(L, NT)) return launch<32>(delta, token, entries, tok_out, summ, vec, counts, L, NT, k1, s);
+  return launch<8>(delta, token, entries, tok_out, summ, vec, counts, L, NT, k1, s);
+}
+
+// The fold alone, strips as K3 cuts them (the edge rows' check); nlit may
+// be null; counts as td_stage_dc's.
+extern "C" int td_wave_summary(const void* summ, const void* nlit, void* vec, void* counts, int L, int NT,
                                void* stream) {
-  if (L < 1 || NT < 1) return (int)cudaErrorInvalidValue;
-  wave_summary_kernel<<<L, WS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(summ), static_cast<const int*>(nlit), static_cast<int*>(out),
-      static_cast<unsigned long long*>(scratch), L, NT);
-  return (int)cudaGetLastError();
+  auto s = static_cast<cudaStream_t>(stream);
+  if (L < 1 || L > 65535 || NT < 1) return (int)cudaErrorInvalidValue;
+  if (wide(L, NT)) return launch_fold<32>(summ, nlit, vec, counts, L, NT, s);
+  return launch_fold<8>(summ, nlit, vec, counts, L, NT, s);
 }
