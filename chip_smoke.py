@@ -43,12 +43,21 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    edge lanes (every entry valid, none, only the last, only the last 300,
    literal ranks 0 and 255 under random planes, match tokens of 256; M of
    128, 1001, 4099, 5120 and 8228 at 7 and 672 lanes, and a row that is not
-   16-byte aligned), the resolve kernels (K5
+   16-byte aligned), K7's pack mode (the host route's packed token pull,
+   ``pack_tokens``) on the same lanes and on its own (all literals, all
+   matches, all below 0, a literal at bit 31 of every bitmap word; M of 31,
+   1001, 4099 and 8228 at 11 and 704 lanes, one lane, a row not 16-byte
+   aligned), the resolve kernels (K5
    expand, K6 sweep) and the lane CRC on the main path's two resolve
    batches (256 and 178 members x 65536 slots) built from the corpus's own
    tokens, the lane CRC also on the encoder's first batch (64 x 64 KiB,
    finished CRCs against zlib) and on random rows of 512 and 524288 bytes,
-   crc32_device and adler32_device against zlib at four sizes,
+   crc32_device against zlib at four sizes, Adler-32's sums
+   (``adler_sums``) against their plain version at those sizes, at 15, 16,
+   17, 5552 and 5553 bytes and from an address off 16 bytes, then
+   ``adler32_device`` against zlib at the four sizes and on 2**31 + 4099
+   bytes on the card (whole and from its second byte), with its launches
+   counted (one a call) and the big buffer's sums timed beside their bound,
    K5/K6 on lanes at the resolve's edges (errors, an empty lane, regions
    past 32 KiB, output past 64 KiB, random far matches, only 258-runs,
    only literals), K6 on sources written directly (32768 back at every
@@ -69,11 +78,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    K6 and lane CRC launch's device time beside its bound); 5
    timed runs;
 5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
-   byte-exact with the packed token pull (K7) launched, K3's fold on every
+   byte-exact with the packed token pull (K7's pack mode) launched once a
+   wave and K7 alone never, the pull on every wave, K3's fold on every
    wave and each pulled vector (K3's, with the pull's nlit in row 6) held
-   against their plain version (with --profile,
-   each K4 and K7 launch's device time beside its bound), and 3 timed runs
-   of it on the 48 MiB corpus for comparison;
+   against their plain versions, each wave's pull alone with its launches
+   counted (one, no zero fill), one decode's launches, aten ops and device
+   events a wave with the plain pull and with the kernel (with --profile,
+   each K4 and pack launch's device time beside its bound), and 3 timed
+   runs of it on the 48 MiB corpus for comparison;
 6. the ``device_resolve="on"`` route: a gzip -9 stream of 1 MiB in one
    member with the member index (multi-block, > 64 KiB), resolved on the
    device in chained tiles; then the big members (the counterpart of the
@@ -103,12 +115,19 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    ``match_chain``, the same-hash links, ``match_bucket``, the compare
    along them, ``match_select``; every hash family in one launch of each),
    K8 parse transfers, K9 parse
-   replay, the symbols and histograms (``_finish_analysis``) and K10 emit
-   body against their plain versions (exact equality) on the first batch
-   of the encode's main path (64 members x 64 KiB of the corpus; there
+   replay, the symbols and histograms (``_finish_analysis``), the block
+   routing (``route``), K10 emit body and the header/EOB (``header_eob``)
+   against their plain versions (exact equality) on the first batch of
+   the encode's main path (64 members x 64 KiB of the corpus; there
    ``_finish_analysis`` also with one call's launches counted, one launch
    and the histograms' zero fill, and ``torch.bincount``'s time on the
-   plain version's keys);
+   plain version's keys; ``route`` and ``header_eob`` each one launch and
+   no other device work); ``route`` also on its edge lanes (dynamic ==
+   fixed, stored == dynamic below fixed, lengths 0, 1, 65535 and 65536,
+   every strategy; final None, all 0 and mixed) and the FIXED batch,
+   ``header_eob`` on its edge lanes (32- and 1-bit slots, 0-bit slots and
+   EOBs, an EOB straddling the grid's end, one past it) and on the lane
+   whose bits overflow the grid;
    ``_finish_analysis`` also on edge batches (4 and 16 lanes: every run of
    3..258 against every distance-symbol boundary, clamped runs and
    distances, a lane with no token, a lane of one literal; rows of 4099
@@ -136,7 +155,11 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 9. the encode's main path: ``engine.compress`` of the 48 MiB corpus at the
    default effort 2, byte-exact through ``gzip.decompress`` and the port's
    ``engine.decompress``, 768 members, every encode kernel and the lane
-   CRC launched (the match finder's four kernels once a batch), its size
+   CRC launched (the match finder's four kernels, ``route`` and
+   ``header_eob`` once a batch, the last two held against their plain
+   versions on every call), one encode's launches, aten ops and device
+   events a batch with the plain routing and header/EOB chains and with
+   the kernels, its size
    beside the C core's member encoder, each kernel's bound per launch and
    summed over the run; 3 timed runs; then one batch of the match finder:
    its launches (exactly its four kernels) and device time under
@@ -146,8 +169,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    short tail) encoded on the card and with the plain versions on the CPU
    at efforts 1, 2, 3 and 5 must be byte-identical;
 11. continuous-encode kernels: the match finder's kernels (quality 1, with
-   the history masks), K8, K9, ``_finish_analysis`` and K10 against their
-   plain versions on the
+   the history masks), K8, K9, ``_finish_analysis``, ``route`` (its final
+   per lane), K10 and ``header_eob`` against their plain versions on the
    first batch of the continuous encode (64 lanes x 98304 columns: a 32 KiB
    halo before each 64 KiB block) and on a batch whose head lane starts
    with 50 zero bytes (the reference's F1);
@@ -156,7 +179,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    ``gzip.decompress`` and the port's decode on the card (one member on the
    device route, K7 not launched, one tile split, K3's summary fold every wave,
    both held against their plain versions), the match finder's kernels (three
-   families a batch), K8-K10 and the lane CRC launched (the CRC against
+   families a batch), ``route`` and ``header_eob`` (once a batch, against
+   their plain versions on every call, non-final lanes among them; one
+   encode's launches a batch with the plain chains and with the kernels),
+   K8-K10 and the lane CRC launched (the CRC against
    its plain version on the rows the path gave it), each kernel's bound
    per launch and summed, the device memory peak, the ratio beside effort
    2's and zlib -9's, timed runs of the encode, phase 9's profile of one
@@ -170,7 +196,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    Huffman member resolved on the device), the big members of phase 6
    decoded over the mesh (the tile split on each shard), then ``engine.compress(corpus,
    effort=4, mesh=)`` (byte-identical to phase 12's member), every kernel
-   but K7 launched (the match finder's among them), and each kernel call of
+   but K7 (and its pack mode) and Adler-32's sums launched (the match
+   finder's among them; ``route`` and ``header_eob`` held against their
+   plain versions on every call), and each kernel call of
    that run (captured: the first
    two of each shard shape) held against its plain version, exact
    equality; the decode again over ``make_codec_mesh()``;
@@ -206,7 +234,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    member against its input), ``encode_kernel_bench`` (one staged batch of
    64 x 64 KiB) and ``link_probe``. The path's run (each row once at
    reps=1): each row on the kernels ("cuda") with 0 mismatches, every
-   kernel but K7 launched over the rows and K7 not, each wrapper's bytes
+   kernel but K7 (with its pack mode) and Adler-32's sums launched over the
+   rows and those not (``route`` and ``header_eob`` held against their
+   plain versions on every call), each wrapper's bytes
    bound per launch, and every kernel of the run (K1 tables, K1-K4 and the
    K3's summary fold on the rows' waves, the big row's tile split, K5, K6 and
    the lane CRC on the full row's resolve batches and the big row's
@@ -264,6 +294,7 @@ KERNELS = {
     "stage_dc": ("stage_dc.cu", "tpu_deflate/codec/decode_pallas.py:413", "main"),
     "compact_flat": ("compact.cu", "tpu_deflate/codec/decode_pallas.py:495", "main"),
     "compact_any": ("compact.cu", "tpu_deflate/codec/decode_pallas.py:605", "off"),
+    "pack_tokens": ("compact.cu", "tpu_deflate/codec/decode_jax_v2.py:1385", "off"),
     "expand": ("expand.cu", "tpu_deflate/codec/resolve_pallas.py:150", "main"),
     "sweep": ("sweep.cu", "tpu_deflate/codec/resolve_pallas.py:353", "main"),
     "crc32_lanes": ("crc32_lanes.cu", "tpu_deflate/kernels/checksum_jax.py:190", "main"),
@@ -277,18 +308,27 @@ KERNELS = {
     "finish_analysis": ("finish.cu", "tpu_deflate/codec/encode_jax.py:372", "encode"),
     "tile_split": ("tile_split.cu", "tpu_deflate/codec/resolve_pallas.py:620", "big"),
     "wave_summary": ("stage_dc.cu", "tpu_deflate/codec/decode_jax_v2.py:1331", "main"),
+    "route": ("route.cu", "tpu_deflate/codec/encode_jax.py:575", "encode"),
+    "header_eob": ("emit.cu", "tpu_deflate/codec/emit_pallas.py:271", "encode"),
+    "adler_sums": ("adler32.cu", "tpu_deflate/kernels/checksum_jax.py:282", "adler"),
 }
 # kernel -> the counter of its launches where another kernel runs it: the
 # summary fold is K3's epilogue, launched with K3 (the wave_summary counter
-# counts only its launches alone, on given rows)
-COUNTERS = {"wave_summary": "stage_dc"}
+# counts only its launches alone, on given rows); K7 runs on the "off"
+# route as its pack mode (the compact_any counter counts its launches
+# alone, which no route makes)
+COUNTERS = {"wave_summary": "stage_dc", "compact_any": "pack_tokens"}
+# paths that only the "off" route or the Adler-32 phase drive
+SIDE_PATHS = ("off", "adler")
 PROFILE_KERNELS = (
     "stage_a_tables_kernel", "stage_a_kernel", "stage_b_kernel", "stage_c_kernel", "stage_dc_kernel",
     "compact_kernel", "expand_kernel", "sweep_kernel", "crc32_lanes_kernel",
 )
+OFF_PROFILE_KERNELS = ("pack_kernel",)
 ENCODE_PROFILE_KERNELS = (
     "match_keys_kernel", "match_chain_kernel", "match_bucket_kernel", "match_select_kernel",
-    "parse_transfers_kernel", "parse_replay_kernel", "finish_analysis_kernel", "emit_kernel", "crc32_lanes_kernel",
+    "parse_transfers_kernel", "parse_replay_kernel", "finish_analysis_kernel", "route_kernel", "emit_kernel",
+    "header_eob_kernel", "crc32_lanes_kernel",
 )
 ENCODE_REPS = 3
 ENCODE_EFFORTS = (1, 2, 3, 5)
@@ -430,7 +470,7 @@ def captured(*names, per_key: int = 2):
 PROFILE_NAMES = {
     "stage_c": "stage_c_kernel", "stage_dc": "stage_dc_kernel", "compact_flat": "compact_kernel",
     "compact_any": "compact_kernel", "sweep": "sweep_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel",
-    "_finish_analysis": "finish_analysis_kernel",
+    "_finish_analysis": "finish_analysis_kernel", "pack_tokens": "pack_kernel",
 }
 
 
@@ -467,7 +507,10 @@ class Kernels:
     def __init__(self):
         self.rec: dict = {}
 
-    def compare(self, name, kern, plain, inputs, shapes, *, main_path=True, proj=None):
+    def compare(self, name, kern, plain, inputs, shapes, *, main_path=True, proj=None, outputs=None):
+        """kern() and plain() equal (exact), both timed; the bound from
+        ``inputs`` and the kernel's results, or ``outputs(results)`` where
+        given (a kernel that writes only part of what it returns)."""
         import torch
 
         def parts(out):
@@ -483,7 +526,7 @@ class Kernels:
         r = self.rec.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         outs = got_full if isinstance(got_full, tuple) else (got_full,)
-        bms, by = bound(inputs, tensors_of(outs))
+        bms, by = bound(inputs, tensors_of(outs) if outputs is None else outputs(outs))
         if main_path:
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, shapes=shapes)
         log(f"{name} {shapes}: equal={equal} max_abs_err={err} kernel {ms:.4f} ms plain "
@@ -678,6 +721,16 @@ def launch_profile(label: str, fn, kernels: dict, allowed: tuple = ()) -> list:
     device_ops = {op: n for op, n in ops.items() if op not in NO_LAUNCH_OPS and op not in allowed}
     require(not device_ops, f"{label}: aten ops that launch device work {device_ops}")
     return events
+
+
+def one_launch(label: str, fn, counter: str) -> None:
+    """One call of fn (``launch_profile``): exactly one launch of the
+    port's ``counter`` kernel and no other device work (no zero fill);
+    prints its device time where the profiler recorded it."""
+    events = launch_profile(label, fn, {counter: 1})
+    if events:
+        log(f"{label}: device time {sum(e.time_range.elapsed_us() for e in events):.2f} us "
+            f"({', '.join(f'{e.name[:40]} {e.time_range.elapsed_us():.2f}' for e in events)}) ({gpu_name_power()})")
 
 
 def wave_launches(fn, label: str) -> None:
@@ -1212,12 +1265,15 @@ def compact_edge_lanes(M: int, reps: int, seed: int):
 
 
 def phase_compact_edges(small: list, device, K: Kernels) -> None:
-    """K4 and K7 against their plain version on the main path's own waves of
-    at most 4 lanes (K3's tokens at k1 104 and 512, the wave's planes), and
-    on the edge lanes of compact_edge_lanes at M = 128, 1001, 4099, 5120 and
-    8228 (M not a multiple of 4 takes scalar loads; 7 lanes take 1024-entry
-    segments, 672 lanes 4096-entry ones) and once from a row that is not
-    16-byte aligned."""
+    """K4, K7 and K7's pack mode against their plain versions on the main
+    path's own waves of at most 4 lanes (K3's tokens at k1 104 and 512, the
+    wave's planes), and on the edge lanes of compact_edge_lanes at M = 128,
+    1001, 4099, 5120 and 8228 (M not a multiple of 4 takes scalar loads; 7
+    lanes take 1024-entry segments, 672 lanes 4096-entry ones) and once
+    from a row that is not 16-byte aligned; the pack mode also on
+    pack_edge_lanes at M = 31, 1001, 4099 and 8228 (11 and 704 lanes), one
+    lane alone and a row not 16-byte aligned."""
+    import numpy as np
     import torch
 
     from tpu_deflate_torch.codec import decode_kernels as dk
@@ -1242,13 +1298,184 @@ def phase_compact_edges(small: list, device, K: Kernels) -> None:
                   [tok, planes], {"edge": what, "tok": list(tok.shape)}, main_path=False)
         K.compare("compact_any", lambda: dk.compact_any(tok), lambda: dk.compact_plain(tok, None), [tok],
                   {"edge": what, "tok": list(tok.shape)}, main_path=False)
+        K.compare("pack_tokens", lambda: dk.pack_tokens(tok), lambda: dk.pack_tokens_plain(tok), [tok],
+                  {"edge": what, "tok": list(tok.shape)}, main_path=False)
+    # K7's pack mode on its own edge lanes (all literals, all matches, all
+    # below 0, bit 31 of every bitmap word), M % 32 != 0, in both segment
+    # sizes, one lane alone and a row that is not 16-byte aligned.
+    for M in (31, 1001, 4099, 8228):
+        lanes = pack_edge_lanes(M, seed=M)
+        for reps in (1, 64):
+            tok = torch.from_numpy(np.tile(lanes, (reps, 1))).to(device)
+            K.compare("pack_tokens", lambda: dk.pack_tokens(tok), lambda: dk.pack_tokens_plain(tok), [tok],
+                      {"pack edge lanes": list(tok.shape)}, main_path=False)
+    lanes = pack_edge_lanes(5120, seed=9)
+    flat = torch.empty(lanes.size + 1, dtype=torch.int32, device=device)
+    for what, tok in (("one lane", torch.from_numpy(lanes[3:4].copy()).to(device)),
+                      ("a row not 16-byte aligned", flat[1:].view(lanes.shape).copy_(torch.from_numpy(lanes)))):
+        K.compare("pack_tokens", lambda: dk.pack_tokens(tok), lambda: dk.pack_tokens_plain(tok), [tok],
+                  {"pack edge lanes": what, "tok": list(tok.shape)}, main_path=False)
+
+
+def pack_edge_lanes(M: int, seed: int):
+    """(L, M) int32 tokens for K7's pack mode: compact_edge_lanes' lanes
+    (literal ranks 0 and 255, match tokens of 256 and more, -1, -2 and
+    INT_MIN among them) and four more: every token a literal, every token
+    a match, every token below 0, and literals at every 32nd token (bit 31
+    of each bitmap word set)."""
+    import numpy as np
+
+    tok, _planes = compact_edge_lanes(M, 1, seed)
+    rng = np.random.default_rng(seed + 1)
+    extra = np.stack([rng.integers(0, 256, M), rng.integers(256, 1 << 27, M), np.full(M, -1),
+                      np.where(np.arange(M) % 32 == 31, rng.integers(0, 256, M), rng.integers(256, 1 << 20, M))])
+    return np.concatenate([tok, extra.astype(np.int32)])
+
+
+def route_edge_inputs(L: int, seed: int, final_kind: str = "none"):
+    """NumPy arguments of ``encode.route`` for L lanes cycling through its
+    edges: dynamic == fixed (a tie: DYNAMIC), stored == dynamic < fixed (a
+    tie: not STORED), member lengths 0, 1 and 65535, lanes cheapest as
+    FIXED, as DYNAMIC and as STORED; random codes and headers (uint32
+    values, 0-16 bits a slot). Returns (the 14 arrays, final): ``final_kind``
+    "none" (None), "zeros" (no lane final) or "mixed"."""
+    import numpy as np
+
+    from tpu_deflate_torch.codec import encode as pe
+
+    rng = np.random.default_rng(seed)
+    ll_hist = np.where(rng.random((L, 288)) < 0.4, 0, rng.integers(0, 400, (L, 288)))
+    d_hist = rng.integers(0, 200, (L, 30))
+    ll_len = rng.integers(1, 16, (L, 288))
+    d_len = rng.integers(0, 16, (L, 30))
+    sym, dsym = np.arange(288), np.arange(30)
+    extras = ll_hist @ np.where((sym >= 265) & (sym <= 284), (sym - 261) >> 2, 0) + d_hist @ np.maximum(
+        (dsym >> 1) - 1, 0)
+    fix = np.where(sym < 144, 8, np.where(sym < 256, 9, np.where(sym < 280, 7, 8)))
+    dyn0 = (ll_hist * ll_len).sum(1) + (d_hist * d_len).sum(1) + extras + ll_len[:, 256]
+    fixed = 3 + ll_hist @ fix + 5 * d_hist.sum(1) + extras + 7
+    kind = np.arange(L) % 8
+    lengths = np.choose(kind, [65536, 100, 0, 1, 65535, 65536, 65536, 1000])
+    stored = 8 * (lengths + 5 * (-(-lengths // 65535)) + 1)
+    hdr = rng.integers(100, 4000, L)
+    hdr = np.where(kind == 0, fixed - dyn0, hdr)  # dynamic == fixed
+    hdr = np.where(kind == 1, stored - dyn0, hdr)  # dynamic == stored, below fixed
+    hdr = np.where(kind == 5, fixed - dyn0 + 1000, hdr)  # FIXED
+    hdr = np.where(kind == 6, fixed - dyn0 - 1000, hdr)  # DYNAMIC
+    fl, fd = pe._fixed_code_tables()
+    i32 = np.int32
+    arrays = (ll_hist.astype(i32), d_hist.astype(i32), ll_len.astype(i32), d_len.astype(i32), hdr.astype(i32),
+              lengths.astype(i32), rng.integers(-(2**31), 2**31, (L, 288)).astype(i32),
+              rng.integers(-(2**31), 2**31, (L, 30)).astype(i32), rng.integers(0, 2**32, (L, 384)),
+              rng.integers(0, 17, (L, 384)).astype(i32), rng.integers(0, 2**32, L), rng.integers(1, 16, L).astype(i32),
+              fl, fd)
+    final = {"none": None, "zeros": np.zeros(L, np.int64), "mixed": (np.arange(L) % 3 == 0).astype(np.int64)}
+    return arrays, final[final_kind]
+
+
+def header_eob_edge_inputs(L: int, seed: int):
+    """NumPy arguments of ``emit.header_eob`` for L lanes: random body words
+    (L, EMIT_WORDS); header slots of 0-32 bits (a fifth of them 0 bits with
+    a value that must not be placed), every slot 32 bits and on a word in
+    lanes 0, 6, 12, ..., every slot 1 bit in lanes 1, 7, ...; the EOB at the
+    header's end, past it, straddling the grid's last word, at a random
+    bit with 0 EOB bits (not placed), at the grid's last bit and past the
+    grid (dropped)."""
+    import numpy as np
+
+    from tpu_deflate_torch.codec import emit as em
+
+    rng = np.random.default_rng(seed)
+    grid = 32 * em.EMIT_WORDS
+    kind = np.arange(L) % 6
+    hb = np.where(rng.random((L, 384)) < 0.2, 0, rng.integers(1, 33, (L, 384)))
+    hb[kind == 0], hb[kind == 1] = 32, 1
+    hv = rng.integers(0, 2**32, (L, 384))
+    hv = np.where(hb > 0, hv & ((1 << hb) - 1), hv)
+    eb = np.where(kind == 3, 0, rng.integers(4, 16, L))
+    ev = rng.integers(0, 2**32, L) & ((1 << eb) - 1)
+    total = hb.sum(1)
+    body_end = np.choose(kind, [total, total + rng.integers(0, 500000, L), grid - 3, rng.integers(total, grid),
+                                grid - 1, grid + 77])
+    words = rng.integers(-(2**31), 2**31, (L, em.EMIT_WORDS)).astype(np.int32)
+    return words, hv, hb.astype(np.int32), ev, eb.astype(np.int32), body_end.astype(np.int32)
+
+
+def route_written(out: tuple) -> list:
+    """What ``encode.route`` writes: the four costs, and the swapped tables,
+    header and EOB of the lanes routed FIXED (the rest it leaves)."""
+    from tpu_deflate_torch.codec import encode as pe
+
+    fixed = out[6] == pe.ROUTE_FIXED
+    return [*out[6:], *(t[fixed] for t in out[:6])]
+
+
+def header_eob_written(hb, body_end, eob_bits):
+    """What ``emit.header_eob`` writes: the total bits and, a lane, the
+    words the header covers and those of its EOB inside the grid."""
+    import torch
+
+    from tpu_deflate_torch.codec import emit as em
+
+    hdr_words = (hb.to(torch.int64).sum(dim=1) + 31) // 32
+    eob_words = torch.where((eob_bits > 0) & (body_end.to(torch.int64) < 32 * em.EMIT_WORDS), 2, 0)
+
+    def written(out):
+        return [out[1], torch.empty(int((hdr_words + eob_words).sum()), dtype=torch.int32)]
+
+    return written
+
+
+def route_compare(K: Kernels, args: tuple, final, shapes: dict, main_path: bool = False) -> tuple:
+    """``encode.route`` against ``route_plain`` on the same arguments: the
+    kernel on copies (it writes the swap in place), the plain version on
+    the arguments themselves."""
+    from tpu_deflate_torch.codec import encode as pe
+
+    work = [t.clone() for t in args]
+    wfin = None if final is None else final.clone()
+    reads = [*args[:6], *args[12:], *(() if final is None else (final,))]
+    return K.compare("route", lambda: pe.route(*work, final=wfin), lambda: pe.route_plain(*args, final), reads,
+                     shapes, main_path=main_path, outputs=route_written)
+
+
+def header_eob_compare(K: Kernels, words, he: tuple, shapes: dict, main_path: bool = False) -> tuple:
+    """``emit.header_eob`` against ``header_eob_plain``: the kernel ORs into
+    a copy of the words, the plain version reads the words themselves.
+    ``he`` = (header_vals, header_bits, eob_val, eob_bits, body_end)."""
+    from tpu_deflate_torch.codec import emit as em
+
+    work = words.clone()
+    return K.compare("header_eob", lambda: em.header_eob(work, *he), lambda: em.header_eob_plain(words, *he),
+                     list(he), shapes, main_path=main_path, outputs=header_eob_written(he[1], he[4], he[3]))
+
+
+def phase_plan_edges(device, K: Kernels) -> None:
+    """The routing kernel (``encode.route``) on its edge lanes (ties, every
+    strategy, lengths 0/1/65535/65536) with final None, all 0 and mixed,
+    and the header/EOB kernel (``emit.header_eob``) on its edge lanes (32-
+    and 1-bit slots, 0-bit slots and EOBs, an EOB straddling the grid's
+    end and one past it)."""
+    import numpy as np
+    import torch
+
+    for final_kind in ("none", "zeros", "mixed"):
+        arrays, final = route_edge_inputs(96, seed=len(final_kind))
+        args = tuple(torch.from_numpy(a).to(device) for a in arrays)
+        fin = None if final is None else torch.from_numpy(final).to(device)
+        out = route_compare(K, args, fin, {"edge lanes": 96, "final": final_kind})
+        routes = np.bincount(out[6].cpu().numpy(), minlength=3).tolist()
+        require(all(routes), f"route edge lanes: routes {routes} (dynamic, fixed, stored), expected each")
+    he = tuple(torch.from_numpy(a).to(device) for a in header_eob_edge_inputs(48, seed=5))
+    header_eob_compare(K, he[0], he[1:], {"edge lanes": 48})
+    log("route and header_eob equal to their plain versions on their edge lanes")
 
 
 def phase_crc_edges(corpus: bytes, device, K: Kernels) -> None:
     """The lane CRC against its plain version on the encoder's first batch
     (64 members of 64 KiB), whose finished CRCs must equal zlib's, and on
     random rows of the narrowest and widest widths it takes; crc32_device
-    and adler32_device against zlib."""
+    against zlib."""
     import numpy as np
     import torch
 
@@ -1263,17 +1490,66 @@ def phase_crc_edges(corpus: bytes, device, K: Kernels) -> None:
     require([int(c) for c in crcs] == want, "lane CRCs of the encode batch differ from zlib")
     for n in (1, 1000, MEMBER + 7, 3 * FOREIGN_BYTES + 5):
         buf = corpus[n : 2 * n]
-        require(cl.crc32_device(buf) == zlib.crc32(buf) and cl.adler32_device(buf) == zlib.adler32(buf),
-                f"crc32_device / adler32_device of {n} bytes differ from zlib")
+        require(cl.crc32_device(buf) == zlib.crc32(buf), f"crc32_device of {n} bytes differs from zlib")
         require(cl.crc32_device(buf[n // 2 :], zlib.crc32(buf[: n // 2])) == zlib.crc32(buf),
                 f"crc32_device with an init value ({n} bytes) differs from zlib")
-    log("crc32_device and adler32_device on the card equal zlib at 1, 1000, 65543 and 3145733 bytes "
-        "(and crc32_device chained across a split)")
+    log("crc32_device on the card equals zlib at 1, 1000, 65543 and 3145733 bytes (and chained across a "
+        "split)")
     g = torch.Generator(device="cpu").manual_seed(41)
     for shape in ((L, 512), (4, 512 * 1024)):
         r = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8).to(device)
         K.compare("crc32_lanes", lambda: cl.crc32_lanes_raw8(r), lambda: cl.crc32_lanes_raw8_plain(r), [r],
                   {"random rows": list(shape)}, main_path=False)
+
+
+ADLER_SIZES = (1, 1000, MEMBER + 7, 3 * FOREIGN_BYTES + 5)
+ADLER_BIG = (1 << 31) + 4099  # above 2**31 bytes: 64-bit indices and sums
+
+
+def phase_adler(corpus: bytes, device, K: Kernels) -> dict:
+    """Adler-32's sums (``checksum_lanes.adler_sums``) against their plain
+    version at the four sizes of the CRC phase, at 15, 16, 17, 5552 and
+    5553 bytes and from an address off 16 bytes; then the path: counts set
+    to 0, ``adler32_device`` at the four sizes and on a buffer of more than
+    2**31 bytes on the card (whole and from its second byte), each against
+    zlib.adler32 alone (the plain version's int64 temporaries would not
+    fit), one launch a call; the big buffer's sums timed beside their
+    bound. Returns the path's launches."""
+    import torch
+
+    from tpu_deflate_torch import _build
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    bufs = [corpus[n : 2 * n] for n in ADLER_SIZES]
+    for n, buf in zip(ADLER_SIZES, bufs):
+        d = torch.frombuffer(bytearray(buf), dtype=torch.uint8).to(device)
+        K.compare("adler_sums", lambda: cl.adler_sums(d), lambda: cl.adler_sums_plain(d), [d], {"bytes": n},
+                  main_path=n == ADLER_SIZES[-1])
+    for n in (15, 16, 17, 5552, 5553):
+        d = torch.frombuffer(bytearray(corpus[:n + 3]), dtype=torch.uint8).to(device)
+        for what, x in (("aligned", d[:n]), ("from byte 3", d[3:])):
+            K.compare("adler_sums", lambda: cl.adler_sums(x), lambda: cl.adler_sums_plain(x), [x],
+                      {"bytes": x.numel(), "start": what}, main_path=False)
+    g = torch.Generator(device=device).manual_seed(20)
+    big = torch.randint(0, 256, (ADLER_BIG,), generator=g, dtype=torch.uint8, device=device)
+    host = big.cpu().numpy()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = [cl.adler32_device(buf) for buf in bufs] + [cl.adler32_device(big), cl.adler32_device(big[1:])]
+    launches = _build.all_launches()
+    want = [zlib.adler32(buf) for buf in bufs] + [zlib.adler32(host), zlib.adler32(host[1:])]
+    require(got == want, f"adler32_device differs from zlib: {got} against {want}")
+    require(launches["adler_sums"] == len(want), f"adler32_device: {launches['adler_sums']} launches for {len(want)} "
+            "calls")
+    one_launch(f"adler_sums of {ADLER_BIG} bytes", lambda: cl.adler_sums(big), "adler_sums")
+    ms = median_ms(lambda: cl.adler_sums(big), 5)
+    bound_ms = ADLER_BIG / HBM_BYTES_PER_S * 1e3
+    log(f"adler32_device equal to zlib at {list(ADLER_SIZES)} bytes and at {ADLER_BIG} bytes on the card (whole and "
+        f"from its second byte), one launch a call; adler_sums of {ADLER_BIG} bytes {ms:.4f} ms "
+        f"({ADLER_BIG / ms / 1e6:.1f} GB/s), bound {bound_ms:.4f} ms (bytes, {100 * bound_ms / ms:.1f} % of it) "
+        f"({gpu_name_power()})")
+    del big, host
+    return launches
 
 
 def chain_depth(y0, src) -> tuple[int, float]:
@@ -1538,8 +1814,11 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int, K: Kernels) -> tuple[
 
 
 def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None, K: Kernels) -> dict:
-    """The host-resolve route: K7 and the wave kernels at a smaller depth
-    (with a profile dir: then profiled, each K4 and K7 launch's device time
+    """The host-resolve route: the packed token pull (K7's pack mode) and
+    the wave kernels at a smaller depth, the pull held against its plain
+    version on every wave, its launches (one a wave, and K7 alone none), a
+    decode's launches a wave with the plain pull and with the kernel (with
+    a profile dir: then profiled, each K4 and pack launch's device time
     beside its bound), then timed at the main path's depth for
     comparison."""
     import torch
@@ -1554,17 +1833,23 @@ def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None, K: Kernel
     small = bench.make_corpus(OFF_CORPUS_MB)
     gz_small = native.compress_members_native(small)
     pack = pv2.pack_tokens
-    nlits = []
+    pulls = []
 
     def pack_spy(tokens):
         out = pack(tokens)
-        nlits.append((len(folds), out[3].clone()))  # after the wave's K3 (the last vector checked)
+        # after the wave's K3 (the last vector checked); the tokens kept for
+        # the plain version, which runs K7 and so after the counted run
+        pulls.append((len(folds), tokens.clone(), out))
+        calls["pack_tokens"].append(tensor_bytes(tokens) + tensor_bytes(out))
+        shapes["pack_tokens"].append(f"{list(tokens.shape)}")
+        order.append("pack_tokens")
         return out
 
     pv2.pack_tokens = pack_spy
     try:
         with recorded((dk, "compact_flat"), (dk, "compact_any")) as (calls, shapes, order), \
                 folds_checked(K, "off route", keep=True) as folds:
+            calls["pack_tokens"], shapes["pack_tokens"] = [], []
             dk.reset_launches()
             t0 = time.monotonic()
             out = engine.decompress(gz_small, engine="cuda", config=off)
@@ -1576,20 +1861,41 @@ def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None, K: Kernel
     require(out == small, "device_resolve='off' output differs")
     log(f"off route ({OFF_CORPUS_MB} MiB): byte-exact, stats {json.dumps(stats)}, "
         f"launches {json.dumps(launches)}")
-    for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "compact_any"):
+    for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "pack_tokens"):
         require(launches[k] > 0, f"kernel {k} was not launched on the off route")
-    require(len(nlits) == len(folds) == launches["stage_dc"], f"the off route: {len(nlits)} token pulls for "
-            f"{len(folds)} waves")
-    for i, nlit in nlits:  # the vector the route pulled: K3's, with nlit in row 6
-        summ, vec = folds[i - 1]
-        require(torch.equal(vec, dk.wave_summary_plain(summ, nlit)),
+    require(len(pulls) == len(folds) == launches["stage_dc"] == launches["pack_tokens"]
+            and launches["compact_any"] == 0,
+            f"the off route: {len(pulls)} token pulls, {launches['pack_tokens']} pack launches and "
+            f"{launches['compact_any']} of K7 alone for {len(folds)} waves: expected one pack launch a wave")
+    for i, (n, tokens, got) in enumerate(pulls):
+        want = dk.pack_tokens_plain(tokens)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        r = K.rec.setdefault("pack_tokens", {"max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"the off route's pull {i} {list(tokens.shape)} differs from pack_tokens_plain")
+        summ, vec = folds[n - 1]  # the vector the route pulled: K3's, with nlit in row 6
+        require(torch.equal(vec, dk.wave_summary_plain(summ, got[3])),
                 "the off route's vector differs from wave_summary_plain with nlit")
-    log(f"off route: every wave's pulled vector equal to wave_summary_plain with its nlit ({len(nlits)} waves)")
-    del folds, nlits
+    log(f"off route: every wave's pull equal to pack_tokens_plain and its pulled vector to wave_summary_plain "
+        f"with its nlit ({len(pulls)} waves, tokens {sorted({str(list(t.shape)) for _n, t, _o in pulls})})")
+    tokens = pulls[0][1]
+    K.compare("pack_tokens", lambda: dk.pack_tokens(tokens), lambda: dk.pack_tokens_plain(tokens), [tokens],
+              {"off route wave": list(tokens.shape)})
+    for _n, t, _o in pulls:
+        one_launch(f"pack_tokens, off route wave {list(t.shape)}", lambda: dk.pack_tokens(t), "pack_tokens")
+    del folds, pulls
     require(stats["device_resolved"] == 0 and launches["expand"] == 0, "off route resolved on device")
+    for what, fn in (("plain pull", dk.pack_tokens_plain), ("pack kernel", dk.pack_tokens)):
+        pv2.pack_tokens = fn
+        try:
+            wave_launches(lambda: engine.decompress(gz_small, engine="cuda", config=off), f"off route, {what}")
+        finally:
+            pv2.pack_tokens = pack
     if profile_dir:
         phase_profile(lambda: engine.decompress(gz_small, engine="cuda", config=off), "off route",
-                      profile_dir, "profile_off", ("compact_kernel",), wall, launch_bounds(calls, shapes, order))
+                      profile_dir, "profile_off", ("compact_kernel", *OFF_PROFILE_KERNELS), wall,
+                      launch_bounds(calls, shapes, order))
     walls = timed_decode(gz, corpus, OFF_REPS, config=off)
     med = statistics.median(walls)
     log(f"off route ({CORPUS_MB} MiB) {OFF_REPS} timed runs: median {med:.4f} s = "
@@ -1688,7 +1994,7 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
             "a big member did not resolve on the device route")
     for k in BIG_KERNELS:
         require(launches[k] > 0, f"kernel {k} was not launched on the big-members route")
-    require(launches["compact_any"] == 0, "the big-members route launched K7")
+    require(launches["compact_any"] == launches["pack_tokens"] == 0, "the big-members route launched K7")
     require(len(folds) == launches["stage_dc"] == stats["waves"], "the big members: not one K3 fold a wave")
     path_bounds("big-members route", calls)
     bounds = launch_bounds(calls, shapes, order)
@@ -1759,7 +2065,7 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
         dk.reset_launches()
         out = engine.decompress(gz, engine="cuda")
         lowered = dict(pv2.LAST_DECODE_STATS)
-        k7 = dk.LAUNCHES["compact_any"]
+        k7 = dk.LAUNCHES["compact_any"] + dk.LAUNCHES["pack_tokens"]
         require(out == data, "big members under a 512 KiB batch bound differ")
         out = engine.decompress(gz, engine="cuda", mesh=make_codec_mesh(devices=[device] * MESH_SHARDS))
         sharded = dict(pv2.LAST_DECODE_STATS)
@@ -1998,9 +2304,101 @@ def encode_batch(data: bytes, device) -> dict:
     from tpu_deflate_torch.codec import encode as pe
 
     pend = pe._dispatch_analyze(np.frombuffer(data, np.uint8), True, 0, device)
-    args, tiles, entries, choice = pe.emit_inputs(pend)
+    with route_arguments() as routed:
+        args, tiles, entries, choice = pe.emit_inputs(pend)
     return {"tiles": tiles, "entries": entries, "choice": choice, "emit": em.body_args(args),
-            "args": args, "rows": pend[0], "lengths": pend[5]}
+            "args": args, "rows": pend[0], "lengths": pend[5], "route": routed[0]}
+
+
+@contextlib.contextmanager
+def route_arguments():
+    """Wrap ``encode.route`` for the block; yields a list of copies of each
+    call's (arguments, final), taken before the kernel writes into them."""
+    from tpu_deflate_torch.codec import encode as pe
+
+    route, calls = pe.route, []
+
+    def spy(*args, final=None):
+        calls.append((tuple(t.clone() for t in args), None if final is None else final.clone()))
+        return route(*args, final=final)
+
+    pe.route = spy
+    try:
+        yield calls
+    finally:
+        pe.route = route
+
+
+@contextlib.contextmanager
+def plans_checked(K: Kernels, label: str):
+    """Wrap ``encode.route`` and ``emit.header_eob`` for the block: each
+    call held equal to its plain version (exact; the plain version runs
+    first, on the arguments as they come, since both kernels write in
+    place), its max_abs_err kept. Yields {wrapper: calls checked}."""
+    import torch
+
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
+
+    route, header_eob = pe.route, em.header_eob
+    seen = {"route": 0, "header_eob": 0}
+
+    def check(name, got, want, shape):
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        r = K.rec.setdefault(name, {"max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"{label}: {name} differs from its plain version at {shape}")
+        seen[name] += 1
+
+    def route_wrapper(*args, final=None):
+        want = pe.route_plain(*args, final)
+        got = route(*args, final=final)
+        check("route", got, want, list(args[0].shape))
+        return got
+
+    def header_eob_wrapper(words, *he):
+        want = em.header_eob_plain(words, *he)
+        got = header_eob(words, *he)
+        check("header_eob", got, want, list(words.shape))
+        return got
+
+    pe.route, em.header_eob = route_wrapper, header_eob_wrapper
+    try:
+        yield seen
+    finally:
+        pe.route, em.header_eob = route, header_eob
+    log(f"{label}: route and header_eob equal to their plain versions on all {seen['route']} and "
+        f"{seen['header_eob']} calls")
+
+
+def plan_launches(fn, label: str, batches: int) -> None:
+    """One call of fn (an encode of ``batches`` lane batches, ``call_record``)
+    with the routing and the header/EOB as the plain chains on the card
+    (``route_plain``, ``header_eob_plain``: the chains the two kernels
+    replaced), then with the kernels: the port's kernel launches, the aten
+    ops that launch device work and the device events, in all and a
+    batch."""
+    import collections
+
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
+
+    route, header_eob = pe.route, em.header_eob
+    for what in ("plain chains", "kernels"):
+        if what == "plain chains":
+            pe.route, em.header_eob = (lambda *a, final=None: pe.route_plain(*a, final)), em.header_eob_plain
+        try:
+            launches, ops, events = call_record(fn)
+        finally:
+            pe.route, em.header_eob = route, header_eob
+        device_ops = collections.Counter({op: n for op, n in ops.items() if op not in NO_LAUNCH_OPS})
+        n_ports, n_ops = sum(launches.values()), sum(device_ops.values())
+        log(f"{label} with the {what}: {n_ports} launches of the port's kernels ({n_ports / batches:.2f} a batch), "
+            f"{n_ops} aten ops that launch device work ({n_ops / batches:.2f} a batch; most "
+            f"{json.dumps(dict(device_ops.most_common(8)))}), "
+            + (f"{len(events)} device events ({len(events) / batches:.2f} a batch)" if events
+               else "device events not recorded") + f" ({gpu_name_power()})")
 
 
 def int32_parts(out: tuple) -> tuple:
@@ -2372,6 +2770,14 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
     )
     log(f"emit: body bits per lane min {int(body_end.min())} max {int(body_end.max())}, "
         f"routes {np.bincount(b['choice'].cpu().numpy(), minlength=3).tolist()} (dynamic, fixed, stored)")
+    route_compare(K, *b["route"], {"encode batch": L}, main_path=True)
+    he = (*b["args"][9:13], body_end)
+    header_eob_compare(K, words, he, {"encode batch": [L, em.EMIT_WORDS]}, main_path=True)
+    rargs = [t.clone() for t in b["route"][0]]
+    one_launch("route, first encode batch", lambda: pe.route(*rargs), "route")
+    hwords = words.clone()
+    one_launch("header_eob, first encode batch", lambda: em.header_eob(hwords, *he), "header_eob")
+    phase_plan_edges(device, K)
 
     for value in (1, pp.PARSE_MAX_STEP):
         tiles = pp.step_tiles(torch.full((L, S), value, dtype=torch.int32, device=device))
@@ -2402,6 +2808,7 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
     bf = encode_batch(encode_members(corpus), device)
     choice = bf["choice"].cpu().numpy()
     require(pe.ROUTE_FIXED in choice, f"no lane routed FIXED: {choice.tolist()}")
+    route_compare(K, *bf["route"], {"FIXED batch": choice.tolist()})
     fargs = bf["emit"]
     K.compare("emit_body", lambda: em.emit_body(*fargs), lambda: em.emit_body_plain(*fargs), list(fargs),
               {"fields": list(fargs[0].shape), "routes": choice.tolist()}, main_path=False)
@@ -2416,6 +2823,7 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
     _w, end = K.compare("emit_body", lambda: em.emit_body(*oargs), lambda: em.emit_body_plain(*oargs),
                         list(oargs), {"15-bit literals": [1, S]}, main_path=False)
     require(int(end[0]) == 77 + 15 * S > 32 * em.EMIT_WORDS, "overflow lane's body end")
+    header_eob_compare(K, _w, (*(t[:1] for t in b["args"][9:13]), end), {"15-bit literals, EOB past the grid": 1})
 
     # Lanes whose segments carry no bits: all of lane 0, segments 1 and 2 of lane 1.
     seg = em.EMIT_SEGMENT
@@ -2496,7 +2904,7 @@ def match_launches(launches: dict, batches: int, label: str) -> None:
     require(got == want, f"{label}: match finder launches {got}, expected {want}")
 
 
-def phase_encode_main(corpus: bytes, first) -> tuple[dict, float]:
+def phase_encode_main(corpus: bytes, first, K: Kernels) -> tuple[dict, float]:
     """engine.compress of the corpus at the default effort: round trip
     through gzip and the port's decode, every encode kernel launched (the
     match finder's on every batch), then timed runs and one batch of the
@@ -2513,20 +2921,24 @@ def phase_encode_main(corpus: bytes, first) -> tuple[dict, float]:
     kernels = [(pe, k) for k in MATCH_WRAPPERS] + [
         (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body"),
         (cl, "crc32_lanes_raw8")]
-    with recorded(*kernels) as (calls, shapes, order):
+    batches = -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER))
+    with recorded(*kernels) as (calls, shapes, order), plans_checked(K, "encode") as checked:
         _build.reset_launches()
         t0 = time.monotonic()
         gz = engine.compress(corpus, engine="cuda")
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = _build.all_launches()
-    log(f"encode run 1: {wall:.3f} s, {len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
+    log(f"encode run 1 (route and header_eob checked against their plain versions): {wall:.3f} s, "
+        f"{len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
     path_bounds("encode main-path", calls)
     bounds = launch_bounds(calls, shapes, order)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
-    match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "encode")
-    batch_launches(launches, "finish_analysis", -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "encode")
+    match_launches(launches, batches, "encode")
+    for k in ("finish_analysis", "route", "header_eob"):
+        batch_launches(launches, k, batches, "encode")
+    require(checked == {"route": batches, "header_eob": batches}, f"encode: {checked} calls checked")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
     require(engine.decompress(gz, engine="cuda") == corpus, "the port's decode of the encoded corpus differs")
     n_members, routes = member_routes(gz)
@@ -2546,6 +2958,7 @@ def phase_encode_main(corpus: bytes, first) -> tuple[dict, float]:
     log(f"encode {ENCODE_REPS} timed runs: median {med:.4f} s = {len(corpus) / med / 1e6:.2f} MB/s, "
         f"min {min(walls):.4f} s, max {max(walls):.4f} s")
     log(f"gpu: {gpu_name_power()}")
+    plan_launches(lambda: engine.compress(corpus, engine="cuda"), "encode", batches)
     rows, lengths = first[0], torch.from_numpy(first[1]).to(first[0].device)
     match_finder_profile("encode", rows, lengths, True, 0)
     return launches, med, bounds, len(gz)
@@ -2598,11 +3011,12 @@ def continuous_batch(data: bytes, device) -> dict:
     dd = torch.from_numpy(rows).to(device)
     hs = torch.from_numpy(hstart).to(device)
     pend = pc.dispatch_lanes(dd, hs, pay_lens, True, 1)
-    args, tiles, entries, _choice = pe.emit_inputs(pend, final)
+    with route_arguments() as routed:
+        args, tiles, entries, _choice = pe.emit_inputs(pend, final)
     lengths = torch.from_numpy((pc.HALO_COLS + pay_lens).astype(np.int32)).to(device)
     hist = torch.full((count,), pc.HALO_COLS, dtype=torch.int32, device=device)
     return {"tiles": tiles, "entries": entries, "emit": em.body_args(args), "args": args, "hstart": hstart,
-            "match": (dd, lengths, hist, hs)}
+            "match": (dd, lengths, hist, hs), "route": routed[0]}
 
 
 def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
@@ -2639,8 +3053,11 @@ def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
                            {what: [L, S], "entries": [L, NT]}, main_path=False)
         finish_kernels(K, what, rows, use, dist, tok, valid, flags=b["args"][1])
         args = b["emit"]
-        _w, body_end = K.compare("emit_body", lambda: em.emit_body(*args), lambda: em.emit_body_plain(*args),
-                                 list(args), {what: [L, S], "words": [L, em.EMIT_WORDS]}, main_path=False)
+        words, body_end = K.compare("emit_body", lambda: em.emit_body(*args), lambda: em.emit_body_plain(*args),
+                                    list(args), {what: [L, S], "words": [L, em.EMIT_WORDS]}, main_path=False)
+        rargs, final = b["route"]
+        route_compare(K, rargs, final, {what: L, "final lanes": int(final.sum())})
+        header_eob_compare(K, words, (*b["args"][9:13], body_end), {what: [L, em.EMIT_WORDS]})
         require(bool(tok[:, pc.HALO_COLS].all()), f"{what}: the parse chain misses a payload start")
         log(f"{what}: {L} lanes x {S} columns (hstart of lane 0: {int(b['hstart'][0])}), "
             f"{int(tok.sum())} chain positions, body bits per lane min {int(body_end.min())} "
@@ -2679,7 +3096,9 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with recorded(*kernels) as (calls, shapes, order), captured((cl, "crc32_lanes_raw8"), per_key=1) as caps:
+    batches = -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER))
+    with recorded(*kernels) as (calls, shapes, order), captured((cl, "crc32_lanes_raw8"), per_key=1) as caps, \
+            plans_checked(K, "continuous encode") as checked:
         _build.reset_launches()
         t0 = time.monotonic()
         gz = encode()
@@ -2697,8 +3116,10 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     bounds = launch_bounds(calls, shapes, order)
     for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the continuous encode")
-    match_launches(launches, -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "continuous encode")
-    batch_launches(launches, "finish_analysis", -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER)), "continuous encode")
+    match_launches(launches, batches, "continuous encode")
+    for k in ("finish_analysis", "route", "header_eob"):
+        batch_launches(launches, k, batches, "continuous encode")
+    require(checked == {"route": batches, "header_eob": batches}, f"continuous encode: {checked} calls checked")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the continuous encode differs")
     members = decode_np.split_members(np.frombuffer(gz, np.uint8))
     require(members is not None and len(members) == 1, "the continuous encode is not one member")
@@ -2719,7 +3140,8 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     require(out == corpus, "the port's decode of the continuous encode differs")
     require(stats["device_resolved"] == 1 and stats["host_resolved"] == 0,
             "the continuous member did not resolve on the device route")
-    require(dec_launches["compact_any"] == 0, "the continuous member's decode launched K7")
+    require(dec_launches["compact_any"] == dec_launches["pack_tokens"] == 0,
+            "the continuous member's decode launched K7")
     require(dec_launches["tile_split"] == 1 and len(folds) == dec_launches["stage_dc"] == stats["waves"],
             f"the continuous member's decode: {dec_launches['tile_split']} splits (1 expected), "
             f"{len(folds)} K3 folds checked for {stats['waves']} waves")
@@ -2747,6 +3169,7 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
         f"{'above' if wall > CONT_FIRST_RUN_LIMIT_S else 'at most'} {CONT_FIRST_RUN_LIMIT_S} s) {med:.4f} s = "
         f"{len(corpus) / med / 1e6:.2f} MB/s, min {min(walls):.4f} s, max {max(walls):.4f} s")
     log(f"gpu: {gpu_name_power()}")
+    plan_launches(encode, "continuous encode", batches)
     match_finder_profile("continuous encode", *first[:2], True, 1, *first[2:])
     if profile_dir:
         phase_profile(encode, "continuous encode", profile_dir, "profile_continuous", ENCODE_PROFILE_KERNELS,
@@ -2786,7 +3209,7 @@ def phase_continuous_cpu(corpus: bytes, device) -> None:
 MESH_SHARDS = 4  # shards of the mesh on the one card
 MESH_DECODE_REPS = 3
 MESH_CONT_BYTES = 8 << 20  # sharded_continuous_compress's input: the corpus's first 8 MiB
-MESH_PATH_KERNELS = tuple(k for k, (_src, _tpu, path) in KERNELS.items() if path != "off")
+MESH_PATH_KERNELS = tuple(k for k, (_src, _tpu, path) in KERNELS.items() if path not in SIDE_PATHS)
 
 
 def free_port() -> int:
@@ -2848,7 +3271,7 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
                (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"),
                (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
     big_gz, big_chunks, _payloads = big_members(corpus)
-    with captured(*kernels) as caps, folds_checked(K, "mesh") as folds:
+    with captured(*kernels) as caps, folds_checked(K, "mesh") as folds, plans_checked(K, "mesh") as checked:
         _build.reset_launches()
         out = timed(f"decode of the corpus over {MESH_SHARDS} shards (argument copies for the replay included)",
                     lambda: engine.decompress(gz, engine="cuda", mesh=mesh))
@@ -2874,6 +3297,9 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     for k in MESH_PATH_KERNELS:
         require(launches[COUNTERS.get(k, k)] > 0, f"kernel {k} was not launched on the mesh path")
     require(len(folds) == launches["stage_dc"], "the mesh path: a K3 fold not checked")
+    require(checked == {"route": launches["route"], "header_eob": launches["header_eob"]},
+            f"the mesh path: {checked} route/header_eob calls checked for {launches['route']} and "
+            f"{launches['header_eob']} launches")
 
     walls = []
     for _ in range(MESH_DECODE_REPS):
@@ -3029,7 +3455,7 @@ def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
     log(f"passes: decode in {wall:.3f} s, stats {json.dumps(stats)}, launches {json.dumps(launches)}")
     require((stats["device_resolved"], stats["host_resolved"], stats.get("passes")) == (1, 0, 2),
             "the 96 MiB member did not resolve on the device route in 2 passes")
-    require(launches["compact_any"] == 0, "the pass route launched K7")
+    require(launches["compact_any"] == launches["pack_tokens"] == 0, "the pass route launched K7")
     for k in BIG_KERNELS:
         require(launches[k] > 0, f"kernel {k} was not launched on the pass route")
     require(len(folds) == launches["stage_dc"], "the pass route: a K3 fold not checked")
@@ -3115,7 +3541,8 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
     the first two calls of each lane count, among them ``_big``'s 16-lane
     wave and chained steps at hist 0 and 32768 and ``_full``'s second,
     padded resolve batch). Each row must run the kernels ("cuda") and
-    verify every member; every kernel but K7 must launch and K7 must not.
+    verify every member; every kernel but K7 (with its pack mode) and
+    Adler-32's sums must launch and those must not.
     Then the timed run, unwrapped at the reference's reps: each row, one
     pass's host enqueue time and CUDA-event time, the device memory peak
     beside the end-to-end decode's, and each decode row's GB/s over phase
@@ -3154,18 +3581,20 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
                (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"),
                (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
     with recorded(*kernels) as (calls, _shapes, _order), captured(*kernels) as caps, \
-            folds_checked(K, "kernel rows") as folds:
+            folds_checked(K, "kernel rows") as folds, plans_checked(K, "kernel rows") as checked:
         _build.reset_launches()
         results = {name: run(reps=1) for name, run in rows}
         launches = _build.all_launches()
     log(f"launches over the kernel rows (reps=1): {json.dumps(launches)}")
     verified(results)
     for k in KERNELS:
-        if k == "compact_any":
-            require(launches[k] == 0, "K7 launched in the kernel rows")
+        if KERNELS[k][2] in SIDE_PATHS:
+            require(launches[COUNTERS.get(k, k)] == 0, f"kernel {k} launched in the kernel rows")
         else:
             require(launches[COUNTERS.get(k, k)] > 0, f"kernel {k} was not launched in the kernel rows")
     require(len(folds) == launches["stage_dc"], "the kernel rows: a K3 fold not checked")
+    require(checked == {"route": launches["route"], "header_eob": launches["header_eob"]},
+            f"the kernel rows: {checked} route/header_eob calls checked")
     path_bounds("kernel rows", calls)
     del calls
     replay_calls(caps, K, "kernel rows")
@@ -3253,6 +3682,7 @@ def main(argv: list[str]) -> int:
     phase_compact_edges(small, device, K)
     resolve_first = phase_resolve_kernels(gz, corpus, device, K)
     phase_crc_edges(corpus, device, K)
+    adler_launches = phase_adler(corpus, device, K)
     launches, timed_median_s, bounds = phase_main_path(corpus, gz, n_huff, K)
     if args.profile:
         phase_profile(lambda: engine.decompress(gz, engine="cuda"), "decode", args.profile, "profile",
@@ -3263,7 +3693,7 @@ def main(argv: list[str]) -> int:
     phase_interop(corpus, gz, device)
 
     encode_first = phase_encode_kernels(corpus, device, K)
-    enc_launches, enc_median_s, enc_bounds, effort2_bytes = phase_encode_main(corpus, encode_first)
+    enc_launches, enc_median_s, enc_bounds, effort2_bytes = phase_encode_main(corpus, encode_first, K)
     if args.profile:
         phase_profile(lambda: engine.compress(corpus, engine="cuda"), "encode", args.profile,
                       "profile_encode", ENCODE_PROFILE_KERNELS, enc_median_s, enc_bounds)
@@ -3281,7 +3711,7 @@ def main(argv: list[str]) -> int:
     row_launches = phase_kernel_rows(corpus, native.compress_members_native(corpus), timed_median_s, K)
     path_launches = {"main": launches, "off": off_launches, "big": big_launches, "encode": enc_launches,
                      "continuous": cont_launches, "continuous_decode": cont_dec_launches, "mesh": mesh_launches,
-                     "passes": pass_launches, "kernel_rows": row_launches}
+                     "passes": pass_launches, "kernel_rows": row_launches, "adler": adler_launches}
 
     kernels = [
         {

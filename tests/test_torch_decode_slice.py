@@ -202,7 +202,7 @@ def test_wave_k1_matches_reference():
         assert v2._lane_k1(mtb) == wp._lane_k1(mtb)
     assert dk.LAUNCHES.keys() == {
         "stage_a_tables", "stage_a", "stage_b", "stage_c", "stage_dc", "compact_flat", "compact_any",
-        "expand", "sweep", "crc32_lanes", "tile_split", "wave_summary",
+        "expand", "sweep", "crc32_lanes", "tile_split", "wave_summary", "pack_tokens", "adler_sums",
     }
 
 

@@ -1,5 +1,5 @@
 """The port's word packer (tpu_deflate_torch.codec.emit: plain K10,
-header_eob_words, emit_device on CPU tensors) against the JAX package's
+header_eob_words_plain, emit_device on CPU tensors) against the JAX package's
 emit_pallas, whose Pallas kernel runs in interpret mode, and against the
 XLA emit encode_jax.emit_device. The lanes come from the reference's own
 analyze_device + _plan_codes (as tests/test_device_codec.py::
@@ -119,7 +119,7 @@ def test_header_eob_words_match_reference(lanes):
                                     jnp.asarray(lanes["ev"]), jnp.asarray(lanes["eb"]),
                                     jnp.asarray(body_end))
     a = _torch_args(lanes)
-    words, total = em.header_eob_words(a[9], a[10], a[11], a[12], torch.from_numpy(body_end))
+    words, total = em.header_eob_words_plain(a[9], a[10], a[11], a[12], torch.from_numpy(body_end))
     np.testing.assert_array_equal(total.numpy(), np.asarray(rtot))
     np.testing.assert_array_equal(_u32(words), np.asarray(rw))
 

@@ -17,7 +17,7 @@ ints from ``tensor.data_ptr()`` and ``torch.cuda.current_stream()
 
 Each wrapper runs its kernel on CUDA tensors and the plain PyTorch
 version beside it on CPU tensors; a CUDA tensor never reaches a plain
-version. ``LAUNCHES`` (decode kernels and the lane CRC) and
+version. ``LAUNCHES`` (decode kernels, the lane CRC and Adler-32's sums) and
 ``ENCODE_LAUNCHES`` (encoder kernels) count kernel launches per wrapper
 (plain-version calls do not count).
 """
@@ -69,10 +69,16 @@ SIGNATURES = {
     "td_finish_analysis": [_P] * 16 + [_I, _I, _P],
     "td_tile_split": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     "td_wave_summary": [_P] * 4 + [_I, _I, _P],
+    "td_compact_pack": [_P] * 7 + [_L, _I, _I, _P],
+    "td_adler_blocks": [_L],
+    "td_adler_sums": [_P, _L, _P, _P, _P, _P],
+    "td_route": [_P] * 19 + [_I, _I, _P],
+    "td_header_eob": [_P] * 7 + [_I, _I, _P],
 }
 
 # Kernel launches per wrapper since process start (or the last reset): the
-# decode's kernels and the lane CRC, then the encoder's kernels. Module
+# decode's kernels, the lane CRC and Adler-32's sums, then the encoder's
+# kernels. Module
 # state shared by every caller in the process; not thread-safe: calls on
 # several threads count each other's launches, and so does
 # decode_v2.LAST_DECODE_STATS["launches"], which is taken from LAUNCHES by
@@ -80,9 +86,10 @@ SIGNATURES = {
 LAUNCHES = {
     "stage_a_tables": 0, "stage_a": 0, "stage_b": 0, "stage_c": 0, "stage_dc": 0, "compact_flat": 0,
     "compact_any": 0, "expand": 0, "sweep": 0, "crc32_lanes": 0, "tile_split": 0, "wave_summary": 0,
+    "pack_tokens": 0, "adler_sums": 0,
 }
 ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0, "match_keys": 0, "match_chain": 0,
-                   "match_bucket": 0, "match_select": 0, "finish_analysis": 0}
+                   "match_bucket": 0, "match_select": 0, "finish_analysis": 0, "route": 0, "header_eob": 0}
 
 _lib = None
 _lock = threading.Lock()

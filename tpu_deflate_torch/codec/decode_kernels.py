@@ -1,7 +1,8 @@
 """The decode wave's kernels: stage A (K1, which on the card first builds
 each lane's decode tables with a kernel of its own, ``stage_a_tables``),
-stage B (K2), stage C (the maps composed over tiles), stage DC (K3) and
-level-2 compaction (K4, with K7 as its no-map mode). K3's epilogue folds
+stage B (K2), stage C (the maps composed over tiles), stage DC (K3),
+level-2 compaction (K4, with K7 as its no-map mode) and the host route's
+packed token pull (``pack_tokens``, K7's pack mode). K3's epilogue folds
 its summary rows into the wave's per-lane vector (``wave_summary`` runs
 that fold alone on given rows).
 
@@ -772,3 +773,60 @@ def compact_flat(tok: torch.Tensor, lit_planes: torch.Tensor) -> torch.Tensor:
 def compact_any(tok: torch.Tensor) -> torch.Tensor:
     """K7: front-compact each lane's non-negative entries (-1 padding)."""
     return _compact(tok, None)
+
+
+# Entries of a pack segment where the wave is small (the 1024-entry
+# segments of csrc/compact.cu); the scratch is sized for them.
+PACK_MIN_SEGMENT = 1024
+
+
+def pack_tokens_plain(tokens: torch.Tensor):
+    """Plain packed pull (``decode_jax_v2._pack_tokens_jit``): the literals
+    and the matches each front-compacted by K7 (``compact_any``), the
+    literal bitmap by shifts and a sum, ``nlit`` by a sum."""
+    L, M = tokens.shape
+    is_lit = (tokens >= 0) & (tokens < 256)
+    is_match = tokens >= 256
+    lit_c = compact_any(torch.where(is_lit, tokens, -1))
+    match_c = compact_any(torch.where(is_match, tokens, -1))
+    Mw = -(-M // 32)
+    bits = torch.nn.functional.pad(is_lit.to(torch.int64), (0, Mw * 32 - M))
+    shifts = torch.arange(32, device=tokens.device).view(1, 1, 32)
+    words = (bits.view(L, Mw, 32) << shifts).sum(dim=2)
+    bitmap = wrap_int32(words).to(torch.int32)
+    nlit = is_lit.sum(dim=1).to(torch.int32)
+    return bitmap, lit_c.to(torch.uint8), match_c, nlit
+
+
+def pack_tokens(tokens: torch.Tensor):
+    """Split a wave's front-compacted tokens (L, M) int32 for the pull:
+    literals as 1 byte, matches as 4, and the order as a 1-bit map.
+
+    Returns (bitmap (L, ceil(M/32)) int32 [bit k of word w = token 32w+k
+    is a literal], lit (L, M) uint8 [the literals, then 255], match (L, M)
+    int32 [the matches, then -1], nlit (L,) int32); tokens below 0 are in
+    neither stream. On the card one launch of K7's pack mode
+    (``td_compact_pack``), whose look-back scratch comes in two halves that
+    calls on a stream take in turn, each call zeroing the one the call
+    before it used (``_build.alternating_halves``), so a wave launches
+    nothing else; on the CPU :func:`pack_tokens_plain`."""
+    _build.check_tensor("tokens", tokens, torch.int32, 2)
+    if not _build.on_card(tokens):
+        return pack_tokens_plain(tokens)
+    L, M = tokens.shape
+    dev = tokens.device
+    bitmap = torch.empty((L, -(-M // 32)), dtype=torch.int32, device=dev)
+    lit = torch.empty((L, M), dtype=torch.uint8, device=dev)
+    match = torch.empty((L, M), dtype=torch.int32, device=dev)
+    nlit = torch.empty(L, dtype=torch.int32, device=dev)
+    scratch, other, dirty = _build.alternating_halves("pack_tokens", dev, L * -(-M // PACK_MIN_SEGMENT) + 1)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_compact_pack(tokens.data_ptr(), bitmap.data_ptr(), lit.data_ptr(), match.data_ptr(),
+                                  nlit.data_ptr(), scratch.data_ptr(), other.data_ptr(), dirty, L, M,
+                                  _build.stream(dev))
+    if err:
+        _build.drop_kept_zero("pack_tokens", dev)
+    _build.check(err, "td_compact_pack")
+    LAUNCHES["pack_tokens"] += 1
+    return bitmap, lit, match, nlit

@@ -25,10 +25,10 @@ passes of at most that many bytes (:func:`_resolve_passes`: each pass
 sliced from the lane's segments, split, resolved from the last 32 KiB of
 the pass before and pulled, the CRC folded across the passes), so no
 member leaves the device route because of its size. On the host route the
-packed token pull (:func:`pack_tokens`, K7) brings each block's tokens
-back, the shared C core resolves them and the host checks the CRC; a lane
-the device route hands back (a stage error, a size other than its ISIZE,
-a residue, an error position) takes it.
+packed token pull (``decode_kernels.pack_tokens``, K7's pack mode) brings
+each block's tokens back, the shared C core resolves them and the host
+checks the CRC; a lane the device route hands back (a stage error, a size
+other than its ISIZE, a residue, an error position) takes it.
 
 ``device_resolve`` picks the routes: "auto" (the default) takes the main
 path and the device route when the device is CUDA, and the host route
@@ -73,6 +73,7 @@ from ..format.errors import (
 )
 from ..kernels import checksum_lanes as cl
 from . import decode_kernels as dk
+from .decode_kernels import pack_tokens
 from . import decode_np as dnp
 from . import resolve as rs
 from .wave_prep import (
@@ -144,27 +145,6 @@ def run_wave(w: dict, *, k1: int | None = None):
     rows of K3's (7, L) vector, all on the wave's device."""
     tokens, _summ, small = wave_stages(w, k1=k1)
     return tokens, small[0], small[1] > 0, small[2], small[3], small[4], small[5, 0] > 0
-
-
-def pack_tokens(tokens: torch.Tensor):
-    """Split a wave's front-compacted tokens (L, M) int32 for the pull:
-    literals as 1 byte, matches as 4, and the order as a 1-bit map.
-
-    Returns (bitmap (L, ceil(M/32)) int32 [bit k of word w = token 32w+k
-    is a literal], lit (L, M) uint8, match (L, M) int32, nlit (L,) int32).
-    """
-    L, M = tokens.shape
-    is_lit = (tokens >= 0) & (tokens < 256)
-    is_match = tokens >= 256
-    lit_c = dk.compact_any(torch.where(is_lit, tokens, -1))
-    match_c = dk.compact_any(torch.where(is_match, tokens, -1))
-    Mw = -(-M // 32)
-    bits = torch.nn.functional.pad(is_lit.to(torch.int64), (0, Mw * 32 - M))
-    shifts = torch.arange(32, device=tokens.device).view(1, 1, 32)
-    words = (bits.view(L, Mw, 32) << shifts).sum(dim=2)
-    bitmap = dk.wrap_int32(words).to(torch.int32)
-    nlit = is_lit.sum(dim=1).to(torch.int32)
-    return bitmap, lit_c.to(torch.uint8), match_c, nlit
 
 
 class WaveRunner:

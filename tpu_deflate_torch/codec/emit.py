@@ -5,18 +5,19 @@ words per lane.
 - ``emit_body`` (K10): code lookup, each position's bit fields, an
   exclusive bit-offset scan from the header's length, and the bits ORed
   into a lane's ``EMIT_WORDS``-word grid; returns the body's end bit;
-- ``header_eob_words``: the block header (at bit 0) and the end-of-block
-  code (after the body) as a second word grid;
-- ``emit_device``: both, ORed (the regions hold disjoint bits), the
-  function the encode pipeline calls.
+- ``header_eob``: the block header (at bit 0) and the end-of-block code
+  (after the body) ORed into the body's words; its plain version builds
+  them as a second word grid (``header_eob_words_plain``, the spec) and
+  ORs the two (the regions hold disjoint bits);
+- ``emit_device``: both, the function the encode pipeline calls.
 
 Words are int32 tensors holding uint32 bit patterns. A word index at or
 past ``EMIT_WORDS`` is dropped, never written, while the bit counts stay
 exact: a lane whose bits overflow the grid costs more than stored framing,
 and member assembly frames it as stored.
 
-``emit_body`` runs the CUDA kernel of ``csrc/emit.cu`` on CUDA tensors and
-the plain PyTorch version beside it on CPU tensors. The plain version is
+``emit_body`` and ``header_eob`` run the CUDA kernels of ``csrc/emit.cu``
+on CUDA tensors and the plain PyTorch versions beside them on CPU tensors. The plain version is
 the body-only form of the reference's XLA emit (``encode_jax.emit_device``):
 two slots per position (litlen code + length extra, distance code +
 distance extra), one cumulative sum, then the low and high word parts of
@@ -118,7 +119,7 @@ def emit_body(sym, flags, leb, lev, dsym, deb, dev, ll_codes, d_codes, hdr_bits)
     return words, body_end
 
 
-def header_eob_words(header_vals, header_bits, eob_val, eob_bits, body_end):
+def header_eob_words_plain(header_vals, header_bits, eob_val, eob_bits, body_end):
     """Header (at bit 0) and EOB (at body_end) as an (L, EMIT_WORDS) int32
     word grid to OR with the body's words; returns (words, total_bits).
     header_vals (L, H) and eob_val (L,) hold uint32 values in int64."""
@@ -129,6 +130,46 @@ def header_eob_words(header_vals, header_bits, eob_val, eob_bits, body_end):
     offs = torch.cat([ends - header_bits.to(i64), body_end.to(i64)[:, None]], dim=1)
     words = _or_words(offs, vals, bits, EMIT_WORDS)
     return wrap_int32(words).to(torch.int32), (body_end + eob_bits).to(torch.int32)
+
+
+def header_eob_plain(words, header_vals, header_bits, eob_val, eob_bits, body_end):
+    """Plain header/EOB: ``words | header_eob_words_plain(...)`` and the
+    total bits."""
+    he_words, total_bits = header_eob_words_plain(header_vals, header_bits, eob_val, eob_bits, body_end)
+    return words | he_words, total_bits
+
+
+def header_eob(words, header_vals, header_bits, eob_val, eob_bits, body_end):
+    """The header (L, H) int64 values and int32 bit counts placed from bit 0
+    and the EOB (L,) at ``body_end`` (L,) int32, ORed into K10's words (L,
+    EMIT_WORDS) int32 -> (words, total_bits (L,) int32). On the card one
+    launch of ``td_header_eob``, which ORs into ``words`` in place (the
+    emit owns them; no second grid); on the CPU
+    :func:`header_eob_plain`."""
+    _build.check_tensor("words", words, torch.int32, 2)
+    L = words.shape[0]
+    _build.require(words.shape[1] == EMIT_WORDS, f"words: shape {tuple(words.shape)}")
+    _build.check_tensor("header_vals", header_vals, torch.int64, 2)
+    _build.check_tensor("header_bits", header_bits, torch.int32, 2)
+    _build.require(header_vals.shape == header_bits.shape and header_vals.shape[0] == L,
+                   f"header: shapes {tuple(header_vals.shape)}, {tuple(header_bits.shape)}")
+    for name, t, dtype in (("eob_val", eob_val, torch.int64), ("eob_bits", eob_bits, torch.int32),
+                           ("body_end", body_end, torch.int32)):
+        _build.check_tensor(name, t, dtype, 1)
+        _build.require(t.shape[0] == L, f"{name}: shape {tuple(t.shape)}")
+    args = (words, header_vals, header_bits, eob_val, eob_bits, body_end)
+    if not _build.on_card(*args):
+        return header_eob_plain(*args)
+    devc = words.device
+    total_bits = torch.empty(L, dtype=torch.int32, device=devc)
+    lib = _build.load()
+    with torch.cuda.device(devc):
+        err = lib.td_header_eob(header_vals.data_ptr(), header_bits.data_ptr(), eob_val.data_ptr(),
+                                eob_bits.data_ptr(), body_end.data_ptr(), words.data_ptr(), total_bits.data_ptr(),
+                                L, header_vals.shape[1], _build.stream(devc))
+    _build.check(err, "td_header_eob")
+    ENCODE_LAUNCHES["header_eob"] += 1
+    return words, total_bits
 
 
 def body_args(args: tuple) -> tuple:
@@ -143,5 +184,4 @@ def emit_device(sym, flags, leb, lev, dsym, deb, dev, ll_codes, d_codes, header_
     int32, total_bits (L,) int32)."""
     body_words, body_end = emit_body(*body_args((sym, flags, leb, lev, dsym, deb, dev, ll_codes,
                                                  d_codes, header_vals, header_bits)))
-    he_words, total_bits = header_eob_words(header_vals, header_bits, eob_val, eob_bits, body_end)
-    return body_words | he_words, total_bits
+    return header_eob(body_words, header_vals, header_bits, eob_val, eob_bits, body_end)

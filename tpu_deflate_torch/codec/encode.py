@@ -23,10 +23,11 @@ All of it is PyTorch on the given device, apart from the kernels:
   K10's token flags (``_finish_analysis``: one kernel of ``csrc/finish.cu``
   on CUDA tensors, its plain version on CPU tensors);
 - **planning** (``_plan_codes``): the histograms go to the host for the
-  batched Huffman lengths, canonical codes and dynamic headers; the
-  stored / fixed / dynamic bit costs are compared on the device
-  (``route_strategies``) and fixed-routed lanes take the fixed tables
-  (``_apply_route``);
+  batched Huffman lengths, canonical codes and dynamic headers, which go
+  back in one upload; the stored / fixed / dynamic bit costs are compared
+  on the device and fixed-routed lanes take the fixed tables (``route``:
+  one kernel of ``csrc/route.cu`` on CUDA tensors, the plain
+  ``route_strategies_plain`` and ``_apply_route_plain`` on CPU tensors);
 - **emit** (``emit.emit_device``, K10) and **assembly**: the member
   CRC-32s on the device (``checksum_lanes.crc32_members``, the lane CRC
   kernel), the words pulled up to each batch's longest lane, stored
@@ -574,7 +575,7 @@ def analyze(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, qualit
 # ---------------------------------------------------------------------------
 
 
-def route_strategies(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths):
+def route_strategies_plain(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths):
     """Per-lane argmin over stored / fixed / dynamic bit costs, from the
     token histograms (no EOB, no bumps), the planned dynamic code lengths
     and header bits, and the member lengths; int32 throughout. Returns
@@ -601,8 +602,8 @@ def route_strategies(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths):
     return choice, dyn, fixed, stored
 
 
-def _apply_route(choice, ll_codes, d_codes, header_vals, header_bits, eob_val, eob_bits, fix_ll,
-                 fix_d, final=None):
+def _apply_route_plain(choice, ll_codes, d_codes, header_vals, header_bits, eob_val, eob_bits, fix_ll,
+                       fix_d, final=None):
     """Swap the fixed-Huffman codes, header (bfinal, btype 01) and EOB into
     lanes routed FIXED. ``final`` (L,) 0/1 is each lane's bfinal (None:
     every lane is final)."""
@@ -619,6 +620,59 @@ def _apply_route(choice, ll_codes, d_codes, header_vals, header_bits, eob_val, e
     return ll, dd, hv, hb, ev, eb
 
 
+def route_plain(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths, ll_codes, d_codes, header_vals,
+                header_bits, eob_val, eob_bits, fix_ll, fix_d, final=None):
+    """Plain routing: :func:`route_strategies_plain`, then
+    :func:`_apply_route_plain` -> (ll_codes, d_codes, header_vals,
+    header_bits, eob_val, eob_bits, choice, dyn_bits, fixed_bits,
+    stored_bits)."""
+    costs = route_strategies_plain(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths)
+    routed = _apply_route_plain(costs[0], ll_codes, d_codes, header_vals, header_bits, eob_val, eob_bits, fix_ll,
+                                fix_d, final)
+    return (*routed, *costs)
+
+
+def route(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths, ll_codes, d_codes, header_vals, header_bits,
+          eob_val, eob_bits, fix_ll, fix_d, final=None):
+    """Each lane's cheapest block strategy and, for lanes routed FIXED, the
+    fixed tables swapped in: the histograms (L, 288), (L, 30), the planned
+    code lengths (L, 288), (L, 30), header bits and member lengths (L,),
+    all int32; the codes (L, 288), (L, 30) int32, the header (L, H) int64
+    values and int32 bits, the EOB (L,) int64 value and int32 bits; the
+    fixed tables (1, 288), (1, 30) int32; ``final`` (L,) int64 0/1 or None
+    (every lane final). Returns what :func:`route_plain` returns. On the
+    card one launch of ``td_route``, which writes the swap into the codes,
+    header and EOB tensors in place (the planner uploaded them for this
+    batch and owns them); on the CPU :func:`route_plain`."""
+    L = ll_hist.shape[0]
+    i32, i64 = torch.int32, torch.int64
+    named = (("ll_hist", ll_hist, i32, (L, 288)), ("d_hist", d_hist, i32, (L, 30)),
+             ("ll_len", ll_len, i32, (L, 288)), ("d_len", d_len, i32, (L, 30)), ("hdr_bits", hdr_bits, i32, (L,)),
+             ("lengths", lengths, i32, (L,)), ("ll_codes", ll_codes, i32, (L, 288)),
+             ("d_codes", d_codes, i32, (L, 30)), ("header_vals", header_vals, i64, None),
+             ("header_bits", header_bits, i32, tuple(header_vals.shape)), ("eob_val", eob_val, i64, (L,)),
+             ("eob_bits", eob_bits, i32, (L,)), ("fix_ll", fix_ll, i32, (1, 288)), ("fix_d", fix_d, i32, (1, 30)))
+    for name, t, dtype, shape in named:
+        _build.check_tensor(name, t, dtype, len(shape) if shape else 2)
+        _build.require(shape is None or tuple(t.shape) == shape, f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    _build.require(header_vals.shape[0] == L, f"header_vals: shape {tuple(header_vals.shape)}")
+    tensors = [t for _name, t, _d, _s in named]
+    if final is not None:
+        _build.check_tensor("final", final, i64, 1)
+        _build.require(tuple(final.shape) == (L,), f"final: shape {tuple(final.shape)}")
+    if not _build.on_card(*tensors, *(() if final is None else (final,))):
+        return route_plain(*tensors, final)
+    devc = ll_hist.device
+    costs = torch.empty((4, L), dtype=i32, device=devc)
+    lib = _build.load()
+    with torch.cuda.device(devc):
+        err = lib.td_route(*(t.data_ptr() for t in tensors), 0 if final is None else final.data_ptr(),
+                           *(c.data_ptr() for c in costs), L, header_vals.shape[1], _build.stream(devc))
+    _build.check(err, "td_route")
+    ENCODE_LAUNCHES["route"] += 1
+    return (*tensors[6:12], *costs)
+
+
 @functools.lru_cache(maxsize=1)
 def _fixed_code_tables() -> tuple[np.ndarray, np.ndarray]:
     fl = pack_codes(FIXED_LITLEN_LENGTHS[None, :].astype(np.int64), MAX_CODE_BITS)
@@ -632,11 +686,6 @@ def _plan_codes(a: dict, lengths: np.ndarray, final: np.ndarray | None = None):
     codes (its stored cost), ``final`` (L,) 0/1 each lane's bfinal (None:
     all final). Returns the emit's code and header tensors (on the
     histograms' device) and the route choice."""
-    devc = a["litlen_hist"].device
-
-    def put(x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(devc)
-
     litlen_hist, dist_hist = fix_histograms(a["litlen_hist"].cpu().numpy(),
                                             a["dist_hist"].cpu().numpy())
     ll_lengths = huffman_lengths_batch(litlen_hist, MAX_CODE_BITS)
@@ -644,18 +693,31 @@ def _plan_codes(a: dict, lengths: np.ndarray, final: np.ndarray | None = None):
     ll_codes = pack_codes(ll_lengths, MAX_CODE_BITS)
     d_codes = pack_codes(d_lengths, MAX_CODE_BITS)
     header_vals, header_bits = build_headers(ll_lengths, d_lengths, final)
-    choice, _dyn, _fx, _st = route_strategies(
-        a["litlen_hist"], a["dist_hist"], put(ll_lengths.astype(np.int32)),
-        put(d_lengths.astype(np.int32)), put(header_bits.sum(axis=1).astype(np.int32)),
-        put(np.asarray(lengths, np.int32)),
-    )
-    fl, fd = _fixed_code_tables()
-    routed = _apply_route(
-        choice, put(ll_codes), put(d_codes), put(header_vals.astype(np.int64)), put(header_bits),
-        put((ll_codes[:, 256] & 0xFFFF).astype(np.int64)), put(ll_codes[:, 256] >> 16),
-        put(fl), put(fd), None if final is None else put(np.asarray(final, np.int64)),
-    )
-    return (*routed, choice)
+    plan = _upload(a["litlen_hist"].device, ll_lengths.astype(np.int32), d_lengths.astype(np.int32),
+                   header_bits.sum(axis=1).astype(np.int32), np.asarray(lengths, np.int32), ll_codes, d_codes,
+                   header_vals.astype(np.int64), header_bits, (ll_codes[:, 256] & 0xFFFF).astype(np.int64),
+                   ll_codes[:, 256] >> 16, *_fixed_code_tables(),
+                   *(() if final is None else (np.asarray(final, np.int64),)))
+    routed = route(a["litlen_hist"], a["dist_hist"], *plan[:12], final=plan[12] if len(plan) > 12 else None)
+    return routed[:7]
+
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64}
+
+
+def _upload(devc: torch.device, *arrays: np.ndarray) -> list[torch.Tensor]:
+    """Host int32/int64 arrays -> tensors of the same dtypes and shapes on
+    ``devc``, views of one buffer that one copy uploads (each array at a
+    16-byte boundary)."""
+    offs, n = [], 0
+    for x in arrays:
+        offs.append(n)
+        n += -(-x.nbytes // 16) * 16
+    buf = np.zeros(n, np.uint8)
+    for x, o in zip(arrays, offs):
+        buf[o : o + x.nbytes] = np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+    dev = torch.from_numpy(buf).to(devc)
+    return [dev[o : o + x.nbytes].view(_TORCH_DTYPES[x.dtype]).view(x.shape) for x, o in zip(arrays, offs)]
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,27 @@
 // writes its n invalid ones to [M - I - n, M - I). Literal ranks map
 // through a 256-byte rank -> byte table that each block builds once from
 // the lane's 64 plane words: one shared-memory lookup per literal.
+//
+// Pack mode (pack_kernel, td_compact_pack) replaces the host route's
+// packed token pull, tpu_deflate/codec/decode_jax_v2.py:1385
+// _pack_tokens_jit, whose two compact_any_pallas calls and XLA bitmap and
+// sums the port ran as two K7 launches and some fifteen eager ops a wave.
+// One launch splits a wave's front-compacted tokens (L, M) int32 into the
+// literals (0..255) as bytes, front-compacted with 255 after them, the
+// matches (>= 256) as int32, front-compacted with -1 after them, the
+// order as a bitmap (L, ceil(M / 32)) int32 whose bit k of word w is 1
+// where token 32w + k is a literal (bits past M are 0), and each lane's
+// literal count. Tokens below 0 are in neither stream. Bound on the H100:
+// memory traffic, 4 bytes read and at most 5 + 1/8 written per token. The
+// segments, groups and loads are K7's; a segment's two counts travel as
+// one 62-bit pair (literals in the low 31 bits, matches above) through
+// td::look_back_pair, the padding of each stream follows K7's rule from
+// its end, and each bitmap word is the 4-bit literal masks of 8
+// neighbouring threads joined by three shuffles and stored by the first
+// of them. The lane's last segment writes its literal count. The status
+// words come in two halves that calls on a stream take in turn, each call
+// zeroing the half the call before it used, so a wave launches nothing
+// else.
 #include "td_common.cuh"
 #include "td_lookback.cuh"
 
@@ -186,6 +207,172 @@ extern "C" int td_compact(const void* tok, const void* planes, void* out, void* 
                        : launch<16, true>(t, p, o, status, L, M, vec, s));
   return (int)(small ? launch<4, false>(t, p, o, status, L, M, vec, s)
                      : launch<16, false>(t, p, o, status, L, M, vec, s));
+}
+
+namespace {
+
+constexpr unsigned long long PACK_COUNT = (1ull << 31) - 1;  // the literal count's bits of a pair
+
+struct PairSum {
+  __device__ unsigned long long operator()(unsigned long long a, unsigned long long b) const { return a + b; }
+};
+
+template <int PER>
+__global__ void __launch_bounds__(THREADS)
+    pack_kernel(const int* __restrict__ tok, int* __restrict__ bitmap, uint8_t* __restrict__ lit,
+                int* __restrict__ match, int* __restrict__ nlit, unsigned long long* __restrict__ status,
+                int* __restrict__ ticket, unsigned long long* __restrict__ other, long long dirty, int M,
+                int Mw, int nseg, int vec) {
+  constexpr int SEG = THREADS * PER;
+  constexpr int GROUPS = PER / 4;
+  static_assert(PER % 4 == 0 && GROUPS <= 4, "up to four groups of 4 entries a thread");
+  __shared__ int stage_m[SEG];
+  __shared__ uint8_t stage_l[SEG];
+  __shared__ unsigned long long wsum_l[WARPS], wsum_m[WARPS];
+  __shared__ int s_ticket;
+  __shared__ unsigned long long s_before;
+  const int tid = threadIdx.x;
+  const int lid = tid & 31;
+  const int wid = tid >> 5;
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1);
+  // The call before on this stream has ended: put its status words back to 0.
+  for (long long i = (long long)blockIdx.x * THREADS + tid; i < dirty; i += (long long)gridDim.x * THREADS)
+    other[i] = 0;
+  __syncthreads();
+  const int lane = s_ticket / nseg;
+  const int seg = s_ticket - lane * nseg;
+  const int seg0 = seg * SEG;
+  const int seg_len = min(SEG, M - seg0);
+  const int* x = tok + (size_t)lane * M + seg0;
+
+  // The thread's groups; entries past the lane's end read as -1.
+  int v[GROUPS][4];
+#pragma unroll
+  for (int k = 0; k < GROUPS; ++k) {
+    const int e = 4 * (k * THREADS + tid);
+    if (vec && e + 4 <= seg_len) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(x + e));
+      v[k][0] = q.x;
+      v[k][1] = q.y;
+      v[k][2] = q.z;
+      v[k][3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[k][j] = e + j < seg_len ? __ldg(x + e + j) : -1;
+    }
+  }
+  unsigned long long cnt_l = 0, cnt_m = 0;
+#pragma unroll
+  for (int k = 0; k < GROUPS; ++k) {
+    uint32_t nib = 0;
+    int nm = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      nib |= (uint32_t)(v[k][j] >= 0 && v[k][j] < 256) << j;
+      nm += v[k][j] >= 256;
+    }
+    cnt_l |= (unsigned long long)__popc(nib) << (16 * k);
+    cnt_m |= (unsigned long long)nm << (16 * k);
+    // Word (seg0 + 4 (k THREADS + tid)) / 32 of the bitmap: the masks of
+    // the 8 threads tid & ~7 .. tid | 7, 4 bits each.
+    uint32_t word = nib << (4 * (lid & 7));
+    word |= __shfl_xor_sync(0xffffffffu, word, 1);
+    word |= __shfl_xor_sync(0xffffffffu, word, 2);
+    word |= __shfl_xor_sync(0xffffffffu, word, 4);
+    const int w = (seg0 + 4 * (k * THREADS + tid)) >> 5;
+    if ((lid & 7) == 0 && w < Mw) bitmap[(size_t)lane * Mw + w] = (int)word;
+  }
+  const unsigned long long incl_l = warp_incl64(cnt_l);
+  const unsigned long long incl_m = warp_incl64(cnt_m);
+  if (lid == 31) {
+    wsum_l[wid] = incl_l;
+    wsum_m[wid] = incl_m;
+  }
+  __syncthreads();
+  if (wid == 0) {
+    const unsigned long long a = warp_incl64(lid < WARPS ? wsum_l[lid] : 0ull);
+    const unsigned long long b = warp_incl64(lid < WARPS ? wsum_m[lid] : 0ull);
+    if (lid < WARPS) {
+      wsum_l[lid] = a;
+      wsum_m[lid] = b;
+    }
+  }
+  __syncthreads();
+  const unsigned long long tot_l = wsum_l[WARPS - 1], tot_m = wsum_m[WARPS - 1];
+  const unsigned long long ex_l = (wid ? wsum_l[wid - 1] : 0ull) + incl_l - cnt_l;
+  const unsigned long long ex_m = (wid ? wsum_m[wid - 1] : 0ull) + incl_m - cnt_m;
+  int agg_l = 0, agg_m = 0;
+#pragma unroll
+  for (int k = 0; k < GROUPS; ++k) {
+    agg_l += field16(tot_l, k);
+    agg_m += field16(tot_m, k);
+  }
+  if (wid == 0) {
+    const unsigned long long p = look_back_pair<2>(status + (size_t)lane * nseg, seg,
+                                                   (unsigned long long)agg_m << 31 | (unsigned)agg_l, PairSum{});
+    if (lid == 0) s_before = p;
+  }
+  int before_l = 0, before_m = 0;  // entries of each stream in the segment's earlier groups
+#pragma unroll
+  for (int k = 0; k < GROUPS; ++k) {
+    int rl = before_l + field16(ex_l, k), rm = before_m + field16(ex_m, k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = v[k][j];
+      if (t >= 256) stage_m[rm++] = t;
+      else if (t >= 0) stage_l[rl++] = (uint8_t)t;
+    }
+    before_l += field16(tot_l, k);
+    before_m += field16(tot_m, k);
+  }
+  __syncthreads();  // staged entries and the segment's first slots ready
+  const int start_l = (int)(s_before & PACK_COUNT), start_m = (int)(s_before >> 31);
+  uint8_t* yl = lit + (size_t)lane * M;
+  int* ym = match + (size_t)lane * M;
+  for (int i = tid; i < agg_l; i += THREADS) yl[start_l + i] = stage_l[i];
+  for (int i = tid; i < agg_m; i += THREADS) ym[start_m + i] = stage_m[i];
+  // The k-th entry of the lane outside a stream goes to M - 1 - k of it.
+  const int out_l = seg_len - agg_l, out_m = seg_len - agg_m;
+  uint8_t* pad_l = yl + (M - (seg0 - start_l) - out_l);
+  int* pad_m = ym + (M - (seg0 - start_m) - out_m);
+  for (int i = tid; i < out_l; i += THREADS) pad_l[i] = 255;
+  for (int i = tid; i < out_m; i += THREADS) pad_m[i] = -1;
+  if (seg == nseg - 1 && tid == 0) nlit[lane] = start_l + agg_l;
+}
+
+template <int PER>
+cudaError_t launch_pack(const int* tok, int* bitmap, uint8_t* lit, int* match, int* nlit,
+                        unsigned long long* status, unsigned long long* other, long long dirty, int L, int M,
+                        int vec, cudaStream_t stream) {
+  constexpr int SEG = THREADS * PER;
+  const int nseg = (M + SEG - 1) / SEG;
+  pack_kernel<PER><<<L * nseg, THREADS, 0, stream>>>(
+      tok, bitmap, lit, match, nlit, status, reinterpret_cast<int*>(status + (size_t)L * nseg), other, dirty, M,
+      (M + 31) / 32, nseg, vec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// tok (L, M) int32 -> bitmap (L, ceil(M / 32)) int32, lit (L, M) uint8,
+// match (L, M) int32, nlit (L,) int32. scratch: L * ceil(M / 1024) status
+// words (uint64) then the ticket counter, all 0; other: the scratch of the
+// call before on the stream, whose first `dirty` words the blocks put back
+// to 0.
+extern "C" int td_compact_pack(const void* tok, void* bitmap, void* lit, void* match, void* nlit, void* scratch,
+                               void* other, long long dirty, int L, int M, void* stream) {
+  const auto* t = static_cast<const int*>(tok);
+  auto* b = static_cast<int*>(bitmap);
+  auto* l = static_cast<uint8_t*>(lit);
+  auto* m = static_cast<int*>(match);
+  auto* n = static_cast<int*>(nlit);
+  auto* status = static_cast<unsigned long long*>(scratch);
+  auto* o = static_cast<unsigned long long*>(other);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(tok) % 16 == 0;
+  const bool small = (long long)L * ((M + 4095) / 4096) < SMALL_WAVE_BLOCKS;
+  return (int)(small ? launch_pack<4>(t, b, l, m, n, status, o, dirty, L, M, vec, s)
+                     : launch_pack<16>(t, b, l, m, n, status, o, dirty, L, M, vec, s));
 }
 
 // Resident blocks per SM of the four variants: 1024-entry segments with

@@ -17,6 +17,10 @@ XOR of all of them. The plain version is the reference's GF(2) algorithm:
 a bit-matrix product per chunk, then a tree of bit-matrix products with
 the level matrices, in float64 (0/1 sums of at most 4096 terms are exact)
 with the parity taken as an integer.
+
+:func:`adler32_device` takes Adler-32's two sums of one buffer with one
+launch of ``csrc/adler32.cu`` (:func:`adler_sums`; plain
+:func:`adler_sums_plain`) and folds them on the host.
 """
 
 from __future__ import annotations
@@ -284,21 +288,58 @@ def crc32_device(data, value: int = 0, *, device=None) -> int:
 ADLER_MOD = 65521
 
 
+def adler_sums_plain(d: torch.Tensor) -> torch.Tensor:
+    """Plain Adler-32 sums of n bytes d (uint8, 1-d): (sum d_i, sum d_i *
+    ((n - i) mod 65521)) as a (2,) int64 tensor, exact for n below 2**39
+    (each product is below 2**24)."""
+    n = d.numel()
+    x = d.to(torch.int64)
+    w = (n - torch.arange(n, device=d.device)) % ADLER_MOD
+    return torch.stack([x.sum(), (x * w).sum()])
+
+
+def adler_sums(d: torch.Tensor) -> torch.Tensor:
+    """The sums of :func:`adler_sums_plain`: on the card one launch of
+    ``td_adler_sums`` (16-byte vector reads, per-block 64-bit partials,
+    the last block adding them; no copy of the buffer), on the CPU the
+    plain version."""
+    _build.check_tensor("d", d, torch.uint8, 1)
+    if not _build.on_card(d):
+        return adler_sums_plain(d)
+    dev = d.device
+    n = d.numel()
+    lib = _build.load()
+    partial = torch.empty(2 * lib.td_adler_blocks(n), dtype=torch.int64, device=dev)
+    out = torch.empty(2, dtype=torch.int64, device=dev)
+    ticket = _build.kept_zero("adler_ticket", dev, 1)
+    with torch.cuda.device(dev):
+        err = lib.td_adler_sums(d.data_ptr(), n, partial.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+                                _build.stream(dev))
+    if err:
+        _build.drop_kept_zero("adler_ticket", dev)
+    _build.check(err, "td_adler_sums")
+    LAUNCHES["adler_sums"] += 1
+    return out
+
+
 def adler32_device(data, value: int = 1, *, device=None) -> int:
-    """zlib-compatible Adler-32 of one buffer with its two sums reduced on
-    ``device`` (CUDA by default) in plain PyTorch, as the reference's
-    ``checksum_jax.adler32_device`` reduces them in XLA: the byte sum and
-    the sum of each byte times (n - index) mod 65521, each product below
-    2**24, so the int64 sums are exact for any buffer below 2**39 bytes."""
-    buf = _as_bytes(data)
-    n = buf.size
+    """zlib-compatible Adler-32 of one buffer (counterpart of
+    ``checksum_jax.adler32_device``): the bytes go to ``device`` (CUDA by
+    default), :func:`adler_sums` takes the byte sum and the sum of each
+    byte times (n - index) mod 65521 there, exact for any buffer below
+    2**39 bytes, and the host folds them with the init ``value``. A uint8
+    tensor's bytes are taken where they lie, ``device`` ignored (no
+    upload)."""
+    if isinstance(data, torch.Tensor):
+        _build.require(data.dtype == torch.uint8, f"data: dtype {data.dtype}, expected torch.uint8")
+        d = data.reshape(-1).contiguous()
+    else:
+        d = torch.from_numpy(_as_bytes(data).copy()).to(_device(device))
+    n = d.numel()
     if n == 0:
         return value & 0xFFFFFFFF
     a, b = value & 0xFFFF, (value >> 16) & 0xFFFF
-    d = torch.from_numpy(buf.copy()).to(_device(device)).to(torch.int64)
-    w = (n - torch.arange(n, device=d.device)) % ADLER_MOD
-    s = int(d.sum()) % ADLER_MOD
-    ws = int((d * w).sum()) % ADLER_MOD
+    s, ws = (int(x) % ADLER_MOD for x in adler_sums(d).cpu())
     b = (b + n * a + ws) % ADLER_MOD
     a = (a + s) % ADLER_MOD
     return (b << 16) | a
