@@ -115,19 +115,22 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    ``match_chain``, the same-hash links, ``match_bucket``, the compare
    along them, ``match_select``; every hash family in one launch of each),
    K8 parse transfers, K9 parse
-   replay, the symbols and histograms (``_finish_analysis``), the block
-   routing (``route``), K10 emit body and the header/EOB (``header_eob``)
-   against their plain versions (exact equality) on the first batch of
-   the encode's main path (64 members x 64 KiB of the corpus; there
-   ``_finish_analysis`` also with one call's launches counted, one launch
-   and the histograms' zero fill, and ``torch.bincount``'s time on the
-   plain version's keys; ``route`` and ``header_eob`` each one launch and
-   no other device work); ``route`` also on its edge lanes (dynamic ==
-   fixed, stored == dynamic below fixed, lengths 0, 1, 65535 and 65536,
-   every strategy; final None, all 0 and mixed) and the FIXED batch,
-   ``header_eob`` on its edge lanes (32- and 1-bit slots, 0-bit slots and
-   EOBs, an EOB straddling the grid's end, one past it) and on the lane
-   whose bits overflow the grid;
+   replay, the symbols and histograms (``_finish_analysis``) and the
+   emit's one launch (``emit_routed``: the block routing, K10's body, the
+   header and the EOB; its counters ``route`` and ``header_eob`` are
+   ``emit_body``'s) against their plain versions (exact equality) on the
+   first batch of the encode's main path (64 members x 64 KiB of the
+   corpus; there ``_finish_analysis`` also with one call's launches
+   counted, one launch and the histograms' zero fill, and
+   ``torch.bincount``'s time on the plain version's keys; the emit with
+   one call's launches counted, one launch and the words' and scratch's
+   zero fills, and with routing off on the routed tables, equal to it);
+   the emit also on the routing's edge lanes (dynamic == fixed, stored ==
+   dynamic below fixed, lengths 0, 1, 65535 and 65536, every strategy;
+   final None, all 0 and mixed) and on the header/EOB's (32- and 1-bit
+   slots, 0-bit slots and EOBs, an empty body, an EOB straddling the
+   grid's end, one past it), each on a short token row, on the FIXED
+   batch and on the lane whose bits overflow the grid;
    ``_finish_analysis`` also on edge batches (4 and 16 lanes: every run of
    3..258 against every distance-symbol boundary, clamped runs and
    distances, a lane with no token, a lane of one literal; rows of 4099
@@ -147,19 +150,18 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    with and without hstart; K8-K10 then on
    step fields of all 1, all 250, random 1..250 and one with steps <= 0
    and at the int32 limits (K9 there with entries of -1, 0, 255, 511 and
-   512 in the first tiles), a batch with a lane routed FIXED, a
-   lane of 15-bit literal codes whose bits overflow the word grid, lanes
-   whose segments carry no bits, a width that is not a multiple of K10's
-   segment, and slots of more than 31 bits; every lane of the first batch
-   has a segment that starts inside a word;
+   512 in the first tiles), and the emit on a batch with a lane routed
+   FIXED, a lane of 15-bit literal codes whose bits overflow the word
+   grid, lanes whose segments carry no bits, a width that is not a
+   multiple of K10's segment, and slots of more than 31 bits; every lane
+   of the first batch has a segment that starts inside a word;
 9. the encode's main path: ``engine.compress`` of the 48 MiB corpus at the
    default effort 2, byte-exact through ``gzip.decompress`` and the port's
    ``engine.decompress``, 768 members, every encode kernel and the lane
-   CRC launched (the match finder's four kernels, ``route`` and
-   ``header_eob`` once a batch, the last two held against their plain
-   versions on every call), one encode's launches, aten ops and device
-   events a batch with the plain routing and header/EOB chains and with
-   the kernels, its size
+   CRC launched (the match finder's four kernels once a batch, the emit
+   once a batch with no routing or header/EOB launch of its own, held
+   against its plain composition on every call), one encode's launches,
+   aten ops and device events a batch, its size
    beside the C core's member encoder, each kernel's bound per launch and
    summed over the run; 3 timed runs; then one batch of the match finder:
    its launches (exactly its four kernels) and device time under
@@ -169,8 +171,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    short tail) encoded on the card and with the plain versions on the CPU
    at efforts 1, 2, 3 and 5 must be byte-identical;
 11. continuous-encode kernels: the match finder's kernels (quality 1, with
-   the history masks), K8, K9, ``_finish_analysis``, ``route`` (its final
-   per lane), K10 and ``header_eob`` against their plain versions on the
+   the history masks), K8, K9, ``_finish_analysis`` and the emit's one
+   launch (its final per lane) against their plain versions on the
    first batch of the continuous encode (64 lanes x 98304 columns: a 32 KiB
    halo before each 64 KiB block) and on a batch whose head lane starts
    with 50 zero bytes (the reference's F1);
@@ -179,10 +181,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    ``gzip.decompress`` and the port's decode on the card (one member on the
    device route, K7 not launched, one tile split, K3's summary fold every wave,
    both held against their plain versions), the match finder's kernels (three
-   families a batch), ``route`` and ``header_eob`` (once a batch, against
-   their plain versions on every call, non-final lanes among them; one
-   encode's launches a batch with the plain chains and with the kernels),
-   K8-K10 and the lane CRC launched (the CRC against
+   families a batch), the emit (once a batch, against its plain
+   composition on every call, non-final lanes among them; one encode's
+   launches, aten ops and device events a batch), K8-K10 and the lane CRC
+   launched (the CRC against
    its plain version on the rows the path gave it), each kernel's bound
    per launch and summed, the device memory peak, the ratio beside effort
    2's and zlib -9's, timed runs of the encode, phase 9's profile of one
@@ -197,8 +199,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    decoded over the mesh (the tile split on each shard), then ``engine.compress(corpus,
    effort=4, mesh=)`` (byte-identical to phase 12's member), every kernel
    but K7 (and its pack mode) and Adler-32's sums launched (the match
-   finder's among them; ``route`` and ``header_eob`` held against their
-   plain versions on every call), and each kernel call of
+   finder's among them; the emit held against its plain composition on
+   every call), and each kernel call of
    that run (captured: the first
    two of each shard shape) held against its plain version, exact
    equality; the decode again over ``make_codec_mesh()``;
@@ -235,8 +237,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    64 x 64 KiB) and ``link_probe``. The path's run (each row once at
    reps=1): each row on the kernels ("cuda") with 0 mismatches, every
    kernel but K7 (with its pack mode) and Adler-32's sums launched over the
-   rows and those not (``route`` and ``header_eob`` held against their
-   plain versions on every call), each wrapper's bytes
+   rows and those not (the emit held against its plain composition on
+   every call), each wrapper's bytes
    bound per launch, and every kernel of the run (K1 tables, K1-K4 and the
    K3's summary fold on the rows' waves, the big row's tile split, K5, K6 and
    the lane CRC on the full row's resolve batches and the big row's
@@ -308,16 +310,20 @@ KERNELS = {
     "finish_analysis": ("finish.cu", "tpu_deflate/codec/encode_jax.py:372", "encode"),
     "tile_split": ("tile_split.cu", "tpu_deflate/codec/resolve_pallas.py:620", "big"),
     "wave_summary": ("stage_dc.cu", "tpu_deflate/codec/decode_jax_v2.py:1331", "main"),
-    "route": ("route.cu", "tpu_deflate/codec/encode_jax.py:575", "encode"),
+    "route": ("emit.cu", "tpu_deflate/codec/encode_jax.py:575", "encode"),
     "header_eob": ("emit.cu", "tpu_deflate/codec/emit_pallas.py:271", "encode"),
     "adler_sums": ("adler32.cu", "tpu_deflate/kernels/checksum_jax.py:282", "adler"),
 }
+# kernel -> the kernel whose launch runs it, where that is another: the
+# routing (K10's prologue) and the header/EOB (K10's epilogue) have no
+# launch of their own, so their counts and their numbers are the emit's
+FOLDED = {"route": "emit_body", "header_eob": "emit_body"}
 # kernel -> the counter of its launches where another kernel runs it: the
 # summary fold is K3's epilogue, launched with K3 (the wave_summary counter
 # counts only its launches alone, on given rows); K7 runs on the "off"
 # route as its pack mode (the compact_any counter counts its launches
-# alone, which no route makes)
-COUNTERS = {"wave_summary": "stage_dc", "compact_any": "pack_tokens"}
+# alone, which no route makes); and FOLDED
+COUNTERS = {"wave_summary": "stage_dc", "compact_any": "pack_tokens", **FOLDED}
 # paths that only the "off" route or the Adler-32 phase drive
 SIDE_PATHS = ("off", "adler")
 PROFILE_KERNELS = (
@@ -327,8 +333,7 @@ PROFILE_KERNELS = (
 OFF_PROFILE_KERNELS = ("pack_kernel",)
 ENCODE_PROFILE_KERNELS = (
     "match_keys_kernel", "match_chain_kernel", "match_bucket_kernel", "match_select_kernel",
-    "parse_transfers_kernel", "parse_replay_kernel", "finish_analysis_kernel", "route_kernel", "emit_kernel",
-    "header_eob_kernel", "crc32_lanes_kernel",
+    "parse_transfers_kernel", "parse_replay_kernel", "finish_analysis_kernel", "emit_kernel", "crc32_lanes_kernel",
 )
 ENCODE_REPS = 3
 ENCODE_EFFORTS = (1, 2, 3, 5)
@@ -507,10 +512,9 @@ class Kernels:
     def __init__(self):
         self.rec: dict = {}
 
-    def compare(self, name, kern, plain, inputs, shapes, *, main_path=True, proj=None, outputs=None):
+    def compare(self, name, kern, plain, inputs, shapes, *, main_path=True, proj=None):
         """kern() and plain() equal (exact), both timed; the bound from
-        ``inputs`` and the kernel's results, or ``outputs(results)`` where
-        given (a kernel that writes only part of what it returns)."""
+        ``inputs`` and the kernel's results."""
         import torch
 
         def parts(out):
@@ -526,7 +530,7 @@ class Kernels:
         r = self.rec.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         outs = got_full if isinstance(got_full, tuple) else (got_full,)
-        bms, by = bound(inputs, tensors_of(outs) if outputs is None else outputs(outs))
+        bms, by = bound(inputs, tensors_of(outs))
         if main_path:
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, shapes=shapes)
         log(f"{name} {shapes}: equal={equal} max_abs_err={err} kernel {ms:.4f} ms plain "
@@ -723,11 +727,12 @@ def launch_profile(label: str, fn, kernels: dict, allowed: tuple = ()) -> list:
     return events
 
 
-def one_launch(label: str, fn, counter: str) -> None:
+def one_launch(label: str, fn, counter: str, allowed: tuple = ()) -> None:
     """One call of fn (``launch_profile``): exactly one launch of the
-    port's ``counter`` kernel and no other device work (no zero fill);
-    prints its device time where the profiler recorded it."""
-    events = launch_profile(label, fn, {counter: 1})
+    port's ``counter`` kernel and no other device work but the aten ops in
+    ``allowed`` (none: no zero fill); prints its device time where the
+    profiler recorded it."""
+    events = launch_profile(label, fn, {counter: 1}, allowed)
     if events:
         log(f"{label}: device time {sum(e.time_range.elapsed_us() for e in events):.2f} us "
             f"({', '.join(f'{e.name[:40]} {e.time_range.elapsed_us():.2f}' for e in events)}) ({gpu_name_power()})")
@@ -1401,74 +1406,125 @@ def header_eob_edge_inputs(L: int, seed: int):
     return words, hv, hb.astype(np.int32), ev, eb.astype(np.int32), body_end.astype(np.int32)
 
 
-def route_written(out: tuple) -> list:
-    """What ``encode.route`` writes: the four costs, and the swapped tables,
-    header and EOB of the lanes routed FIXED (the rest it leaves)."""
-    from tpu_deflate_torch.codec import encode as pe
-
-    fixed = out[6] == pe.ROUTE_FIXED
-    return [*out[6:], *(t[fixed] for t in out[:6])]
+EDGE_ROW = 4096 + 1024  # a short token row: K10's segment 0 and a last segment of one chunk
 
 
-def header_eob_written(hb, body_end, eob_bits):
-    """What ``emit.header_eob`` writes: the total bits and, a lane, the
-    words the header covers and those of its EOB inside the grid."""
-    import torch
+def random_tokens(rng, L: int, S: int) -> list:
+    """Seven (L, S) int32 token fields of random literals and matches with
+    their extra bits (a tenth of the positions no token)."""
+    import numpy as np
 
+    from tpu_deflate_torch.format.tables import LENGTH_EXTRA
+
+    kind = rng.random((L, S))
+    flags = np.where(kind < 0.1, 0, np.where(kind < 0.6, 1, 3))
+    match = flags == 3
+    msym = rng.integers(0, 29, (L, S))
+    sym = np.where(match, 257 + msym, rng.integers(0, 256, (L, S)))
+    leb = np.where(match, LENGTH_EXTRA[msym], 0)
+    dsym = np.where(match, rng.integers(0, 30, (L, S)), 0)
+    deb = np.where(match, np.maximum(dsym // 2 - 1, 0), 0)
+    lev = rng.integers(0, 1 << 13, (L, S)) & ((1 << leb) - 1)
+    dev = rng.integers(0, 1 << 13, (L, S)) & ((1 << deb) - 1)
+    return [x.astype(np.int32) for x in (sym, flags, leb, lev, dsym, deb, dev)]
+
+
+def routed_edge_lanes(L: int, seed: int, final_kind: str = "none") -> tuple:
+    """NumPy arguments of ``emit.emit_routed`` for L lanes: the routing edges
+    of :func:`route_edge_inputs` (ties, every strategy, member lengths 0, 1,
+    65535 and 65536) on a short token row (:data:`EDGE_ROW` positions of
+    random literals and matches), with code tables the emit can place
+    (lengths 1-15, each code below its length) and the header's and EOB's
+    values masked to their bits. The planned header's bits (``hdr_bits``,
+    the costs' input) differ from the sum of its slots' bits (the header's
+    length in the words), as they may in any call."""
+    import numpy as np
+
+    arrays, final = route_edge_inputs(L, seed, final_kind)
+    ll_hist, d_hist, ll_len, d_len, hdr, lengths, _llc, _dc, hv, hb, ev, eb, fl, fd = arrays
+    rng = np.random.default_rng(seed + 100)
+
+    def codes(shape):
+        n = rng.integers(1, 16, shape)
+        return ((n << 16) | (rng.integers(0, 1 << 15, shape) & ((1 << n) - 1))).astype(np.int32)
+
+    hv = hv & ((1 << hb) - 1)
+    ev = ev & ((1 << eb) - 1)
+    args = (*random_tokens(rng, L, EDGE_ROW), ll_hist, d_hist, ll_len, d_len, hdr, lengths, codes((L, 288)),
+            codes((L, 30)), hv, hb, ev, eb, fl, fd)
+    return args, final
+
+
+def header_eob_edge_lanes(L: int, seed: int) -> tuple:
+    """NumPy arguments of ``emit.emit_device`` for L lanes: the header and EOB
+    edges of :func:`header_eob_edge_inputs` (32- and 1-bit slots, 0-bit
+    slots whose values must not land, a 0-bit EOB) with each lane's body on
+    a short token row (:data:`EDGE_ROW` positions) that ends where that
+    function puts the EOB: at the header's end (an empty body), past it,
+    straddling the grid's last word, at its last bit and past the grid.
+    Every code is 1 bit; a body of n bits is the row's last min(n, S - 1)
+    positions as literals and, for the rest, position 0 as a match whose
+    length extra bits make up the difference (a slot of more than 31 bits:
+    segment 0 on the direct path)."""
+    import numpy as np
+
+    _words, hv, hb, ev, eb, body_end = header_eob_edge_inputs(L, seed)
+    rng = np.random.default_rng(seed + 200)
+    S = EDGE_ROW
+    need = body_end.astype(np.int64) - hb.sum(axis=1)
+    require(bool((need >= 0).all()), "header/EOB edge lanes: a body end before the header's end")
+    sym, flags, leb, lev, dsym, deb, dev = (np.zeros((L, S), np.int64) for _ in range(7))
+    for lane in range(L):
+        n_lit = int(min(need[lane], S - 1))
+        rest = int(need[lane]) - n_lit
+        flags[lane, S - n_lit :] = 1
+        sym[lane, S - n_lit :] = rng.integers(0, 256, n_lit)
+        if rest:
+            flags[lane, 0], sym[lane, 0], leb[lane, 0] = 3, 257, rest - 1
+            lev[lane, 0] = rng.integers(0, 1 << min(rest - 1, 31))
+    ll = ((1 << 16) | (np.arange(288) & 1))[None, :].repeat(L, axis=0)
+    fields = [x.astype(np.int32) for x in (sym, flags, leb, lev, dsym, deb, dev)]
+    return (*fields, ll.astype(np.int32), np.zeros((L, 30), np.int32), hv, hb, ev, eb)
+
+
+def emit_compare(K: Kernels, args: tuple, shapes: dict, main_path: bool = False) -> tuple:
+    """The emit's one launch against its plain composition on the same
+    arguments: ``emit_routed`` (22 arguments: the routing, K10's body,
+    header and EOB) or ``emit_device`` (13: no routing). Nothing is
+    written into the arguments, so both run on them as they are."""
     from tpu_deflate_torch.codec import emit as em
 
-    hdr_words = (hb.to(torch.int64).sum(dim=1) + 31) // 32
-    eob_words = torch.where((eob_bits > 0) & (body_end.to(torch.int64) < 32 * em.EMIT_WORDS), 2, 0)
-
-    def written(out):
-        return [out[1], torch.empty(int((hdr_words + eob_words).sum()), dtype=torch.int32)]
-
-    return written
-
-
-def route_compare(K: Kernels, args: tuple, final, shapes: dict, main_path: bool = False) -> tuple:
-    """``encode.route`` against ``route_plain`` on the same arguments: the
-    kernel on copies (it writes the swap in place), the plain version on
-    the arguments themselves."""
-    from tpu_deflate_torch.codec import encode as pe
-
-    work = [t.clone() for t in args]
-    wfin = None if final is None else final.clone()
-    reads = [*args[:6], *args[12:], *(() if final is None else (final,))]
-    return K.compare("route", lambda: pe.route(*work, final=wfin), lambda: pe.route_plain(*args, final), reads,
-                     shapes, main_path=main_path, outputs=route_written)
-
-
-def header_eob_compare(K: Kernels, words, he: tuple, shapes: dict, main_path: bool = False) -> tuple:
-    """``emit.header_eob`` against ``header_eob_plain``: the kernel ORs into
-    a copy of the words, the plain version reads the words themselves.
-    ``he`` = (header_vals, header_bits, eob_val, eob_bits, body_end)."""
-    from tpu_deflate_torch.codec import emit as em
-
-    work = words.clone()
-    return K.compare("header_eob", lambda: em.header_eob(work, *he), lambda: em.header_eob_plain(words, *he),
-                     list(he), shapes, main_path=main_path, outputs=header_eob_written(he[1], he[4], he[3]))
+    kern, plain = (em.emit_routed, em.emit_routed_plain) if len(args) == 22 else (em.emit_device,
+                                                                                  em.emit_device_plain)
+    return K.compare("emit_body", lambda: kern(*args), lambda: plain(*args), tensors_of(args), shapes,
+                     main_path=main_path)
 
 
 def phase_plan_edges(device, K: Kernels) -> None:
-    """The routing kernel (``encode.route``) on its edge lanes (ties, every
-    strategy, lengths 0/1/65535/65536) with final None, all 0 and mixed,
-    and the header/EOB kernel (``emit.header_eob``) on its edge lanes (32-
-    and 1-bit slots, 0-bit slots and EOBs, an EOB straddling the grid's
-    end and one past it)."""
+    """The emit's one launch on the routing's edge lanes (ties, every
+    strategy, lengths 0/1/65535/65536; final None, all 0 and mixed) and on
+    the header/EOB's edge lanes (32- and 1-bit slots, 0-bit slots and
+    EOBs, an EOB straddling the grid's end and one past it, an empty body,
+    segment 0 on the direct path), each on a short token row."""
     import numpy as np
     import torch
 
+    from tpu_deflate_torch.codec import emit as em
+
+    def on_card(arrays):
+        return tuple(None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+
     for final_kind in ("none", "zeros", "mixed"):
-        arrays, final = route_edge_inputs(96, seed=len(final_kind))
-        args = tuple(torch.from_numpy(a).to(device) for a in arrays)
-        fin = None if final is None else torch.from_numpy(final).to(device)
-        out = route_compare(K, args, fin, {"edge lanes": 96, "final": final_kind})
-        routes = np.bincount(out[6].cpu().numpy(), minlength=3).tolist()
-        require(all(routes), f"route edge lanes: routes {routes} (dynamic, fixed, stored), expected each")
-    he = tuple(torch.from_numpy(a).to(device) for a in header_eob_edge_inputs(48, seed=5))
-    header_eob_compare(K, he[0], he[1:], {"edge lanes": 48})
-    log("route and header_eob equal to their plain versions on their edge lanes")
+        arrays, final = routed_edge_lanes(96, seed=len(final_kind), final_kind=final_kind)
+        out = emit_compare(K, on_card((*arrays, final)), {"routing edge lanes": [96, EDGE_ROW], "final": final_kind})
+        routes = np.bincount(out[2].cpu().numpy(), minlength=3).tolist()
+        require(all(routes), f"routing edge lanes: routes {routes} (dynamic, fixed, stored), expected each")
+    args = on_card(header_eob_edge_lanes(48, seed=5))
+    _words, total = emit_compare(K, args, {"header/EOB edge lanes": [48, EDGE_ROW]})
+    grid = 32 * em.EMIT_WORDS
+    require(bool((total > grid).any()) and bool((total.to(torch.int64) - args[12] == args[10].sum(dim=1)).any()),
+            "header/EOB edge lanes: no EOB past the grid or no empty body")
+    log("the emit's one launch equal to its plain composition on the routing's and the header/EOB's edge lanes")
 
 
 def phase_crc_edges(corpus: bytes, device, K: Kernels) -> None:
@@ -2166,7 +2222,7 @@ def replay_calls(caps: dict, K: Kernels, label: str) -> None:
         "crc32_lanes_raw8": ("crc32_lanes", cl, cl.crc32_lanes_raw8_plain, None),
         "parse_transfers": ("parse_transfers", pp, pp.parse_transfers_plain, None),
         "parse_replay": ("parse_replay", pp, pp.parse_replay_plain, None),
-        "emit_body": ("emit_body", em, em.emit_body_plain, None),
+        "emit_routed": ("emit_body", em, em.emit_routed_plain, None),
         "match_keys": ("match_keys", pe, pe._match_keys_plain, None),
         "match_chain": ("match_chain", pe, pe._match_chain_plain, int32_parts),
         "match_bucket": ("match_bucket", pe, pe._bucket_best_plain, None),
@@ -2295,110 +2351,91 @@ def encode_members(corpus: bytes) -> bytes:
 
 def encode_batch(data: bytes, device) -> dict:
     """One lane batch of data as the encoder builds it at effort 2 (lazy
-    parse, quality 0): the parse's step tiles, the host entries, K10's
-    inputs, the route, the emit's whole arguments and the batch's rows
-    and lengths."""
+    parse, quality 0): the parse's step tiles, the host entries, the
+    emit's arguments (``emit.emit_routed``'s) and the batch's rows and
+    lengths."""
     import numpy as np
 
-    from tpu_deflate_torch.codec import emit as em
     from tpu_deflate_torch.codec import encode as pe
 
     pend = pe._dispatch_analyze(np.frombuffer(data, np.uint8), True, 0, device)
-    with route_arguments() as routed:
-        args, tiles, entries, choice = pe.emit_inputs(pend)
-    return {"tiles": tiles, "entries": entries, "choice": choice, "emit": em.body_args(args),
-            "args": args, "rows": pend[0], "lengths": pend[5], "route": routed[0]}
+    args, tiles, entries = pe.emit_inputs(pend)
+    return {"tiles": tiles, "entries": entries, "args": args, "rows": pend[0], "lengths": pend[5]}
+
+
+def unrouted(args: tuple) -> tuple:
+    """``emit.emit_routed``'s arguments -> ``emit.emit_device``'s: the token
+    fields and the tables, header and EOB that the routing gives each lane
+    (``route_plain``)."""
+    from tpu_deflate_torch.codec import emit as em
+
+    return (*args[:7], *em.route_plain(*args[7:])[:6])
 
 
 @contextlib.contextmanager
-def route_arguments():
-    """Wrap ``encode.route`` for the block; yields a list of copies of each
-    call's (arguments, final), taken before the kernel writes into them."""
-    from tpu_deflate_torch.codec import encode as pe
-
-    route, calls = pe.route, []
-
-    def spy(*args, final=None):
-        calls.append((tuple(t.clone() for t in args), None if final is None else final.clone()))
-        return route(*args, final=final)
-
-    pe.route = spy
-    try:
-        yield calls
-    finally:
-        pe.route = route
-
-
-@contextlib.contextmanager
-def plans_checked(K: Kernels, label: str):
-    """Wrap ``encode.route`` and ``emit.header_eob`` for the block: each
-    call held equal to its plain version (exact; the plain version runs
-    first, on the arguments as they come, since both kernels write in
-    place), its max_abs_err kept. Yields {wrapper: calls checked}."""
+def emits_checked(K: Kernels, label: str):
+    """Wrap ``emit.emit_routed`` and ``emit.emit_device`` for the block: each
+    call held equal to its plain composition on the same arguments as it
+    returns (exact), its max_abs_err kept under ``emit_body``. Yields
+    {wrapper: calls checked}."""
     import torch
 
     from tpu_deflate_torch.codec import emit as em
-    from tpu_deflate_torch.codec import encode as pe
 
-    route, header_eob = pe.route, em.header_eob
-    seen = {"route": 0, "header_eob": 0}
+    saved = {"emit_routed": (em.emit_routed, em.emit_routed_plain),
+             "emit_device": (em.emit_device, em.emit_device_plain)}
+    seen = {name: 0 for name in saved}
 
-    def check(name, got, want, shape):
-        err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        r = K.rec.setdefault(name, {"max_abs_err": 0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                f"{label}: {name} differs from its plain version at {shape}")
-        seen[name] += 1
+    def wrap(name, kern, plain):
+        def wrapper(*args):
+            got = kern(*args)
+            want = plain(*args)
+            err = max(max_abs_err(g, w) for g, w in zip(got, want))
+            r = K.rec.setdefault("emit_body", {"max_abs_err": 0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"{label}: {name} differs from its plain composition at {list(args[0].shape)}")
+            seen[name] += 1
+            return got
+        return wrapper
 
-    def route_wrapper(*args, final=None):
-        want = pe.route_plain(*args, final)
-        got = route(*args, final=final)
-        check("route", got, want, list(args[0].shape))
-        return got
-
-    def header_eob_wrapper(words, *he):
-        want = em.header_eob_plain(words, *he)
-        got = header_eob(words, *he)
-        check("header_eob", got, want, list(words.shape))
-        return got
-
-    pe.route, em.header_eob = route_wrapper, header_eob_wrapper
+    for name, (kern, plain) in saved.items():
+        setattr(em, name, wrap(name, kern, plain))
     try:
         yield seen
     finally:
-        pe.route, em.header_eob = route, header_eob
-    log(f"{label}: route and header_eob equal to their plain versions on all {seen['route']} and "
-        f"{seen['header_eob']} calls")
+        for name, (kern, _plain) in saved.items():
+            setattr(em, name, kern)
+    log(f"{label}: the emit's one launch equal to its plain composition on all {seen['emit_routed']} routed and "
+        f"{seen['emit_device']} unrouted calls")
+
+
+def emit_launches(launches: dict, batches: int, label: str) -> None:
+    """One emit launch a batch, the routing and the header/EOB inside it:
+    no launch of a kernel of their own."""
+    require(launches["emit_body"] == batches and not set(FOLDED) & {k for k, n in launches.items() if n},
+            f"{label}: {launches['emit_body']} emit launches for {batches} batches, "
+            f"{ {k: launches.get(k, 0) for k in FOLDED} } of the routing and the header/EOB alone")
 
 
 def plan_launches(fn, label: str, batches: int) -> None:
-    """One call of fn (an encode of ``batches`` lane batches, ``call_record``)
-    with the routing and the header/EOB as the plain chains on the card
-    (``route_plain``, ``header_eob_plain``: the chains the two kernels
-    replaced), then with the kernels: the port's kernel launches, the aten
-    ops that launch device work and the device events, in all and a
-    batch."""
+    """One call of fn (an encode of ``batches`` lane batches, ``call_record``):
+    the port's kernel launches (one emit launch a batch, no routing or
+    header/EOB launch of its own), the aten ops that launch device work and
+    the device events, in all and a batch."""
     import collections
 
-    from tpu_deflate_torch.codec import emit as em
-    from tpu_deflate_torch.codec import encode as pe
-
-    route, header_eob = pe.route, em.header_eob
-    for what in ("plain chains", "kernels"):
-        if what == "plain chains":
-            pe.route, em.header_eob = (lambda *a, final=None: pe.route_plain(*a, final)), em.header_eob_plain
-        try:
-            launches, ops, events = call_record(fn)
-        finally:
-            pe.route, em.header_eob = route, header_eob
-        device_ops = collections.Counter({op: n for op, n in ops.items() if op not in NO_LAUNCH_OPS})
-        n_ports, n_ops = sum(launches.values()), sum(device_ops.values())
-        log(f"{label} with the {what}: {n_ports} launches of the port's kernels ({n_ports / batches:.2f} a batch), "
-            f"{n_ops} aten ops that launch device work ({n_ops / batches:.2f} a batch; most "
-            f"{json.dumps(dict(device_ops.most_common(8)))}), "
-            + (f"{len(events)} device events ({len(events) / batches:.2f} a batch)" if events
-               else "device events not recorded") + f" ({gpu_name_power()})")
+    launches, ops, events = call_record(fn)
+    emit_launches(collections.defaultdict(int, launches), batches, label)
+    device_ops = collections.Counter({op: n for op, n in ops.items() if op not in NO_LAUNCH_OPS})
+    n_ports, n_ops = sum(launches.values()), sum(device_ops.values())
+    a_batch = {k: round(n / batches, 2) for k, n in launches.items()}
+    log(f"{label}: {n_ports} launches of the port's kernels ({n_ports / batches:.2f} a batch: "
+        f"{json.dumps(a_batch)}; {json.dumps({k: 0 for k in FOLDED})}), "
+        f"{n_ops} aten ops that launch device work ({n_ops / batches:.2f} a batch; most "
+        f"{json.dumps(dict(device_ops.most_common(8)))}), "
+        + (f"{len(events)} device events ({len(events) / batches:.2f} a batch)" if events
+           else "device events not recorded") + f" ({gpu_name_power()})")
 
 
 def int32_parts(out: tuple) -> tuple:
@@ -2763,20 +2800,19 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
     log(f"encode batch: {L} members, {int(tok.sum())} tokens of {L * S} positions")
     finish_kernels(K, "encode batch", b["rows"], use, dist, tok, valid, main_path=True, flags=b["args"][1])
     finish_edges(device, K)
-    args = b["emit"]
-    words, body_end = K.compare(
-        "emit_body", lambda: em.emit_body(*args), lambda: em.emit_body_plain(*args), list(args),
-        {"fields": [L, S], "words": [L, em.EMIT_WORDS]},
-    )
-    log(f"emit: body bits per lane min {int(body_end.min())} max {int(body_end.max())}, "
-        f"routes {np.bincount(b['choice'].cpu().numpy(), minlength=3).tolist()} (dynamic, fixed, stored)")
-    route_compare(K, *b["route"], {"encode batch": L}, main_path=True)
-    he = (*b["args"][9:13], body_end)
-    header_eob_compare(K, words, he, {"encode batch": [L, em.EMIT_WORDS]}, main_path=True)
-    rargs = [t.clone() for t in b["route"][0]]
-    one_launch("route, first encode batch", lambda: pe.route(*rargs), "route")
-    hwords = words.clone()
-    one_launch("header_eob, first encode batch", lambda: em.header_eob(hwords, *he), "header_eob")
+    args = b["args"]
+    words, total, choice, *_costs = emit_compare(
+        K, args, {"fields": [L, S], "words": [L, em.EMIT_WORDS], "routed": True}, main_path=True)
+    body = total - torch.where(choice == pe.ROUTE_FIXED, 7, args[18]) - torch.where(
+        choice == pe.ROUTE_FIXED, 3, args[16].sum(dim=1, dtype=torch.int32))
+    log(f"emit: body bits per lane min {int(body.min())} max {int(body.max())}, "
+        f"routes {np.bincount(choice.cpu().numpy(), minlength=3).tolist()} (dynamic, fixed, stored)")
+    # The same launch with routing off, given the routed tables, header and EOB.
+    dargs = unrouted(args)
+    dw, dt = emit_compare(K, dargs, {"fields": [L, S], "routing": "off, the routed tables"})
+    require(torch.equal(dw, words) and torch.equal(dt, total), "the emit with routing off differs from routing on")
+    one_launch("emit_routed, first encode batch", lambda: em.emit_routed(*args), "emit_body",
+               ("aten::zeros", "aten::zero_", "aten::fill_"))
     phase_plan_edges(device, K)
 
     for value in (1, pp.PARSE_MAX_STEP):
@@ -2806,62 +2842,57 @@ def phase_encode_kernels(corpus: bytes, device, K: Kernels):
               {"steps": [L, S], "steps <= 0": True, "entries": [-1, 0, 255, 511, 512]}, main_path=False)
 
     bf = encode_batch(encode_members(corpus), device)
-    choice = bf["choice"].cpu().numpy()
-    require(pe.ROUTE_FIXED in choice, f"no lane routed FIXED: {choice.tolist()}")
-    route_compare(K, *bf["route"], {"FIXED batch": choice.tolist()})
-    fargs = bf["emit"]
-    K.compare("emit_body", lambda: em.emit_body(*fargs), lambda: em.emit_body_plain(*fargs), list(fargs),
-              {"fields": list(fargs[0].shape), "routes": choice.tolist()}, main_path=False)
+    fargs = bf["args"]
+    fchoice = emit_compare(K, fargs, {"fields": list(fargs[0].shape), "routed": True})[2].cpu().numpy()
+    require(pe.ROUTE_FIXED in fchoice, f"no lane routed FIXED: {fchoice.tolist()}")
+    log(f"FIXED batch: routes {fchoice.tolist()}")
 
     rng = torch.Generator(device="cpu").manual_seed(4)
     sym = torch.randint(0, 256, (1, S), generator=rng, dtype=torch.int32).to(device)
     ones, zeros = torch.ones_like(sym), torch.zeros_like(sym)
     ll = torch.from_numpy(encode_np.pack_codes(np.full((1, 288), 15, np.int64), 15)).to(device)
     dc = torch.zeros((1, 30), dtype=torch.int32, device=device)
-    hdr = torch.tensor([77], dtype=torch.int32, device=device)
-    oargs = (sym, ones, zeros, zeros, zeros, zeros, zeros, ll, dc, hdr)
-    _w, end = K.compare("emit_body", lambda: em.emit_body(*oargs), lambda: em.emit_body_plain(*oargs),
-                        list(oargs), {"15-bit literals": [1, S]}, main_path=False)
-    require(int(end[0]) == 77 + 15 * S > 32 * em.EMIT_WORDS, "overflow lane's body end")
-    header_eob_compare(K, _w, (*(t[:1] for t in b["args"][9:13]), end), {"15-bit literals, EOB past the grid": 1})
+    oargs = (sym, ones, zeros, zeros, zeros, zeros, zeros, ll, dc, *(t[:1] for t in dargs[9:13]))
+    _w, end = emit_compare(K, oargs, {"15-bit literals, EOB past the grid": [1, S]})
+    require(int(end[0]) == int(dargs[10][0].sum()) + 15 * S + int(dargs[12][0]) > 32 * em.EMIT_WORDS,
+            "overflow lane's total bits")
 
     # Lanes whose segments carry no bits: all of lane 0, segments 1 and 2 of lane 1.
     seg = em.EMIT_SEGMENT
-    eargs = [t[:2].clone() for t in args]
+    eargs = [t[:2].clone() for t in dargs]
     eargs[1][0] = 0
     eargs[1][1, seg : 3 * seg] = 0
-    K.compare("emit_body", lambda: em.emit_body(*eargs), lambda: em.emit_body_plain(*eargs), eargs,
-              {"empty segments": [2, S]}, main_path=False)
+    emit_compare(K, eargs, {"empty segments": [2, S]})
     # A width that is not a multiple of the segment.
     cut = 2 * seg + em.EMIT_CHUNK
-    cargs = [t[:3, :cut].contiguous() for t in args[:7]] + [t[:3] for t in args[7:]]
-    K.compare("emit_body", lambda: em.emit_body(*cargs), lambda: em.emit_body_plain(*cargs), cargs,
-              {"fields": [3, cut]}, main_path=False)
+    cargs = [t[:3, :cut].contiguous() for t in dargs[:7]] + [t[:3] for t in dargs[7:]]
+    emit_compare(K, cargs, {"fields": [3, cut]})
     # Length slots of more than 31 bits (25 extra bits behind the code),
     # which the kernel places one by one.
-    wargs = [t[:2].clone() for t in args]
+    wargs = [t[:2].clone() for t in dargs]
     wargs[3][:] = torch.randint(0, 1 << 25, wargs[3].shape, generator=rng, dtype=torch.int32).to(device)
     wargs[2][:] = 25
-    K.compare("emit_body", lambda: em.emit_body(*wargs), lambda: em.emit_body_plain(*wargs), wargs,
-              {"slots over 31 bits": [2, S]}, main_path=False)
-    for what, a, every in (("first batch", args, True), ("cut width", cargs, True),
-                           ("FIXED batch", fargs, False)):
+    emit_compare(K, wargs, {"slots over 31 bits": [2, S]})
+    for what, a, every in (("first batch", dargs, True), ("cut width", cargs, True),
+                           ("FIXED batch", unrouted(fargs), False)):
         starts = segment_starts(a)
         inside = ((starts & 31) != 0).any(dim=1)
         log(f"emit segments, {what}: {int(inside.sum())} of {starts.shape[0]} lanes have a segment "
             "starting inside a word")
         require(bool(inside.all()) or not every, f"emit {what}: a lane whose segments all start on a word")
-    return b["rows"], b["lengths"], b["args"], em.emit_device(*b["args"])
+    return b["rows"], b["lengths"], dargs, (words, total)
 
 
 def segment_starts(args):
     """(L, segments) first bit of each of K10's segments, from each
-    position's bit count as the plain version counts it."""
+    position's bit count as the plain version counts it; ``args`` are
+    ``emit.emit_device``'s."""
     import torch
 
     from tpu_deflate_torch.codec import emit as em
 
-    sym, flags, leb, _lev, dsym, deb, _dev, ll, dc, hdr = args
+    sym, flags, leb, _lev, dsym, deb, _dev, ll, dc, _hv, hb = args[:11]
+    hdr = hb.sum(dim=1, dtype=torch.int32)
     i64 = torch.int64
     tok, match = (flags & 1) != 0, (flags & 2) != 0
     b0 = torch.where(tok, ll.to(i64).gather(1, sym.clamp(0, 287).to(i64)) >> 16, 0)
@@ -2919,26 +2950,26 @@ def phase_encode_main(corpus: bytes, first, K: Kernels) -> tuple[dict, float]:
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     kernels = [(pe, k) for k in MATCH_WRAPPERS] + [
-        (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body"),
+        (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_routed"),
         (cl, "crc32_lanes_raw8")]
     batches = -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER))
-    with recorded(*kernels) as (calls, shapes, order), plans_checked(K, "encode") as checked:
+    with recorded(*kernels) as (calls, shapes, order), emits_checked(K, "encode") as checked:
         _build.reset_launches()
         t0 = time.monotonic()
         gz = engine.compress(corpus, engine="cuda")
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = _build.all_launches()
-    log(f"encode run 1 (route and header_eob checked against their plain versions): {wall:.3f} s, "
+    log(f"encode run 1 (the emit checked against its plain composition): {wall:.3f} s, "
         f"{len(corpus) / wall / 1e6:.2f} MB/s; launches {json.dumps(launches)}")
     path_bounds("encode main-path", calls)
     bounds = launch_bounds(calls, shapes, order)
-    for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
+    for k in ("parse_transfers", "parse_replay", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the encode")
     match_launches(launches, batches, "encode")
-    for k in ("finish_analysis", "route", "header_eob"):
-        batch_launches(launches, k, batches, "encode")
-    require(checked == {"route": batches, "header_eob": batches}, f"encode: {checked} calls checked")
+    batch_launches(launches, "finish_analysis", batches, "encode")
+    emit_launches(launches, batches, "encode")
+    require(checked == {"emit_routed": batches, "emit_device": 0}, f"encode: {checked} calls checked")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the encoded corpus differs")
     require(engine.decompress(gz, engine="cuda") == corpus, "the port's decode of the encoded corpus differs")
     n_members, routes = member_routes(gz)
@@ -2996,13 +3027,13 @@ F2_BYTES, F2_BLOCK = 300_000, 131072  # 7-bit random blocks that overflow the em
 def continuous_batch(data: bytes, device) -> dict:
     """The first lane batch of data as the continuous encode builds it at
     effort 4 (64 lanes of [32 KiB halo | 64 KiB payload], lazy parse,
-    quality 1): the parse's step tiles, the host entries, K10's inputs and
+    quality 1): the parse's step tiles, the host entries, the emit's
+    arguments (``emit.emit_routed``'s, each lane's final among them) and
     each lane's first real column."""
     import numpy as np
     import torch
 
     from tpu_deflate_torch.codec import continuous as pc
-    from tpu_deflate_torch.codec import emit as em
     from tpu_deflate_torch.codec import encode as pe
 
     flat = np.frombuffer(data, np.uint8)
@@ -3011,12 +3042,11 @@ def continuous_batch(data: bytes, device) -> dict:
     dd = torch.from_numpy(rows).to(device)
     hs = torch.from_numpy(hstart).to(device)
     pend = pc.dispatch_lanes(dd, hs, pay_lens, True, 1)
-    with route_arguments() as routed:
-        args, tiles, entries, _choice = pe.emit_inputs(pend, final)
+    args, tiles, entries = pe.emit_inputs(pend, final)
     lengths = torch.from_numpy((pc.HALO_COLS + pay_lens).astype(np.int32)).to(device)
     hist = torch.full((count,), pc.HALO_COLS, dtype=torch.int32, device=device)
-    return {"tiles": tiles, "entries": entries, "emit": em.body_args(args), "args": args, "hstart": hstart,
-            "match": (dd, lengths, hist, hs), "route": routed[0]}
+    return {"tiles": tiles, "entries": entries, "args": args, "hstart": hstart,
+            "match": (dd, lengths, hist, hs)}
 
 
 def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
@@ -3026,6 +3056,7 @@ def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
     batch whose head lane starts with F1's zeros; the parse's chain
     reaches each lane's first payload column. Returns the first batch's
     match finder arguments (rows, lengths, hist, hstart)."""
+    import numpy as np
     import torch
 
     from tpu_deflate_torch.codec import continuous as pc
@@ -3052,16 +3083,14 @@ def phase_continuous_kernels(corpus: bytes, device, K: Kernels):
                            lambda: pp.parse_replay_plain(b["tiles"], b["entries"]), [steps, b["entries"]],
                            {what: [L, S], "entries": [L, NT]}, main_path=False)
         finish_kernels(K, what, rows, use, dist, tok, valid, flags=b["args"][1])
-        args = b["emit"]
-        words, body_end = K.compare("emit_body", lambda: em.emit_body(*args), lambda: em.emit_body_plain(*args),
-                                    list(args), {what: [L, S], "words": [L, em.EMIT_WORDS]}, main_path=False)
-        rargs, final = b["route"]
-        route_compare(K, rargs, final, {what: L, "final lanes": int(final.sum())})
-        header_eob_compare(K, words, (*b["args"][9:13], body_end), {what: [L, em.EMIT_WORDS]})
+        args = b["args"]
+        _words, total, choice, *_costs = emit_compare(
+            K, args, {what: [L, S], "words": [L, em.EMIT_WORDS], "final lanes": int(args[21].sum())})
         require(bool(tok[:, pc.HALO_COLS].all()), f"{what}: the parse chain misses a payload start")
         log(f"{what}: {L} lanes x {S} columns (hstart of lane 0: {int(b['hstart'][0])}), "
-            f"{int(tok.sum())} chain positions, body bits per lane min {int(body_end.min())} "
-            f"max {int(body_end.max())}")
+            f"{int(tok.sum())} chain positions, total bits per lane min {int(total.min())} "
+            f"max {int(total.max())}, routes {np.bincount(choice.cpu().numpy(), minlength=3).tolist()} (dynamic, "
+            "fixed, stored)")
     return first
 
 
@@ -3091,14 +3120,14 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
         return engine.compress(corpus, engine="cuda", effort=4)
 
     kernels = [(pe, k) for k in MATCH_WRAPPERS] + [
-        (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_body"),
+        (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"), (em, "emit_routed"),
         (cl, "crc32_lanes_raw8")]
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     batches = -(-len(corpus) // (pe.ENC_LANE_BATCH * MEMBER))
     with recorded(*kernels) as (calls, shapes, order), captured((cl, "crc32_lanes_raw8"), per_key=1) as caps, \
-            plans_checked(K, "continuous encode") as checked:
+            emits_checked(K, "continuous encode") as checked:
         _build.reset_launches()
         t0 = time.monotonic()
         gz = encode()
@@ -3114,12 +3143,12 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
         "(torch.cuda.max_memory_allocated)")
     path_bounds("continuous encode", calls)
     bounds = launch_bounds(calls, shapes, order)
-    for k in ("parse_transfers", "parse_replay", "emit_body", "crc32_lanes"):
+    for k in ("parse_transfers", "parse_replay", "crc32_lanes"):
         require(launches[k] > 0, f"kernel {k} was not launched by the continuous encode")
     match_launches(launches, batches, "continuous encode")
-    for k in ("finish_analysis", "route", "header_eob"):
-        batch_launches(launches, k, batches, "continuous encode")
-    require(checked == {"route": batches, "header_eob": batches}, f"continuous encode: {checked} calls checked")
+    batch_launches(launches, "finish_analysis", batches, "continuous encode")
+    emit_launches(launches, batches, "continuous encode")
+    require(checked == {"emit_routed": batches, "emit_device": 0}, f"continuous encode: {checked} calls checked")
     require(gzip.decompress(gz) == corpus, "gzip.decompress of the continuous encode differs")
     members = decode_np.split_members(np.frombuffer(gz, np.uint8))
     require(members is not None and len(members) == 1, "the continuous encode is not one member")
@@ -3269,9 +3298,9 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
                (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"),
-               (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
+               (em, "emit_routed")] + [(pe, k) for k in MATCH_WRAPPERS]
     big_gz, big_chunks, _payloads = big_members(corpus)
-    with captured(*kernels) as caps, folds_checked(K, "mesh") as folds, plans_checked(K, "mesh") as checked:
+    with captured(*kernels) as caps, folds_checked(K, "mesh") as folds, emits_checked(K, "mesh") as checked:
         _build.reset_launches()
         out = timed(f"decode of the corpus over {MESH_SHARDS} shards (argument copies for the replay included)",
                     lambda: engine.decompress(gz, engine="cuda", mesh=mesh))
@@ -3297,9 +3326,8 @@ def phase_mesh(corpus: bytes, gz: bytes, n_huff: int, resolve_first, encode_firs
     for k in MESH_PATH_KERNELS:
         require(launches[COUNTERS.get(k, k)] > 0, f"kernel {k} was not launched on the mesh path")
     require(len(folds) == launches["stage_dc"], "the mesh path: a K3 fold not checked")
-    require(checked == {"route": launches["route"], "header_eob": launches["header_eob"]},
-            f"the mesh path: {checked} route/header_eob calls checked for {launches['route']} and "
-            f"{launches['header_eob']} launches")
+    require(checked == {"emit_routed": launches["emit_body"], "emit_device": 0},
+            f"the mesh path: {checked} emit calls checked for {launches['emit_body']} launches")
 
     walls = []
     for _ in range(MESH_DECODE_REPS):
@@ -3579,9 +3607,9 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
     kernels = [(dk, "stage_a_tables"), (dk, "stage_a"), (dk, "stage_b"), (dk, "stage_c"), (dk, "stage_dc"),
                (dk, "compact_flat"), (rs, "split_tiles_device"), (rs, "expand"), (rs, "sweep"),
                (cl, "crc32_lanes_raw8"), (pp, "parse_transfers"), (pp, "parse_replay"), (pe, "_finish_analysis"),
-               (em, "emit_body")] + [(pe, k) for k in MATCH_WRAPPERS]
+               (em, "emit_routed")] + [(pe, k) for k in MATCH_WRAPPERS]
     with recorded(*kernels) as (calls, _shapes, _order), captured(*kernels) as caps, \
-            folds_checked(K, "kernel rows") as folds, plans_checked(K, "kernel rows") as checked:
+            folds_checked(K, "kernel rows") as folds, emits_checked(K, "kernel rows") as checked:
         _build.reset_launches()
         results = {name: run(reps=1) for name, run in rows}
         launches = _build.all_launches()
@@ -3593,8 +3621,8 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
         else:
             require(launches[COUNTERS.get(k, k)] > 0, f"kernel {k} was not launched in the kernel rows")
     require(len(folds) == launches["stage_dc"], "the kernel rows: a K3 fold not checked")
-    require(checked == {"route": launches["route"], "header_eob": launches["header_eob"]},
-            f"the kernel rows: {checked} route/header_eob calls checked")
+    require(checked == {"emit_routed": launches["emit_body"], "emit_device": 0},
+            f"the kernel rows: {checked} emit calls checked for {launches['emit_body']} launches")
     path_bounds("kernel rows", calls)
     del calls
     replay_calls(caps, K, "kernel rows")
@@ -3723,11 +3751,11 @@ def main(argv: list[str]) -> int:
             "launches": path_launches[path][COUNTERS.get(name, name)],
             "launches_by_path": {p: n[COUNTERS.get(name, name)] for p, n in path_launches.items()
                                  if COUNTERS.get(name, name) in n},
-            "max_abs_err": K.rec[name]["max_abs_err"],
-            "ms": K.rec[name]["ms"],
-            "plain_ms": K.rec[name]["plain_ms"],
-            "bound_ms": K.rec[name]["bound_ms"],
-            "bound_by": K.rec[name]["bound_by"],
+            "max_abs_err": K.rec[FOLDED.get(name, name)]["max_abs_err"],
+            "ms": K.rec[FOLDED.get(name, name)]["ms"],
+            "plain_ms": K.rec[FOLDED.get(name, name)]["plain_ms"],
+            "bound_ms": K.rec[FOLDED.get(name, name)]["bound_ms"],
+            "bound_by": K.rec[FOLDED.get(name, name)]["bound_by"],
             "library_ms": None,
         }
         for name, (src, tpu, path) in KERNELS.items()

@@ -1,8 +1,10 @@
-"""The encoder's block routing and header/EOB, the "off" route's packed
-token pull and Adler-32 on the card, for one tree or two in turns.
+"""The encoder's emit with its block routing and header/EOB, the "off"
+route's packed token pull and Adler-32 on the card, for one tree or two in
+turns.
 
     python scripts/plan_pack_ab.py --tree DIR            # one tree: one JSON line
     python scripts/plan_pack_ab.py --ab PARENT CHANGE    # PARENT, CHANGE, CHANGE, PARENT
+    python scripts/plan_pack_ab.py --emit PARENT [--variants]  # the emit, both trees in one process
 
 A tree is a checkout of this repository (``git archive`` of a commit
 unpacked into a directory that ``.gitignore`` lists, or the repository
@@ -20,6 +22,15 @@ For a tree:
   profiled call (every device event summed) and by name; the wall time
   (median of 3, host clock around a call that ends in a synchronize); the
   output's CRC;
+- the emit step of each of those encodes, every batch's arguments
+  captured and replayed: everything the tree runs from the planner's
+  upload to the words and total bits (where the tree has
+  ``emit.emit_routed``, its one launch; else ``encode.route``, then
+  ``emit.emit_device``: the header's length by two eager ops, K10 and the
+  header/EOB kernel), its device events a batch, their device time a
+  batch (one profiled pass over the batches, summed) by name, the emit
+  kernel's device time a launch, CUDA-event time of the first batch's step
+  queued behind a spin kernel, and the words' and total bits' CRC;
 - the ``"off"`` route, ``engine.decompress`` of the 8 MiB corpus's members
   with ``device_resolve="off"``: the same counts a wave; each wave's pull
   (the tree's ``decode_v2.pack_tokens``, its inputs captured and replayed):
@@ -28,6 +39,20 @@ For a tree:
 - ``adler32_device`` of 256 MiB on the card (a uint8 buffer uploaded by
   the call): CUDA-event time queued behind a spin kernel, the device
   memory peak above the buffer, the checksum against zlib.
+
+``--emit PARENT`` compares the emit of PARENT (a tree whose encode ran
+``encode.route``, then ``emit_body`` and ``header_eob``: ``csrc/route.cu``
+and ``csrc/emit.cu``) with this tree's one launch (``emit.emit_routed``) in
+one process: both trees' sources built side by side by nvcc, each of the
+first effort-2 and effort-4 batches (this tree's ``emit_routed``
+arguments) emitted in the order parent, change, change, parent, 20 times
+each under torch.profiler: the device µs a call (every device event,
+the parent's two eager ops and the zero fills included) and each
+kernel's µs a launch, and the outputs (words, total bits, route) held
+equal. ``--variants`` adds variants of this tree's ``csrc/emit.cu`` (the
+order of its field loads and its routing, and its register cap), built
+the same way, routed and with routing off, with ptxas' registers and
+spills.
 
 Every figure stands beside the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``)."""
@@ -60,6 +85,84 @@ def counts(cs, fn, per: int) -> dict:
             "aten_device_ops": device_ops, "aten_device_ops_a_unit": round(device_ops / per, 2),
             "device_events": len(events), "device_events_a_unit": round(len(events) / per, 2),
             "launches": launches}
+
+
+def emit_steps(encode) -> tuple[list, object]:
+    """One call of encode with each batch's emit step captured -> (a
+    callable a batch that replays the step, a function that runs them all
+    and returns the CRC of their words and total bits)."""
+    from tpu_deflate_torch.codec import continuous as pc
+    from tpu_deflate_torch.codec import emit as em
+    from tpu_deflate_torch.codec import encode as pe
+
+    steps = []
+    if hasattr(em, "emit_routed"):
+        routed = em.emit_routed
+
+        def spy(*args):
+            steps.append(lambda args=args: routed(*args))
+            return routed(*args)
+
+        em.emit_routed = spy
+        try:
+            encode()
+        finally:
+            em.emit_routed = routed
+    else:
+        # The parent's chain: the routing kernel (which rewrites the plan's
+        # tensors in place: the same values again on a replay), then the
+        # emit (the two eager ops of the header's length, K10, the header/EOB
+        # kernel).
+        route, device, pending = pe.route, em.emit_device, []
+
+        def route_spy(*args, final=None):
+            pending.append((args, final))
+            return route(*args, final=final)
+
+        def device_spy(*args):
+            (rargs, final), = pending
+            pending.clear()
+            steps.append(lambda rargs=rargs, final=final, args=args: (route(*rargs, final=final), device(*args))[1])
+            return device(*args)
+
+        pe.route, pe.emit_device, pc.emit_device = route_spy, device_spy, device_spy
+        try:
+            encode()
+        finally:
+            pe.route, pe.emit_device, pc.emit_device = route, device, device
+
+    def crc() -> int:
+        c = 0
+        for step in steps:
+            words, total = step()[:2]
+            c = zlib.crc32(total.cpu().numpy().tobytes(), zlib.crc32(words.cpu().numpy().tobytes(), c))
+        return c
+
+    return steps, crc
+
+
+def profiled_names(calls: list) -> dict:
+    """One pass of calls under torch.profiler, after a warm-up pass: the
+    device events' count and time (us) summed and by full name (cut at 96
+    characters)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    by_name: dict = {}
+    for e in events:
+        key = e.name[:96]
+        n, us = by_name.get(key, (0, 0.0))
+        by_name[key] = (n + 1, us + e.time_range.elapsed_us())
+    return {"us": sum(us for _n, us in by_name.values()), "events": len(events), "by_name": by_name}
 
 
 def one_tree(tree: str) -> dict:
@@ -98,6 +201,18 @@ def one_tree(tree: str) -> dict:
             **counts(cs, encode, batches), "device_us": prof["us"],
             "device_us_a_batch": round(prof["us"] / batches, 3), "by_name": prof["by_name"],
             "wall_s_median": round(statistics.median(walls), 4), "crc": zlib.crc32(gz)}
+        steps, crc = emit_steps(encode)
+        assert len(steps) == batches, (len(steps), batches)
+        prof = profiled_names(steps)
+        emit_us = [us / n for name, (n, us) in prof["by_name"].items() if "emit_kernel" in name]
+        out[f"emit effort {effort}"] = {
+            "batches": len(steps), "device_us_a_batch": round(prof["us"] / batches, 3),
+            "events_a_batch": round(prof["events"] / batches, 2),
+            "by_name_a_batch": {k: [round(n / batches, 2), round(us / batches, 3)]
+                                for k, (n, us) in sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])},
+            "emit_kernel_us_a_launch": [round(u, 3) for u in emit_us],
+            "queued_us_first": round(queued_us(steps[0]), 3), "crc": crc()}
+        del steps
 
     small = bench.make_corpus(8)
     gz_small = native.compress_members_native(small)
@@ -143,15 +258,16 @@ def one_tree(tree: str) -> dict:
 
 
 FIGURES = [(f"encode effort {e}", k) for e in (2, 4) for k in (
-    "port_launches_a_unit", "aten_device_ops_a_unit", "device_events_a_unit", "device_us_a_batch",
-    "wall_s_median", "by_name")] + [
+    "port_launches_a_unit", "launches", "aten_device_ops_a_unit", "device_events_a_unit", "device_us_a_batch",
+    "wall_s_median", "by_name")] + [(f"emit effort {e}", k) for e in (2, 4) for k in (
+    "device_us_a_batch", "events_a_batch", "emit_kernel_us_a_launch", "queued_us_first", "by_name_a_batch")] + [
     ("off route", "units"), ("off route", "port_launches_a_unit"), ("off route", "aten_device_ops_a_unit"),
     ("off route", "device_events_a_unit"),
     ("off route pull", "tokens"), ("off route pull", "device_us"), ("off route pull", "device_us_a_wave"),
     ("off route pull", "events_a_wave"), ("off route pull", "queued_us"), ("off route pull", "by_name"),
     ("adler32_device", "queued_us"), ("adler32_device", "peak_above_buffer"), ("adler32_device", "equal_zlib"),
 ]
-SAME = ("encode effort 2", "encode effort 4", "off route pull", "adler32_device")
+SAME = ("encode effort 2", "encode effort 4", "emit effort 2", "emit effort 4", "off route pull", "adler32_device")
 
 
 def ab(parent: str, change: str) -> int:
@@ -173,12 +289,174 @@ def ab(parent: str, change: str) -> int:
     return 0 if all(same.values()) and all(r["adler32_device"]["equal_zlib"] for r in runs) else 1
 
 
+# name -> (edit of csrc/emit.cu's text: (old, new) pairs, what it changes)
+EMIT_VARIANTS = {
+    "fields_first": ([("  load_group(1);\n  if (fixed)", "  if (fixed)"),
+                      ("  load_group(0);    // in flight across the barrier and the fold\n",
+                       "  load_group(0);\n  load_group(1);\n")],
+                     "both halves of the field loads before the barrier, beside the routing's sums"),
+    "fields_after": ([("  load_group(0);    // in flight across the barrier and the fold\n", ""),
+                      ("  load_group(1);\n  if (fixed)", "  load_group(0);\n  load_group(1);\n  if (fixed)")],
+                     "both halves after the barrier"),
+    "no_routing": ([("const bool routing = rt.ll_hist != nullptr;", "const bool routing = false;")],
+                   "the routing compiled out (routed calls then emit without it)"),
+    "no_register_cap": ([("__launch_bounds__(E_THREADS, 2)", "__launch_bounds__(E_THREADS, 1)")],
+                        "no cap of 64 registers (one block an SM where more are used)"),
+}
+
+
+def build_libs(sources: dict, out_dir: str, csrc: str) -> dict:
+    """{name: [.cu paths]} -> {name: (ctypes library, ptxas' lines of its
+    kernels)}: one nvcc a library, all at once."""
+    import ctypes
+
+    from tpu_deflate_torch import _build
+
+    nvcc = _build.nvcc_path()
+    procs = {}
+    for name, cus in sources.items():
+        so = os.path.join(out_dir, f"emit_{name}.so")
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-I", csrc, "-o", so, *cus]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lines = log.splitlines()
+        ptxas = [" ".join(x.split()) for i, line in enumerate(lines) if "_kernel" in line and "Compiling" in line
+                 for x in lines[i + 1:i + 3] if "Used" in x or "spill" in x]
+        libs[name] = (ctypes.CDLL(so), ptxas)
+    return libs
+
+
+def emit_one_process(parent: str, variants: bool) -> int:
+    """The ``--emit`` comparison (module docstring)."""
+    import ctypes
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import bench
+    import chip_smoke as cs
+    from tpu_deflate_torch.codec import emit as em
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    csrc = os.path.join(here, "tpu_deflate_torch", "csrc")
+    out_dir = os.path.join(here, "chiprun_out", "emit_builds")
+    os.makedirs(out_dir, exist_ok=True)
+    own = open(os.path.join(csrc, "emit.cu")).read()
+    sources = {"parent": [os.path.join(parent, "tpu_deflate_torch", "csrc", f) for f in ("emit.cu", "route.cu")],
+               "change": [os.path.join(csrc, "emit.cu")]}
+    for name, (edits, _what) in (EMIT_VARIANTS.items() if variants else ()):
+        text = own
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: csrc/emit.cu does not hold {old!r} once")
+            text = text.replace(old, new)
+        path = os.path.join(out_dir, f"emit_{name}.cu")
+        open(path, "w").write(text)
+        sources[name] = [path]
+    libs = build_libs(sources, out_dir, csrc)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib_p = libs["parent"][0]
+    lib_p.td_route.argtypes = [P] * 19 + [I, I, P]
+    lib_p.td_emit_body.argtypes = [P] * 13 + [I, I, P]
+    lib_p.td_header_eob.argtypes = [P] * 7 + [I, I, P]
+    for name in sources:
+        if name != "parent":
+            libs[name][0].td_emit.argtypes = [P] * 26 + [I, I, I, P]
+    card = cs.gpu_name_power()
+    print(f"card: {card}; torch {torch.__version__}")
+    for name, (_lib, ptxas) in libs.items():
+        print(f"{name}: {EMIT_VARIANTS[name][1] if name in EMIT_VARIANTS else ''} ptxas {ptxas}")
+    dev = torch.device("cuda")
+    corpus = bench.make_corpus(48)
+    batches = {"effort 2": cs.encode_batch(corpus[: 64 * cs.MEMBER], dev)["args"],
+               "effort 4": cs.continuous_batch(corpus, dev)["args"]}
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    for what, args in batches.items():
+        L, S = args[0].shape
+        nseg = -(-S // em.EMIT_SEGMENT)
+        H = args[15].shape[1]
+        plan = [t.clone() if t is not None else None for t in args[7:]]  # the parent's route rewrites these
+
+        def parent_step(args=args, plan=plan, L=L, S=S, nseg=nseg, H=H):
+            costs = torch.empty((4, L), dtype=torch.int32, device=dev)
+            tensors = plan[:14]
+            lib_p.td_route(*(t.data_ptr() for t in tensors), 0 if plan[14] is None else plan[14].data_ptr(),
+                           *(c.data_ptr() for c in costs), L, H, stream)
+            hdr = plan[9].sum(dim=1).to(torch.int32)  # the parent's body_args: its two eager ops
+            words = torch.zeros((L, em.EMIT_WORDS), dtype=torch.int32, device=dev)
+            body_end = torch.empty(L, dtype=torch.int32, device=dev)
+            scratch = torch.zeros(L * nseg + 1, dtype=torch.int64, device=dev)
+            lib_p.td_emit_body(*(t.data_ptr() for t in (*args[:7], plan[6], plan[7], hdr, words, body_end, scratch)),
+                               L, S, stream)
+            total = torch.empty(L, dtype=torch.int32, device=dev)
+            lib_p.td_header_eob(*(t.data_ptr() for t in (plan[8], plan[9], plan[10], plan[11], body_end, words,
+                                                         total)), L, H, stream)
+            return words, total, costs[0]
+
+        def fused_step(name, routed, args=args, L=L, S=S, nseg=nseg, H=H):
+            words = torch.zeros((L, em.EMIT_WORDS), dtype=torch.int32, device=dev)
+            total = torch.empty(L, dtype=torch.int32, device=dev)
+            costs = torch.empty((4, L), dtype=torch.int32, device=dev)
+            scratch = torch.zeros(L * nseg + 1, dtype=torch.int64, device=dev)
+            tables = args[13:19] if routed else routed_tables
+            route = [args[i].data_ptr() for i in (7, 8, 9, 10, 11, 12, 19, 20)] + [
+                0 if args[21] is None else args[21].data_ptr()] if routed else [0] * 9
+            libs[name][0].td_emit(*(t.data_ptr() for t in (*args[:7], *tables)), *route, words.data_ptr(),
+                                  total.data_ptr(), costs.data_ptr() if routed else 0, scratch.data_ptr(), L, S, H,
+                                  stream)
+            return words, total, costs[0]
+
+        routed_tables = em.route_plain(*args[7:])[:6]
+        want = em.emit_routed_plain(*args)
+        calls = {"parent": parent_step, "change": lambda: fused_step("change", True),
+                 "change, routing off": lambda: fused_step("change", False)}
+        for name in sources:
+            if name not in ("parent", "change"):
+                calls[name] = lambda name=name: fused_step(name, True)
+                calls[f"{name}, routing off"] = lambda name=name: fused_step(name, False)
+        for name, fn in calls.items():
+            got = fn()
+            n = 2 if "routing off" in name else 3
+            equal = all(torch.equal(g, w) for g, w in zip(got[:n], want[:n]))
+            print(f"{what} {name}: equal to the plain composition {equal}")
+            ok &= equal or name.startswith("no_routing")
+        order = ["parent", "change", *[k for k in calls if k not in ("parent", "change")], "change", "parent"]
+        for name in order:
+            fn = calls[name]
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            by: dict = {}
+            for e in events:
+                short = "fill" if "FillFunctor" in e.name else e.name.replace("(anonymous namespace)::", "")
+                by.setdefault(short.split("(")[0].split("<")[0][-40:], []).append(e.time_range.elapsed_us())
+            kern = {k: round(statistics.median(v), 2) for k, v in by.items()}
+            print(f"{what} [{L} x {S}] {name}: {round(sum(e.time_range.elapsed_us() for e in events) / 20, 2)} "
+                  f"device us a call, {len(events) / 20:g} events a call; kernels us a launch (median of 20) "
+                  f"{json.dumps(kern)}; queued {queued_us(fn):.2f} us ({card})")
+    return 0 if ok else 1
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     group = ap.add_mutually_exclusive_group(required=True)
     group.add_argument("--tree", metavar="DIR")
     group.add_argument("--ab", nargs=2, metavar=("PARENT", "CHANGE"))
+    group.add_argument("--emit", metavar="PARENT")
+    ap.add_argument("--variants", action="store_true", help="with --emit: this tree's emit.cu variants too")
     args = ap.parse_args(argv)
+    if args.emit:
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        return emit_one_process(args.emit, args.variants)
     if args.tree:
         print(json.dumps(one_tree(args.tree)))
         return 0

@@ -1,11 +1,13 @@
-"""The block header and EOB of the encoder's emit (``emit.header_eob``:
-``header_eob_kernel`` of csrc/emit.cu on the card) on the CPU: the plain
-spec ``header_eob_words_plain`` against the JAX package's jitted
-``emit_pallas._header_eob_words``, then a NumPy mirror of the kernel
+"""The block header and EOB of the encoder's emit (``emit.header_eob``; on
+the card segment 0's and the last segment's blocks of the emit's one
+launch in csrc/emit.cu place them) on the CPU: the plain spec
+``header_eob_words_plain`` against the JAX package's jitted
+``emit_pallas._header_eob_words``, then a NumPy mirror of the placement
 against ``body | header_eob_words_plain``.
 
-The mirror follows the kernel: one block of 128 threads a lane, thread t
-taking H / 128 (rounded up) consecutive header slots; each slot's bit
+The mirror follows the kernel: in segment 0's block of a lane, the 480
+threads of warps 1-15 (warp 0 runs the look-back meanwhile), thread t
+taking H / 480 (rounded up) consecutive header slots; each slot's bit
 offset from an exclusive scan of the threads' bit counts (a warp shuffle
 scan, then the warp totals before it); every slot of more than 0 bits ORed
 at its offset into the body's words as a low part and, where it crosses a
@@ -29,7 +31,7 @@ from tpu_deflate.codec import emit_pallas as ep
 
 from tpu_deflate_torch.codec import emit as em
 
-THREADS = 128
+THREADS = 480  # the threads of warps 1-15 of a 512-thread block in csrc/emit.cu
 M32 = 0xFFFFFFFF
 
 
@@ -104,9 +106,9 @@ def test_mirror_matches_plain(H):
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     he = tuple(torch.from_numpy(a) for a in _inputs(6, seed=3))
-    before = em.ENCODE_LAUNCHES["header_eob"]
+    before = dict(em.ENCODE_LAUNCHES)
     words, total = em.header_eob(*he)
-    assert em.ENCODE_LAUNCHES["header_eob"] == before
+    assert em.ENCODE_LAUNCHES == before
     want = em.header_eob_plain(*he)
     assert torch.equal(words, want[0]) and torch.equal(total, want[1])
     with pytest.raises(ValueError):

@@ -1,5 +1,5 @@
-"""The encoder's block routing (``encode.route``: ``csrc/route.cu`` on the
-card) on the CPU: the plain versions ``route_strategies_plain`` and
+"""The encoder's block routing (``encode.route``, run on the card as the
+prologue of the emit's one launch, ``emit.emit_routed``) on the CPU: the plain versions ``route_strategies_plain`` and
 ``_apply_route_plain`` against the JAX package's jitted
 ``encode_jax.route_strategies`` and ``_apply_route``, on the smoke's own
 edge lanes (``chip_smoke.route_edge_inputs``: dynamic == fixed, stored ==
@@ -76,9 +76,9 @@ def test_ties_and_lengths_route_as_the_reference_orders_them():
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     arrays, final = chip_smoke.route_edge_inputs(8, seed=4, final_kind="mixed")
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-    before = pe.ENCODE_LAUNCHES["route"]
+    before = dict(pe.ENCODE_LAUNCHES)
     got = pe.route(*args, final=torch.from_numpy(final))
-    assert pe.ENCODE_LAUNCHES["route"] == before
+    assert pe.ENCODE_LAUNCHES == before
     for g, w in zip(got, _plain(arrays, final)):
         np.testing.assert_array_equal(g.numpy(), w)
     with pytest.raises(ValueError):
@@ -86,8 +86,8 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 
 
 def test_plan_codes_match_reference():
-    """The planner (host lengths, codes and headers, one upload, then the
-    routing) on real histograms, with final mixed, against encode_jax's
+    """The planner (host lengths, codes and headers, one upload) and the
+    routing (its plain version, the emit's prologue on the card) on real histograms, with final mixed, against encode_jax's
     _plan_codes on the same analysis."""
     rng = np.random.default_rng(9)
     L, S = 3, 65536
@@ -101,7 +101,7 @@ def test_plan_codes_match_reference():
     a = ej.analyze_device(jnp.asarray(padded), jnp.asarray(lengths), True, 0)
     want = ej._plan_codes(a, lengths.astype(np.int64), 2, final)
     hist = {k: torch.from_numpy(np.asarray(a[k]).astype(np.int32)) for k in ("litlen_hist", "dist_hist")}
-    got = pe._plan_codes(hist, lengths, final)
+    got = pe.route_plain(*pe._plan_codes(hist, lengths, final))
     for i, (g, w) in enumerate(zip(got, want)):
         w = np.asarray(w)
         np.testing.assert_array_equal(g.numpy(), w.astype(np.int64) if i in (2, 4) else w)

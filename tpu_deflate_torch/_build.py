@@ -60,7 +60,7 @@ SIGNATURES = {
     "td_crc32_lanes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "td_parse_transfers": [_P, _P, _I, _I, _P],
     "td_parse_replay": [_P, _P, _P, _I, _I, _P],
-    "td_emit_body": [_P] * 13 + [_I, _I, _P],
+    "td_emit": [_P] * 26 + [_I, _I, _I, _P],
     "td_match_keys": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "td_match_chain": [_P, _P, _I, _I, _I, _P],
     "td_match_bucket": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -72,8 +72,6 @@ SIGNATURES = {
     "td_compact_pack": [_P] * 7 + [_L, _I, _I, _P],
     "td_adler_blocks": [_L],
     "td_adler_sums": [_P, _L, _P, _P, _P, _P],
-    "td_route": [_P] * 19 + [_I, _I, _P],
-    "td_header_eob": [_P] * 7 + [_I, _I, _P],
 }
 
 # Kernel launches per wrapper since process start (or the last reset): the
@@ -89,7 +87,7 @@ LAUNCHES = {
     "pack_tokens": 0, "adler_sums": 0,
 }
 ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0, "match_keys": 0, "match_chain": 0,
-                   "match_bucket": 0, "match_select": 0, "finish_analysis": 0, "route": 0, "header_eob": 0}
+                   "match_bucket": 0, "match_select": 0, "finish_analysis": 0}
 
 _lib = None
 _lock = threading.Lock()

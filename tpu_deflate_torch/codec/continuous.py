@@ -48,8 +48,8 @@ import torch
 from ..dist.mesh import LaneSharding, lane_sharding, pad_lanes
 from ..kernels.checksum_lanes import crc32_device
 from ..native import _EMPTY_MEMBER
-from .emit import EMIT_CHUNK, EMIT_WORDS, emit_device
-from .encode import ENC_LANE_BATCH, ROUTE_STORED, dispatch_phase1, emit_inputs, run_pipeline
+from .emit import EMIT_CHUNK, EMIT_WORDS
+from .encode import ENC_LANE_BATCH, ROUTE_STORED, dispatch_phase1, emit_batch, run_pipeline
 from .encode_np import MAX_STORED_BLOCK, MEMBER_DATA, build_member
 from .parse import T_P
 
@@ -140,7 +140,7 @@ def lane_rows(flat: np.ndarray, first: int, count: int, block_data: int, lanes: 
 def dispatch_lanes(rows: torch.Tensor, hstart: torch.Tensor, pay_lens: np.ndarray, lazy: bool,
                    quality: int):
     """Stage 1 of a batch of lane rows on their device: phase 1 with the
-    history masks -> the pending batch :func:`encode.emit_inputs` takes."""
+    history masks -> the pending batch :func:`encode.emit_batch` takes."""
     L = rows.shape[0]
     dev = rows.device
     lengths = torch.from_numpy((HALO_COLS + pay_lens).astype(np.int32)).to(dev)
@@ -150,10 +150,10 @@ def dispatch_lanes(rows: torch.Tensor, hstart: torch.Tensor, pay_lens: np.ndarra
 
 def _emit_lanes(pend, final: np.ndarray):
     """Stage 2: the host walk, phase 2, planning with ``final`` and the
-    emit (K10) -> (words (L, EMIT_WORDS) int32, total_bits (L,) int32,
-    route choice (L,)), on the rows' device."""
-    args, _tiles, _entries, choice = emit_inputs(pend, final)
-    return (*emit_device(*args), choice)
+    emit with its routing (``encode.emit_batch``: one launch) -> (words (L,
+    EMIT_WORDS) int32, total_bits (L,) int32, route choice (L,)), on the
+    rows' device."""
+    return emit_batch(pend, final)[:3]
 
 
 def continuous_encode_lanes(rows: torch.Tensor, hstart: torch.Tensor, pay_lens: np.ndarray,

@@ -24,14 +24,14 @@ All of it is PyTorch on the given device, apart from the kernels:
   on CUDA tensors, its plain version on CPU tensors);
 - **planning** (``_plan_codes``): the histograms go to the host for the
   batched Huffman lengths, canonical codes and dynamic headers, which go
-  back in one upload; the stored / fixed / dynamic bit costs are compared
-  on the device and fixed-routed lanes take the fixed tables (``route``:
-  one kernel of ``csrc/route.cu`` on CUDA tensors, the plain
-  ``route_strategies_plain`` and ``_apply_route_plain`` on CPU tensors);
-- **emit** (``emit.emit_device``, K10) and **assembly**: the member
-  CRC-32s on the device (``checksum_lanes.crc32_members``, the lane CRC
-  kernel), the words pulled up to each batch's longest lane, stored
-  framing for stored-routed lanes.
+  back in one upload;
+- **emit** (``emit.emit_routed``: one kernel of ``csrc/emit.cu`` on CUDA
+  tensors) and **assembly**: the launch compares each lane's stored /
+  fixed / dynamic bit costs, takes the fixed tables for fixed-routed lanes
+  and packs header, body (K10) and EOB; then the member CRC-32s on the
+  device (``checksum_lanes.crc32_members``, the lane CRC kernel), the
+  words pulled up to each batch's longest lane, stored framing for
+  stored-routed lanes.
 
 ``compress_members`` runs the three stages as the reference's loop over
 batches of ``ENC_LANE_BATCH`` lanes (``run_pipeline``): batch k+1's phase 1
@@ -62,7 +62,14 @@ from ..kernels.huffman import huffman_lengths_batch
 from ..native import _EMPTY_MEMBER
 from . import parse as pp
 from .decode_kernels import wrap_int32
-from .emit import emit_device
+from . import emit as em
+from .emit import (  # noqa: F401  (the routing's spec, re-exported with the planner's names)
+    ROUTE_DYNAMIC,
+    ROUTE_FIXED,
+    ROUTE_STORED,
+    route,
+    route_plain,
+)
 from .encode_np import (
     MAX_CODE_BITS,
     MEMBER_DATA,
@@ -78,7 +85,6 @@ ENC_LANE_BATCH = 64  # members per device batch
 _M32 = 0xFFFFFFFF
 _HASH_MUL = 2654435761
 _H6_MUL = 0x9E3779B1
-ROUTE_DYNAMIC, ROUTE_FIXED, ROUTE_STORED = 0, 1, 2
 
 # Effort ladder of the matcher: quality selects the candidate count K and
 # the exact-compare word caps W per hash family.
@@ -571,106 +577,8 @@ def analyze(data: torch.Tensor, lengths: torch.Tensor, lazy: bool = True, qualit
 
 
 # ---------------------------------------------------------------------------
-# Routing and planning
+# Planning
 # ---------------------------------------------------------------------------
-
-
-def route_strategies_plain(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths):
-    """Per-lane argmin over stored / fixed / dynamic bit costs, from the
-    token histograms (no EOB, no bumps), the planned dynamic code lengths
-    and header bits, and the member lengths; int32 throughout. Returns
-    (choice, dyn_bits, fixed_bits, stored_bits), each (L,)."""
-    devc = ll_hist.device
-    sym = torch.arange(288, dtype=_I32, device=devc)[None, :]
-    len_extra = torch.where((sym >= 265) & (sym <= 284), (sym - 261) >> 2, 0)
-    dsym = torch.arange(30, dtype=_I32, device=devc)[None, :]
-    dist_extra = ((dsym >> 1) - 1).clamp(min=0)
-
-    def dot(a, b):
-        return (a * b).sum(dim=1, dtype=_I32)
-
-    extras = dot(ll_hist, len_extra) + dot(d_hist, dist_extra)
-    fix_ll = torch.where(sym < 144, 8, torch.where(sym < 256, 9, torch.where(sym < 280, 7, 8)))
-    dyn = hdr_bits + dot(ll_hist, ll_len) + dot(d_hist, d_len) + extras + ll_len[:, 256]
-    fixed = 3 + dot(ll_hist, fix_ll) + dot(d_hist, torch.full_like(d_hist, 5)) + extras + 7
-    stored = 8 * (lengths + 5 * ((lengths + 65534) // 65535) + 1)
-    choice = torch.where(
-        stored < torch.minimum(dyn, fixed),
-        ROUTE_STORED,
-        torch.where(fixed < dyn, ROUTE_FIXED, ROUTE_DYNAMIC),
-    ).to(_I32)
-    return choice, dyn, fixed, stored
-
-
-def _apply_route_plain(choice, ll_codes, d_codes, header_vals, header_bits, eob_val, eob_bits, fix_ll,
-                       fix_d, final=None):
-    """Swap the fixed-Huffman codes, header (bfinal, btype 01) and EOB into
-    lanes routed FIXED. ``final`` (L,) 0/1 is each lane's bfinal (None:
-    every lane is final)."""
-    f = (choice == ROUTE_FIXED)[:, None]
-    fin = 1 if final is None else final.to(header_vals.dtype)
-    ll = torch.where(f, fix_ll, ll_codes)
-    dd = torch.where(f, fix_d, d_codes)
-    hv = torch.where(f, 0, header_vals)
-    hv[:, 0] = torch.where(f[:, 0], fin | 2, header_vals[:, 0])
-    hb = torch.where(f, 0, header_bits)
-    hb[:, 0] = torch.where(f[:, 0], 3, header_bits[:, 0])
-    ev = torch.where(f[:, 0], 0, eob_val)
-    eb = torch.where(f[:, 0], 7, eob_bits)
-    return ll, dd, hv, hb, ev, eb
-
-
-def route_plain(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths, ll_codes, d_codes, header_vals,
-                header_bits, eob_val, eob_bits, fix_ll, fix_d, final=None):
-    """Plain routing: :func:`route_strategies_plain`, then
-    :func:`_apply_route_plain` -> (ll_codes, d_codes, header_vals,
-    header_bits, eob_val, eob_bits, choice, dyn_bits, fixed_bits,
-    stored_bits)."""
-    costs = route_strategies_plain(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths)
-    routed = _apply_route_plain(costs[0], ll_codes, d_codes, header_vals, header_bits, eob_val, eob_bits, fix_ll,
-                                fix_d, final)
-    return (*routed, *costs)
-
-
-def route(ll_hist, d_hist, ll_len, d_len, hdr_bits, lengths, ll_codes, d_codes, header_vals, header_bits,
-          eob_val, eob_bits, fix_ll, fix_d, final=None):
-    """Each lane's cheapest block strategy and, for lanes routed FIXED, the
-    fixed tables swapped in: the histograms (L, 288), (L, 30), the planned
-    code lengths (L, 288), (L, 30), header bits and member lengths (L,),
-    all int32; the codes (L, 288), (L, 30) int32, the header (L, H) int64
-    values and int32 bits, the EOB (L,) int64 value and int32 bits; the
-    fixed tables (1, 288), (1, 30) int32; ``final`` (L,) int64 0/1 or None
-    (every lane final). Returns what :func:`route_plain` returns. On the
-    card one launch of ``td_route``, which writes the swap into the codes,
-    header and EOB tensors in place (the planner uploaded them for this
-    batch and owns them); on the CPU :func:`route_plain`."""
-    L = ll_hist.shape[0]
-    i32, i64 = torch.int32, torch.int64
-    named = (("ll_hist", ll_hist, i32, (L, 288)), ("d_hist", d_hist, i32, (L, 30)),
-             ("ll_len", ll_len, i32, (L, 288)), ("d_len", d_len, i32, (L, 30)), ("hdr_bits", hdr_bits, i32, (L,)),
-             ("lengths", lengths, i32, (L,)), ("ll_codes", ll_codes, i32, (L, 288)),
-             ("d_codes", d_codes, i32, (L, 30)), ("header_vals", header_vals, i64, None),
-             ("header_bits", header_bits, i32, tuple(header_vals.shape)), ("eob_val", eob_val, i64, (L,)),
-             ("eob_bits", eob_bits, i32, (L,)), ("fix_ll", fix_ll, i32, (1, 288)), ("fix_d", fix_d, i32, (1, 30)))
-    for name, t, dtype, shape in named:
-        _build.check_tensor(name, t, dtype, len(shape) if shape else 2)
-        _build.require(shape is None or tuple(t.shape) == shape, f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    _build.require(header_vals.shape[0] == L, f"header_vals: shape {tuple(header_vals.shape)}")
-    tensors = [t for _name, t, _d, _s in named]
-    if final is not None:
-        _build.check_tensor("final", final, i64, 1)
-        _build.require(tuple(final.shape) == (L,), f"final: shape {tuple(final.shape)}")
-    if not _build.on_card(*tensors, *(() if final is None else (final,))):
-        return route_plain(*tensors, final)
-    devc = ll_hist.device
-    costs = torch.empty((4, L), dtype=i32, device=devc)
-    lib = _build.load()
-    with torch.cuda.device(devc):
-        err = lib.td_route(*(t.data_ptr() for t in tensors), 0 if final is None else final.data_ptr(),
-                           *(c.data_ptr() for c in costs), L, header_vals.shape[1], _build.stream(devc))
-    _build.check(err, "td_route")
-    ENCODE_LAUNCHES["route"] += 1
-    return (*tensors[6:12], *costs)
 
 
 @functools.lru_cache(maxsize=1)
@@ -680,12 +588,14 @@ def _fixed_code_tables() -> tuple[np.ndarray, np.ndarray]:
     return fl, fd
 
 
-def _plan_codes(a: dict, lengths: np.ndarray, final: np.ndarray | None = None):
-    """Pull the histograms, plan lengths, codes and headers on the host,
-    route each lane on the device. ``lengths`` are the bytes each lane
-    codes (its stored cost), ``final`` (L,) 0/1 each lane's bfinal (None:
-    all final). Returns the emit's code and header tensors (on the
-    histograms' device) and the route choice."""
+def _plan_codes(a: dict, lengths: np.ndarray, final: np.ndarray | None = None) -> tuple:
+    """Pull the histograms, plan lengths, codes and headers on the host and
+    upload them at once. ``lengths`` are the bytes each lane codes (its
+    stored cost), ``final`` (L,) 0/1 each lane's bfinal (None: all final).
+    Returns the routing, code, header and EOB arguments of
+    ``emit.emit_routed`` (on the histograms' device): the histograms, the
+    planned lengths, the header's bits and the member lengths, the codes,
+    header and EOB, the fixed tables and ``final`` (None or (L,) int64)."""
     litlen_hist, dist_hist = fix_histograms(a["litlen_hist"].cpu().numpy(),
                                             a["dist_hist"].cpu().numpy())
     ll_lengths = huffman_lengths_batch(litlen_hist, MAX_CODE_BITS)
@@ -698,8 +608,7 @@ def _plan_codes(a: dict, lengths: np.ndarray, final: np.ndarray | None = None):
                    header_vals.astype(np.int64), header_bits, (ll_codes[:, 256] & 0xFFFF).astype(np.int64),
                    ll_codes[:, 256] >> 16, *_fixed_code_tables(),
                    *(() if final is None else (np.asarray(final, np.int64),)))
-    routed = route(a["litlen_hist"], a["dist_hist"], *plan[:12], final=plan[12] if len(plan) > 12 else None)
-    return routed[:7]
+    return (a["litlen_hist"], a["dist_hist"], *plan[:12], plan[12] if len(plan) > 12 else None)
 
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64}
@@ -769,8 +678,8 @@ def _dispatch_analyze(chunk: np.ndarray, lazy: bool, quality: int, device: torch
 
 def emit_inputs(pend, final: np.ndarray | None = None):
     """The host walk, phase 2 and planning of one dispatched batch ->
-    (the arguments of ``emit_device``, the parse's step tiles, the entries,
-    the route choice). ``pend`` is (rows on the device, :func:`dispatch_phase1`'s
+    (the arguments of ``emit.emit_routed``, the parse's step tiles, the
+    entries). ``pend`` is (rows on the device, :func:`dispatch_phase1`'s
     three results, the caller's, the bytes each lane codes); ``final`` as
     :func:`_plan_codes` takes it."""
     dd, p1, host, done, _caller, lengths = pend
@@ -778,16 +687,21 @@ def emit_inputs(pend, final: np.ndarray | None = None):
         done.synchronize()
     entries = torch.from_numpy(pp.host_entries(host.numpy())).to(dd.device)
     a, flags = analyze_phase2(dd, p1["use"], p1["dist"], p1["tiles"], p1["valid"], entries)
-    ll_c, d_c, hv, hb, ev, eb, choice = _plan_codes(a, lengths, final)
     args = (a["litlen_sym"], flags, a["len_eb"], a["len_ev"], a["dist_sym"], a["dist_eb"],
-            a["dist_ev"], ll_c, d_c, hv, hb, ev, eb)
-    return args, p1["tiles"], entries, choice
+            a["dist_ev"], *_plan_codes(a, lengths, final))
+    return args, p1["tiles"], entries
+
+
+def emit_batch(pend, final: np.ndarray | None = None) -> tuple:
+    """:func:`emit_inputs`, then the emit with the routing in the same
+    launch -> (words, total_bits, choice, dyn_bits, fixed_bits,
+    stored_bits)."""
+    return em.emit_routed(*emit_inputs(pend, final)[0])
 
 
 def _plan_and_emit(pend):
-    """Stage 2: :func:`emit_inputs`, then the emit."""
-    args, _tiles, _entries, choice = emit_inputs(pend)
-    words, total_bits = emit_device(*args)
+    """Stage 2: :func:`emit_batch`."""
+    words, total_bits, choice, *_costs = emit_batch(pend)
     dd, _p1, _host, _done, padded, lengths = pend
     return words, total_bits, choice, dd, padded, lengths
 

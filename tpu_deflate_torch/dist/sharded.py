@@ -297,8 +297,9 @@ def sharded_analyze_emit(mesh: CodecMesh, axis="data", *, lazy: bool = True, qua
     header_vals, header_bits, eob_val, eob_bits) -> (words (L, EMIT_WORDS)
     int32, total_bits (L,) int32) on the mesh's first device, L a multiple
     of the shard count: each shard runs the analysis (``encode.analyze``:
-    the match finder, K8, the host walk, K9) and the emit
-    (``emit.emit_device``: K10) on its device. Every shard's phase 1 is
+    the match finder, K8, the host walk, K9) and the emit with the given
+    tables (``emit.emit_device``: header, K10's body and EOB in one launch,
+    no routing) on its device. Every shard's phase 1 is
     launched before the first shard's transfer maps are pulled."""
     from ..codec import encode as pe
     from ..codec import parse as pp
