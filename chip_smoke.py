@@ -43,7 +43,11 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    edge lanes (every entry valid, none, only the last, only the last 300,
    literal ranks 0 and 255 under random planes, match tokens of 256; M of
    128, 1001, 4099, 5120 and 8228 at 7 and 672 lanes, and a row that is not
-   16-byte aligned), K7's pack mode (the host route's packed token pull,
+   16-byte aligned), K4's pull mode with the map (the host route's
+   compaction and packed token pull in one launch, ``compact_pack``) on
+   the same waves and lanes and on seam lanes (segments that start off a
+   bitmap word and runs of empty segments between two shared words; 7 and
+   672 lanes), the pull mode without the map (the pull alone,
    ``pack_tokens``) on the same lanes and on its own (all literals, all
    matches, all below 0, a literal at bit 31 of every bitmap word; M of 31,
    1001, 4099 and 8228 at 11 and 704 lanes, one lane, a row not 16-byte
@@ -78,14 +82,17 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    K6 and lane CRC launch's device time beside its bound); 5
    timed runs;
 5. the host-resolve route (``device_resolve="off"``) on an 8 MiB corpus,
-   byte-exact with the packed token pull (K7's pack mode) launched once a
-   wave and K7 alone never, the pull on every wave, K3's fold on every
-   wave and each pulled vector (K3's, with the pull's nlit in row 6) held
-   against their plain versions, each wave's pull alone with its launches
-   counted (one, no zero fill), one decode's launches, aten ops and device
-   events a wave with the plain pull and with the kernel (with --profile,
-   each K4 and pack launch's device time beside its bound), and 3 timed
-   runs of it on the 48 MiB corpus for comparison;
+   byte-exact with one compaction launch a wave, K4's pull mode
+   (``compact_pack``: the compaction, the literal map, the packed pull and
+   nlit into row 6 of K3's vector), and K4 alone, K7 and the pull alone
+   never outside a k1 = 512 rerun, the fused launch on every wave held
+   against ``compact_pack_plain`` of the same K3 tokens and planes, K3's
+   fold on every wave and each pulled vector (K3's, with nlit in row 6)
+   against ``wave_summary_plain`` with that nlit, each wave's fused launch
+   alone with its launches counted (one, no zero fill), one decode's
+   launches, aten ops and device events a wave with the plain chain and
+   with the kernel (with --profile, each fused launch's device time beside
+   its bound), and 3 timed runs of it on the 48 MiB corpus for comparison;
 6. the ``device_resolve="on"`` route: a gzip -9 stream of 1 MiB in one
    member with the member index (multi-block, > 64 KiB), resolved on the
    device in chained tiles; then the big members (the counterpart of the
@@ -93,7 +100,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    a single-block member of 256 KiB through ``engine.decompress`` with the
    defaults, byte-exact, every member on the device route (tokens kept on
    the card, tile split, chained K5/K6 and lane CRC) with every kernel of
-   the route launched and K7 not, each kernel's bound per launch, and each
+   the route launched and K7 and the pull not, each kernel's bound per launch, and each
    kernel against its plain version on the arguments the route gave it
    (its block waves and K3's folds of them, each group's split, a first and
    a chained step of each tile group, the CRC at each group's rows); its
@@ -103,7 +110,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    device work), its kernel's device time and its memory a token above its
    output, and each chained CRC equal to zlib on the same tokens; under a 512 KiB
    batch bound and passes of 8 tiles every member on the device route, the
-   1 MiB members in 2 passes each and K7 not launched, on the card and over
+   1 MiB members in 2 passes each and K7 and the pull not launched, on the card and over
    a 4-shard mesh of it, byte-exact with the same stats; 3 timed runs
    against 3 of the "off" route (with
    --profile, the route's device time by kernel beside each launch's
@@ -179,7 +186,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 12. the continuous encode's main path: ``engine.compress`` of the 48 MiB
    corpus at effort 4, one member of 768 blocks, byte-exact through
    ``gzip.decompress`` and the port's decode on the card (one member on the
-   device route, K7 not launched, one tile split, K3's summary fold every wave,
+   device route, K7 and the pull not launched, one tile split, K3's summary fold every wave,
    both held against their plain versions), the match finder's kernels (three
    families a batch), the emit (once a batch, against its plain
    composition on every call, non-final lanes among them; one encode's
@@ -198,7 +205,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    Huffman member resolved on the device), the big members of phase 6
    decoded over the mesh (the tile split on each shard), then ``engine.compress(corpus,
    effort=4, mesh=)`` (byte-identical to phase 12's member), every kernel
-   but K7 (and its pack mode) and Adler-32's sums launched (the match
+   but K7, K4's pull mode and the pull alone, and Adler-32's sums launched (the match
    finder's among them; the emit held against its plain composition on
    every call), and each kernel call of
    that run (captured: the first
@@ -215,7 +222,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    effort=4)`` writes one member of 96 MiB, above the device route's batch
    bound of 64 MiB; ``engine.decompress`` with the defaults, byte-exact,
    resolves it on the device route in 2 passes (device_resolved 1,
-   host_resolved 0, K7 not launched, every other kernel of the route
+   host_resolved 0, K7 and the pull not launched, every other kernel of the route
    launched), each wrapper's bytes bound per launch, and every kernel of
    the run (K1 tables, K1-K4 and K3's summary fold on its one-lane block
    waves, the tile split of each pass, K5, K6 and the lane CRC on its tile
@@ -236,7 +243,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
    member against its input), ``encode_kernel_bench`` (one staged batch of
    64 x 64 KiB) and ``link_probe``. The path's run (each row once at
    reps=1): each row on the kernels ("cuda") with 0 mismatches, every
-   kernel but K7 (with its pack mode) and Adler-32's sums launched over the
+   kernel but K7, K4's pull mode, the pull alone and Adler-32's sums launched over the
    rows and those not (the emit held against its plain composition on
    every call), each wrapper's bytes
    bound per launch, and every kernel of the run (K1 tables, K1-K4 and the
@@ -297,6 +304,7 @@ KERNELS = {
     "compact_flat": ("compact.cu", "tpu_deflate/codec/decode_pallas.py:495", "main"),
     "compact_any": ("compact.cu", "tpu_deflate/codec/decode_pallas.py:605", "off"),
     "pack_tokens": ("compact.cu", "tpu_deflate/codec/decode_jax_v2.py:1385", "off"),
+    "compact_pack": ("compact.cu", "tpu_deflate/codec/decode_jax_v2.py:1385", "off"),
     "expand": ("expand.cu", "tpu_deflate/codec/resolve_pallas.py:150", "main"),
     "sweep": ("sweep.cu", "tpu_deflate/codec/resolve_pallas.py:353", "main"),
     "crc32_lanes": ("crc32_lanes.cu", "tpu_deflate/kernels/checksum_jax.py:190", "main"),
@@ -320,17 +328,18 @@ KERNELS = {
 FOLDED = {"route": "emit_body", "header_eob": "emit_body"}
 # kernel -> the counter of its launches where another kernel runs it: the
 # summary fold is K3's epilogue, launched with K3 (the wave_summary counter
-# counts only its launches alone, on given rows); K7 runs on the "off"
-# route as its pack mode (the compact_any counter counts its launches
+# counts only its launches alone, on given rows); K7's compaction and the
+# packed pull run on the "off" route inside K4's pull mode, one launch a
+# wave (the compact_any and pack_tokens counters count their launches
 # alone, which no route makes); and FOLDED
-COUNTERS = {"wave_summary": "stage_dc", "compact_any": "pack_tokens", **FOLDED}
+COUNTERS = {"wave_summary": "stage_dc", "compact_any": "compact_pack", "pack_tokens": "compact_pack", **FOLDED}
 # paths that only the "off" route or the Adler-32 phase drive
 SIDE_PATHS = ("off", "adler")
 PROFILE_KERNELS = (
     "stage_a_tables_kernel", "stage_a_kernel", "stage_b_kernel", "stage_c_kernel", "stage_dc_kernel",
     "compact_kernel", "expand_kernel", "sweep_kernel", "crc32_lanes_kernel",
 )
-OFF_PROFILE_KERNELS = ("pack_kernel",)
+OFF_PROFILE_KERNELS = ("compact_pull_kernel",)
 ENCODE_PROFILE_KERNELS = (
     "match_keys_kernel", "match_chain_kernel", "match_bucket_kernel", "match_select_kernel",
     "parse_transfers_kernel", "parse_replay_kernel", "finish_analysis_kernel", "emit_kernel", "crc32_lanes_kernel",
@@ -475,7 +484,8 @@ def captured(*names, per_key: int = 2):
 PROFILE_NAMES = {
     "stage_c": "stage_c_kernel", "stage_dc": "stage_dc_kernel", "compact_flat": "compact_kernel",
     "compact_any": "compact_kernel", "sweep": "sweep_kernel", "crc32_lanes_raw8": "crc32_lanes_kernel",
-    "_finish_analysis": "finish_analysis_kernel", "pack_tokens": "pack_kernel",
+    "_finish_analysis": "finish_analysis_kernel", "pack_tokens": "compact_pull_kernel",
+    "compact_pack": "compact_pull_kernel",
 }
 
 
@@ -559,7 +569,11 @@ def phase_build() -> None:
     lib = _build.load()
     log(f"build: {_build.library_path()} in {time.monotonic() - t0:.1f} s")
     for entry, variants in (("td_compact_occupancy", ("compact_kernel<4, map>", "compact_kernel<4, no map>",
-                                                      "compact_kernel<16, map>", "compact_kernel<16, no map>")),
+                                                      "compact_kernel<16, map>", "compact_kernel<16, no map>",
+                                                      "compact_pull_kernel<4, map>",
+                                                      "compact_pull_kernel<4, no map>",
+                                                      "compact_pull_kernel<16, map>",
+                                                      "compact_pull_kernel<16, no map>")),
                             ("td_sweep_occupancy", ("sweep_kernel",)),
                             ("td_match_occupancy", ("match_chain_kernel", "match_bucket_kernel"))):
         fn = getattr(lib, entry, None)
@@ -1270,19 +1284,28 @@ def compact_edge_lanes(M: int, reps: int, seed: int):
 
 
 def phase_compact_edges(small: list, device, K: Kernels) -> None:
-    """K4, K7 and K7's pack mode against their plain versions on the main
-    path's own waves of at most 4 lanes (K3's tokens at k1 104 and 512, the
-    wave's planes), and on the edge lanes of compact_edge_lanes at M = 128,
-    1001, 4099, 5120 and 8228 (M not a multiple of 4 takes scalar loads; 7
-    lanes take 1024-entry segments, 672 lanes 4096-entry ones) and once
-    from a row that is not 16-byte aligned; the pack mode also on
-    pack_edge_lanes at M = 31, 1001, 4099 and 8228 (11 and 704 lanes), one
-    lane alone and a row not 16-byte aligned."""
+    """K4, K7, K4's pull mode with the map (``compact_pack``) and without
+    it (``pack_tokens``) against their plain versions on the main path's
+    own waves of at most 4 lanes (K3's tokens at k1 104 and 512, the wave's
+    planes), and on the edge lanes of compact_edge_lanes at M = 128, 1001,
+    4099, 5120 and 8228 (M not a multiple of 4 takes scalar loads; 7 lanes
+    take 1024-entry segments, 672 lanes 4096-entry ones) and once from a
+    row that is not 16-byte aligned; ``compact_pack`` also on seam_lanes at
+    M = 1001, 4099 and 9216 (7 and 672 lanes) and from a row not 16-byte
+    aligned; ``pack_tokens`` also on pack_edge_lanes at M = 31, 1001, 4099
+    and 8228 (11 and 704 lanes), one lane alone and a row not 16-byte
+    aligned."""
     import numpy as np
     import torch
 
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import wave_prep as wp
+
+    def fused(what, tok, planes):
+        vec = torch.zeros((7, tok.shape[0]), dtype=torch.int32, device=device)
+        K.compare("compact_pack", lambda: dk.compact_pack(tok, planes, vec), lambda: dk.compact_pack_plain(tok, planes),
+                  [tok, planes], {"edge": what, "tok": list(tok.shape)}, main_path=False)
+        require(not vec[:6].any(), f"compact_pack wrote outside row 6 of the vector ({what})")
 
     cases = []
     for what, d, tk, e, planes in small:
@@ -1303,9 +1326,21 @@ def phase_compact_edges(small: list, device, K: Kernels) -> None:
                   [tok, planes], {"edge": what, "tok": list(tok.shape)}, main_path=False)
         K.compare("compact_any", lambda: dk.compact_any(tok), lambda: dk.compact_plain(tok, None), [tok],
                   {"edge": what, "tok": list(tok.shape)}, main_path=False)
+        fused(what, tok, planes)
         K.compare("pack_tokens", lambda: dk.pack_tokens(tok), lambda: dk.pack_tokens_plain(tok), [tok],
                   {"edge": what, "tok": list(tok.shape)}, main_path=False)
-    # K7's pack mode on its own edge lanes (all literals, all matches, all
+    # The fused mode's bitmap seams: segments whose first slot is off a
+    # word and runs of segments with no valid entry between two shared
+    # words, in both segment sizes, and from a row not 16-byte aligned.
+    for M in (1001, 4099, 9216):
+        for L in (7, 672):
+            tok, planes = seam_lanes(M, L, seed=M + L)
+            fused(f"seam lanes M={M}", torch.from_numpy(tok).to(device), torch.from_numpy(planes).to(device))
+    tok, planes = seam_lanes(9216, 7, seed=5)
+    flat = torch.empty(tok.size + 1, dtype=torch.int32, device=device)
+    fused("seam lanes, a row not 16-byte aligned", flat[1:].view(tok.shape).copy_(torch.from_numpy(tok)),
+          torch.from_numpy(planes).to(device))
+    # The pull alone on its own edge lanes (all literals, all matches, all
     # below 0, bit 31 of every bitmap word), M % 32 != 0, in both segment
     # sizes, one lane alone and a row that is not 16-byte aligned.
     for M in (31, 1001, 4099, 8228):
@@ -1323,9 +1358,9 @@ def phase_compact_edges(small: list, device, K: Kernels) -> None:
 
 
 def pack_edge_lanes(M: int, seed: int):
-    """(L, M) int32 tokens for K7's pack mode: compact_edge_lanes' lanes
-    (literal ranks 0 and 255, match tokens of 256 and more, -1, -2 and
-    INT_MIN among them) and four more: every token a literal, every token
+    """(L, M) int32 tokens for the pull alone (``pack_tokens``):
+    compact_edge_lanes' lanes (literal ranks 0 and 255, match tokens of 256
+    and more, -1, -2 and INT_MIN among them) and four more: every token a literal, every token
     a match, every token below 0, and literals at every 32nd token (bit 31
     of each bitmap word set)."""
     import numpy as np
@@ -1335,6 +1370,29 @@ def pack_edge_lanes(M: int, seed: int):
     extra = np.stack([rng.integers(0, 256, M), rng.integers(256, 1 << 27, M), np.full(M, -1),
                       np.where(np.arange(M) % 32 == 31, rng.integers(0, 256, M), rng.integers(256, 1 << 20, M))])
     return np.concatenate([tok, extra.astype(np.int32)])
+
+
+def seam_lanes(M: int, L: int, seed: int):
+    """(L, M) int32 tokens and (L, 64) int32 random literal planes for K4's
+    pull mode, whose bitmap words at a segment's two ends are shared: every
+    1024-entry block of a lane holds 0, 1, 5, 31, 33 or 37 valid entries
+    (half of the blocks none) at random places among -1, -2 and INT_MIN,
+    literal ranks and match tokens at random, so segments of 1024 and 4096
+    entries start at slots that are not a multiple of 32, one word takes the
+    bits of several segments, and runs of segments with no valid entry lie
+    between two seam words."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tok = rng.choice(np.array([-1, -1, -1, -2, -(2**31)]), (L, M))
+    valid = np.where(rng.random((L, M)) < 0.5, rng.integers(0, 256, (L, M)), rng.integers(256, 1 << 27, (L, M)))
+    counts = rng.choice(np.array([0, 0, 0, 0, 0, 1, 5, 31, 33, 37]), (L, -(-M // 1024)))
+    for lane, b in zip(*np.nonzero(counts)):
+        lo, hi = b * 1024, min(M, (b + 1) * 1024)
+        pos = lo + rng.choice(hi - lo, min(int(counts[lane, b]), hi - lo), replace=False)
+        tok[lane, pos] = valid[lane, pos]
+    planes = rng.integers(-(2**31), 2**31, (L, 64), dtype=np.int64).astype(np.int32)
+    return tok.astype(np.int32), planes
 
 
 def route_edge_inputs(L: int, seed: int, final_kind: str = "none"):
@@ -1869,12 +1927,26 @@ def phase_main_path(corpus: bytes, gz: bytes, n_huff: int, K: Kernels) -> tuple[
     return launches, med, bounds
 
 
+def compact_pack_chain(tok, planes, small):
+    """``decode_kernels.compact_pack`` by its plain chain on the card (K4's
+    compaction and the pull as eager ops and two K7 launches, then the
+    nlit copy into the vector): what a wave of the "off" route ran before
+    the fused launch, for its launch counts."""
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    bitmap, lit, match, nlit = dk.compact_pack_plain(tok, planes)
+    small[6] = nlit
+    return bitmap, lit, match, small[6]
+
+
 def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None, K: Kernels) -> dict:
-    """The host-resolve route: the packed token pull (K7's pack mode) and
-    the wave kernels at a smaller depth, the pull held against its plain
-    version on every wave, its launches (one a wave, and K7 alone none), a
-    decode's launches a wave with the plain pull and with the kernel (with
-    a profile dir: then profiled, each K4 and pack launch's device time
+    """The host-resolve route: the wave kernels with K4's pull mode as the
+    wave's one compaction launch (``compact_pack``) at a smaller depth, the
+    fused launch held against its plain version on every wave and the
+    pulled vector against the plain fold with its nlit, its launches (one a
+    wave; K4 alone only in a k1 = 512 rerun, K7 and the pull alone none),
+    a decode's launches a wave with the plain chain and with the kernel
+    (with a profile dir: then profiled, each fused launch's device time
     beside its bound), then timed at the main path's depth for
     comparison."""
     import torch
@@ -1883,75 +1955,88 @@ def phase_off_route(corpus: bytes, gz: bytes, profile_dir: str | None, K: Kernel
     from tpu_deflate_torch import engine, native
     from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.codec import wave_prep as wp
     from tpu_deflate_torch.config import DecoderConfig
 
     off = DecoderConfig(device_resolve="off")
     small = bench.make_corpus(OFF_CORPUS_MB)
     gz_small = native.compress_members_native(small)
-    pack = pv2.pack_tokens
-    pulls = []
+    pack, wave_stages = pv2.compact_pack, pv2.wave_stages
+    pulls, reruns = [], []
 
-    def pack_spy(tokens):
-        out = pack(tokens)
-        # after the wave's K3 (the last vector checked); the tokens kept for
+    def pack_spy(tok, planes, vec):
+        out = pack(tok, planes, vec)
+        # after the wave's K3 (the last vector checked); the inputs kept for
         # the plain version, which runs K7 and so after the counted run
-        pulls.append((len(folds), tokens.clone(), out))
-        calls["pack_tokens"].append(tensor_bytes(tokens) + tensor_bytes(out))
-        shapes["pack_tokens"].append(f"{list(tokens.shape)}")
-        order.append("pack_tokens")
+        pulls.append((len(folds), tok.clone(), planes.clone(), out))
+        calls["compact_pack"].append(tensor_bytes((tok, planes)) + tensor_bytes(out))
+        shapes["compact_pack"].append(f"{list(tok.shape)}")
+        order.append("compact_pack")
         return out
 
-    pv2.pack_tokens = pack_spy
+    def stages_spy(w, **kw):
+        reruns.append(kw.get("k1") == wp.W_P)
+        return wave_stages(w, **kw)
+
+    pv2.compact_pack, pv2.wave_stages = pack_spy, stages_spy
     try:
         with recorded((dk, "compact_flat"), (dk, "compact_any")) as (calls, shapes, order), \
                 folds_checked(K, "off route", keep=True) as folds:
-            calls["pack_tokens"], shapes["pack_tokens"] = [], []
+            calls["compact_pack"], shapes["compact_pack"] = [], []
             dk.reset_launches()
             t0 = time.monotonic()
             out = engine.decompress(gz_small, engine="cuda", config=off)
             wall = time.monotonic() - t0
             launches = dict(dk.LAUNCHES)
     finally:
-        pv2.pack_tokens = pack
+        pv2.compact_pack, pv2.wave_stages = pack, wave_stages
     stats = dict(pv2.LAST_DECODE_STATS)
     require(out == small, "device_resolve='off' output differs")
     log(f"off route ({OFF_CORPUS_MB} MiB): byte-exact, stats {json.dumps(stats)}, "
         f"launches {json.dumps(launches)}")
-    for k in ("stage_a", "stage_b", "stage_dc", "compact_flat", "pack_tokens"):
+    for k in ("stage_a", "stage_b", "stage_c", "stage_dc", "compact_pack"):
         require(launches[k] > 0, f"kernel {k} was not launched on the off route")
-    require(len(pulls) == len(folds) == launches["stage_dc"] == launches["pack_tokens"]
-            and launches["compact_any"] == 0,
-            f"the off route: {len(pulls)} token pulls, {launches['pack_tokens']} pack launches and "
-            f"{launches['compact_any']} of K7 alone for {len(folds)} waves: expected one pack launch a wave")
-    for i, (n, tokens, got) in enumerate(pulls):
-        want = dk.pack_tokens_plain(tokens)
+    n_reruns = sum(reruns)
+    require(len(pulls) == stats["waves"] == launches["compact_pack"] == launches["stage_dc"] - n_reruns
+            and launches["compact_flat"] == n_reruns and launches["compact_any"] == launches["pack_tokens"] == 0,
+            f"the off route: {len(pulls)} fused launches captured, {launches['compact_pack']} counted, "
+            f"{launches['compact_flat']} of K4 alone ({n_reruns} k1 = 512 reruns), {launches['compact_any']} of K7 "
+            f"and {launches['pack_tokens']} of the pull alone for {stats['waves']} waves: expected one compaction "
+            f"launch a wave")
+    for i, (n, tok, planes, got) in enumerate(pulls):
+        want = dk.compact_pack_plain(tok, planes)
         err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        r = K.rec.setdefault("pack_tokens", {"max_abs_err": 0})
+        r = K.rec.setdefault("compact_pack", {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                f"the off route's pull {i} {list(tokens.shape)} differs from pack_tokens_plain")
+                f"the off route's fused launch {i} {list(tok.shape)} differs from compact_pack_plain")
         summ, vec = folds[n - 1]  # the vector the route pulled: K3's, with nlit in row 6
-        require(torch.equal(vec, dk.wave_summary_plain(summ, got[3])),
+        require(got[3].data_ptr() == vec[6].data_ptr() and torch.equal(vec, dk.wave_summary_plain(summ, want[3])),
                 "the off route's vector differs from wave_summary_plain with nlit")
-    log(f"off route: every wave's pull equal to pack_tokens_plain and its pulled vector to wave_summary_plain "
-        f"with its nlit ({len(pulls)} waves, tokens {sorted({str(list(t.shape)) for _n, t, _o in pulls})})")
-    tokens = pulls[0][1]
-    K.compare("pack_tokens", lambda: dk.pack_tokens(tokens), lambda: dk.pack_tokens_plain(tokens), [tokens],
-              {"off route wave": list(tokens.shape)})
-    for _n, t, _o in pulls:
-        one_launch(f"pack_tokens, off route wave {list(t.shape)}", lambda: dk.pack_tokens(t), "pack_tokens")
-    del folds, pulls
+    log(f"off route: every wave's fused launch equal to compact_pack_plain and its pulled vector to "
+        f"wave_summary_plain with its nlit ({len(pulls)} waves, tokens "
+        f"{sorted({str(list(t.shape)) for _n, t, _p, _o in pulls})}; {n_reruns} k1 = 512 reruns)")
+    _n, tok, planes, _o = pulls[0]
+    vec = torch.zeros((7, tok.shape[0]), dtype=torch.int32, device=tok.device)
+    K.compare("compact_pack", lambda: dk.compact_pack(tok, planes, vec), lambda: dk.compact_pack_plain(tok, planes),
+              [tok, planes], {"off route wave": list(tok.shape)})
+    flat = dk.compact_plain(tok, planes)  # what the pull alone took before the fold
+    K.compare("pack_tokens", lambda: dk.pack_tokens(flat), lambda: dk.pack_tokens_plain(flat), [flat],
+              {"off route wave, compacted": list(flat.shape)})
+    for _n, t, p, _o in pulls:
+        v = torch.zeros((7, t.shape[0]), dtype=torch.int32, device=t.device)
+        one_launch(f"compact_pack, off route wave {list(t.shape)}", lambda: dk.compact_pack(t, p, v), "compact_pack")
+    del folds, pulls, flat
     require(stats["device_resolved"] == 0 and launches["expand"] == 0, "off route resolved on device")
-    for what, fn in (("plain pull", dk.pack_tokens_plain), ("pack kernel", dk.pack_tokens)):
-        pv2.pack_tokens = fn
+    for what, fn in (("plain chain", compact_pack_chain), ("fused launch", dk.compact_pack)):
+        pv2.compact_pack = fn
         try:
             wave_launches(lambda: engine.decompress(gz_small, engine="cuda", config=off), f"off route, {what}")
         finally:
-            pv2.pack_tokens = pack
+            pv2.compact_pack = pack
     if profile_dir:
         phase_profile(lambda: engine.decompress(gz_small, engine="cuda", config=off), "off route",
-                      profile_dir, "profile_off", ("compact_kernel", *OFF_PROFILE_KERNELS), wall,
-                      launch_bounds(calls, shapes, order))
+                      profile_dir, "profile_off", OFF_PROFILE_KERNELS, wall, launch_bounds(calls, shapes, order))
     walls = timed_decode(gz, corpus, OFF_REPS, config=off)
     med = statistics.median(walls)
     log(f"off route ({CORPUS_MB} MiB) {OFF_REPS} timed runs: median {med:.4f} s = "
@@ -2050,7 +2135,8 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
             "a big member did not resolve on the device route")
     for k in BIG_KERNELS:
         require(launches[k] > 0, f"kernel {k} was not launched on the big-members route")
-    require(launches["compact_any"] == launches["pack_tokens"] == 0, "the big-members route launched K7")
+    require(launches["compact_any"] == launches["pack_tokens"] == launches["compact_pack"] == 0,
+            "the big-members route launched K7 or the pull")
     require(len(folds) == launches["stage_dc"] == stats["waves"], "the big members: not one K3 fold a wave")
     path_bounds("big-members route", calls)
     bounds = launch_bounds(calls, shapes, order)
@@ -2121,7 +2207,7 @@ def phase_big_members(corpus: bytes, device, profile_dir: str | None, K: Kernels
         dk.reset_launches()
         out = engine.decompress(gz, engine="cuda")
         lowered = dict(pv2.LAST_DECODE_STATS)
-        k7 = dk.LAUNCHES["compact_any"] + dk.LAUNCHES["pack_tokens"]
+        k7 = dk.LAUNCHES["compact_any"] + dk.LAUNCHES["pack_tokens"] + dk.LAUNCHES["compact_pack"]
         require(out == data, "big members under a 512 KiB batch bound differ")
         out = engine.decompress(gz, engine="cuda", mesh=make_codec_mesh(devices=[device] * MESH_SHARDS))
         sharded = dict(pv2.LAST_DECODE_STATS)
@@ -3169,8 +3255,8 @@ def phase_continuous_main(corpus: bytes, effort2_bytes: int, profile_dir: str | 
     require(out == corpus, "the port's decode of the continuous encode differs")
     require(stats["device_resolved"] == 1 and stats["host_resolved"] == 0,
             "the continuous member did not resolve on the device route")
-    require(dec_launches["compact_any"] == dec_launches["pack_tokens"] == 0,
-            "the continuous member's decode launched K7")
+    require(dec_launches["compact_any"] == dec_launches["pack_tokens"] == dec_launches["compact_pack"] == 0,
+            "the continuous member's decode launched K7 or the pull")
     require(dec_launches["tile_split"] == 1 and len(folds) == dec_launches["stage_dc"] == stats["waves"],
             f"the continuous member's decode: {dec_launches['tile_split']} splits (1 expected), "
             f"{len(folds)} K3 folds checked for {stats['waves']} waves")
@@ -3400,7 +3486,7 @@ def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
     ``engine.compress(bench.make_corpus(96), effort=4)`` writes one member
     of 96 MiB, and ``engine.decompress`` with the defaults must give it back
     byte-exact on the device route (device_resolved 1, host_resolved 0) in
-    2 passes, with K7 not launched. Then each wrapper's bytes bound per
+    2 passes, with K7 and the pull not launched. Then each wrapper's bytes bound per
     launch, every kernel of that run held against its plain version on the
     arguments the run gave it (captured: the first calls of each shape),
     its device memory peak beside the member's token bytes, K5, K6 and the
@@ -3483,7 +3569,8 @@ def phase_passes(device, profile_dir: str | None, K: Kernels) -> dict:
     log(f"passes: decode in {wall:.3f} s, stats {json.dumps(stats)}, launches {json.dumps(launches)}")
     require((stats["device_resolved"], stats["host_resolved"], stats.get("passes")) == (1, 0, 2),
             "the 96 MiB member did not resolve on the device route in 2 passes")
-    require(launches["compact_any"] == launches["pack_tokens"] == 0, "the pass route launched K7")
+    require(launches["compact_any"] == launches["pack_tokens"] == launches["compact_pack"] == 0,
+            "the pass route launched K7 or the pull")
     for k in BIG_KERNELS:
         require(launches[k] > 0, f"kernel {k} was not launched on the pass route")
     require(len(folds) == launches["stage_dc"], "the pass route: a K3 fold not checked")
@@ -3569,8 +3656,8 @@ def phase_kernel_rows(corpus: bytes, gz: bytes, e2e_median_s: float, K: Kernels)
     the first two calls of each lane count, among them ``_big``'s 16-lane
     wave and chained steps at hist 0 and 32768 and ``_full``'s second,
     padded resolve batch). Each row must run the kernels ("cuda") and
-    verify every member; every kernel but K7 (with its pack mode) and
-    Adler-32's sums must launch and those must not.
+    verify every member; every kernel but K7, K4's pull mode, the pull
+    alone and Adler-32's sums must launch and those must not.
     Then the timed run, unwrapped at the reference's reps: each row, one
     pass's host enqueue time and CUDA-event time, the device memory peak
     beside the end-to-end decode's, and each decode row's GB/s over phase

@@ -2,8 +2,8 @@
 route's packed token pull and Adler-32 on the card, for one tree or two in
 turns.
 
-    python scripts/plan_pack_ab.py --tree DIR            # one tree: one JSON line
-    python scripts/plan_pack_ab.py --ab PARENT CHANGE    # PARENT, CHANGE, CHANGE, PARENT
+    python scripts/plan_pack_ab.py --tree DIR [--off-only]          # one tree: one JSON line
+    python scripts/plan_pack_ab.py --ab PARENT CHANGE [--off-only]  # PARENT, CHANGE, CHANGE, PARENT
     python scripts/plan_pack_ab.py --emit PARENT [--variants]  # the emit, both trees in one process
 
 A tree is a checkout of this repository (``git archive`` of a commit
@@ -32,10 +32,19 @@ For a tree:
   kernel's device time a launch, CUDA-event time of the first batch's step
   queued behind a spin kernel, and the words' and total bits' CRC;
 - the ``"off"`` route, ``engine.decompress`` of the 8 MiB corpus's members
-  with ``device_resolve="off"``: the same counts a wave; each wave's pull
-  (the tree's ``decode_v2.pack_tokens``, its inputs captured and replayed):
-  its device time summed over a profiled pass, its device events a wave,
-  its CUDA-event time queued behind a spin kernel, and the pulls' CRC;
+  with ``device_resolve="off"``: the same counts a wave, the decode's wall
+  (median of 3) and its device memory peak above what was held before it;
+  each wave's compaction and pull, its inputs (K3's tokens and the wave's
+  literal planes) captured and replayed: where the tree has
+  ``decode_kernels.compact_pack``, its one launch (K4's pull mode, with
+  the bitmap's memset), else K4 (``compact_flat``, with its scratch's zero
+  fill), then the tree's ``decode_v2.pack_tokens`` and the eager copy of
+  nlit into row 6 of the vector; each wave's device µs a call and by
+  kernel (20 calls under torch.profiler), its device events a call, its
+  CUDA-event time queued behind a spin kernel, the bytes bound of the
+  fused function (4 bytes read and 5 1/8 written a token slot, the planes
+  and nlit) and its share of the compaction's kernels' device time, and
+  the outputs' CRC (bitmap, literals, matches, nlit);
 - ``adler32_device`` of 256 MiB on the card (a uint8 buffer uploaded by
   the call): CUDA-event time queued behind a spin kernel, the device
   memory peak above the buffer, the checksum against zlib.
@@ -53,6 +62,8 @@ equal. ``--variants`` adds variants of this tree's ``csrc/emit.cu`` (the
 order of its field loads and its routing, and its register cap), built
 the same way, routed and with routing off, with ptxas' registers and
 spills.
+
+``--off-only`` runs the ``"off"`` route's part alone.
 
 Every figure stands beside the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``)."""
@@ -73,6 +84,8 @@ from split_summary_ab import card, profiled, queued_us  # noqa: E402
 
 ADLER_BYTES = 256 << 20
 WALL_REPS = 3
+WAVE_REPS = 20
+HBM_BYTES_PER_S = 3.35e12
 
 
 def counts(cs, fn, per: int) -> dict:
@@ -165,7 +178,7 @@ def profiled_names(calls: list) -> dict:
     return {"us": sum(us for _n, us in by_name.values()), "events": len(events), "by_name": by_name}
 
 
-def one_tree(tree: str) -> dict:
+def one_tree(tree: str, off_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -173,17 +186,18 @@ def one_tree(tree: str) -> dict:
     import bench
     import chip_smoke as cs
     from tpu_deflate_torch import engine, native
+    from tpu_deflate_torch.codec import decode_kernels as dk
     from tpu_deflate_torch.codec import decode_v2 as pv2
     from tpu_deflate_torch.config import DecoderConfig
     from tpu_deflate_torch.kernels import checksum_lanes as cl
 
     here = os.path.realpath(tree)
     assert os.path.realpath(pv2.__file__).startswith(here + os.sep), f"{pv2.__file__} is not under {tree}"
-    corpus = bench.make_corpus(48)
+    corpus = b"" if off_only else bench.make_corpus(48)
     batches = -(-len(corpus) // (64 * 64 * 1024))
     out = {"tree": tree, "card": card(), "torch": torch.__version__}
 
-    for effort in (2, 4):
+    for effort in (() if off_only else (2, 4)):
         def encode(effort=effort):
             return engine.compress(corpus, engine="cuda", effort=effort)
 
@@ -217,31 +231,83 @@ def one_tree(tree: str) -> dict:
     small = bench.make_corpus(8)
     gz_small = native.compress_members_native(small)
     off = DecoderConfig(device_resolve="off")
-    pack, pulls = pv2.pack_tokens, []
+    fused = hasattr(dk, "compact_pack")
+    waves_in = []
+    if fused:
+        pack = pv2.compact_pack
 
-    def spy(tokens):
-        pulls.append(tokens.clone())
-        return pack(tokens)
+        def spy(tok, planes, vec):
+            waves_in.append((tok.clone(), planes.clone()))
+            return pack(tok, planes, vec)
 
-    pv2.pack_tokens = spy
-    try:
-        assert engine.decompress(gz_small, engine="cuda", config=off) == small
-    finally:
-        pv2.pack_tokens = pack
+        pv2.compact_pack = spy
+        try:
+            assert engine.decompress(gz_small, engine="cuda", config=off) == small
+        finally:
+            pv2.compact_pack = pack
+
+        def step(tok, planes, vec):
+            return pack(tok, planes, vec)
+    else:
+        # the parent's wave: K4, then the pull of its output and the eager
+        # copy of nlit into the vector
+        flat, pull = dk.compact_flat, pv2.pack_tokens
+
+        def spy(tok, planes):
+            waves_in.append((tok.clone(), planes.clone()))
+            return flat(tok, planes)
+
+        dk.compact_flat = spy
+        try:
+            assert engine.decompress(gz_small, engine="cuda", config=off) == small
+        finally:
+            dk.compact_flat = flat
+
+        def step(tok, planes, vec):
+            bitmap, lit, match, nlit = pull(flat(tok, planes))
+            vec[6] = nlit
+            return bitmap, lit, match, vec[6]
     waves = pv2.LAST_DECODE_STATS["waves"]
-    assert len(pulls) == waves, (len(pulls), waves)
-    calls = [lambda t=t: pack(t) for t in pulls]
-    prof = profiled(calls)
-    crc = 0
-    for fn in calls:
-        for t in fn():
+    assert len(waves_in) == waves, (len(waves_in), waves)
+    walls = []
+    for _ in range(WALL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine.decompress(gz_small, engine="cuda", config=off)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine.decompress(gz_small, engine="cuda", config=off)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    out["off route"] = {**counts(cs, lambda: engine.decompress(gz_small, engine="cuda", config=off), waves),
+                        "wall_s_median": round(statistics.median(walls), 4), "peak_bytes": peak}
+    crc, per_wave = 0, []
+    for tok, planes in waves_in:
+        L, M = tok.shape
+        vec = torch.zeros((7, L), dtype=torch.int32, device=tok.device)
+        call = lambda tok=tok, planes=planes, vec=vec: step(tok, planes, vec)  # noqa: E731
+        for t in call():
             crc = zlib.crc32(t.cpu().numpy().tobytes(), crc)
-    out["off route"] = {**counts(cs, lambda: engine.decompress(gz_small, engine="cuda", config=off), waves)}
+        prof = profiled_names([call] * WAVE_REPS)
+        by_name = {k: [round(n / WAVE_REPS, 2), round(us / WAVE_REPS, 3)] for k, (n, us) in prof["by_name"].items()}
+        kern_us = sum(us for k, (_n, us) in by_name.items() if "compact" in k or "pack_kernel" in k)
+        bound_us = (9 * L * M + 4 * L * -(-M // 32) + 4 * 64 * L + 4 * L) / HBM_BYTES_PER_S * 1e6
+        per_wave.append({"tokens": [L, M], "device_us": round(prof["us"] / WAVE_REPS, 3),
+                         "events": round(prof["events"] / WAVE_REPS, 2), "by_name": by_name,
+                         "compaction_kernels_us": round(kern_us, 3), "bound_us": round(bound_us, 3),
+                         "share": round(bound_us / kern_us, 4) if kern_us else None,
+                         "queued_us": round(queued_us(call), 3)})
     out["off route pull"] = {
-        "waves": waves, "tokens": [list(t.shape) for t in pulls], "device_us": prof["us"],
-        "device_us_a_wave": round(prof["us"] / waves, 3), "events_a_wave": round(prof["events"] / waves, 2),
-        "by_name": prof["by_name"], "queued_us": [round(queued_us(fn), 3) for fn in calls], "crc": crc}
-    del pulls, calls
+        "fused": fused, "waves": waves, "per_wave": per_wave,
+        "device_us": round(sum(w["device_us"] for w in per_wave), 3),
+        "compaction_kernels_us": round(sum(w["compaction_kernels_us"] for w in per_wave), 3),
+        "bound_us": round(sum(w["bound_us"] for w in per_wave), 3), "crc": crc}
+    del waves_in
+    if off_only:
+        return out
 
     buf = np.random.default_rng(20).integers(0, 256, ADLER_BYTES, dtype=np.uint8)
     want = zlib.adler32(buf)
@@ -261,32 +327,33 @@ FIGURES = [(f"encode effort {e}", k) for e in (2, 4) for k in (
     "port_launches_a_unit", "launches", "aten_device_ops_a_unit", "device_events_a_unit", "device_us_a_batch",
     "wall_s_median", "by_name")] + [(f"emit effort {e}", k) for e in (2, 4) for k in (
     "device_us_a_batch", "events_a_batch", "emit_kernel_us_a_launch", "queued_us_first", "by_name_a_batch")] + [
-    ("off route", "units"), ("off route", "port_launches_a_unit"), ("off route", "aten_device_ops_a_unit"),
-    ("off route", "device_events_a_unit"),
-    ("off route pull", "tokens"), ("off route pull", "device_us"), ("off route pull", "device_us_a_wave"),
-    ("off route pull", "events_a_wave"), ("off route pull", "queued_us"), ("off route pull", "by_name"),
+    ("off route", "units"), ("off route", "port_launches_a_unit"), ("off route", "launches"),
+    ("off route", "aten_device_ops_a_unit"), ("off route", "device_events_a_unit"), ("off route", "wall_s_median"),
+    ("off route", "peak_bytes"), ("off route pull", "fused"), ("off route pull", "device_us"),
+    ("off route pull", "compaction_kernels_us"), ("off route pull", "bound_us"), ("off route pull", "per_wave"),
     ("adler32_device", "queued_us"), ("adler32_device", "peak_above_buffer"), ("adler32_device", "equal_zlib"),
 ]
 SAME = ("encode effort 2", "encode effort 4", "emit effort 2", "emit effort 4", "off route pull", "adler32_device")
 
 
-def ab(parent: str, change: str) -> int:
+def ab(parent: str, change: str, off_only: bool = False) -> int:
     runs = []
     for tree in (parent, change, change, parent):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree], capture_output=True,
-                              text=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree]
+                              + (["--off-only"] if off_only else []), capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
             return proc.returncode
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     print(f"card: {runs[0]['card']}; torch {runs[0]['torch']}; order: parent, change, change, parent")
     for part, key in FIGURES:
-        print(f"{part} {key}: " + " / ".join(json.dumps(r[part][key]) for r in runs))
-    same = {part: len({r[part]["crc"] for r in runs}) == 1 for part in SAME}
+        if part in runs[0]:
+            print(f"{part} {key}: " + " / ".join(json.dumps(r[part][key]) for r in runs))
+    same = {part: len({r[part]["crc"] for r in runs}) == 1 for part in SAME if part in runs[0]}
     print(f"outputs identical across the four runs: {json.dumps(same)}")
     for r in runs:
         print(json.dumps(r))
-    return 0 if all(same.values()) and all(r["adler32_device"]["equal_zlib"] for r in runs) else 1
+    return 0 if all(same.values()) and all(r["adler32_device"]["equal_zlib"] for r in runs if "adler32_device" in r) else 1
 
 
 # name -> (edit of csrc/emit.cu's text: (old, new) pairs, what it changes)
@@ -453,14 +520,15 @@ def main(argv: list[str]) -> int:
     group.add_argument("--ab", nargs=2, metavar=("PARENT", "CHANGE"))
     group.add_argument("--emit", metavar="PARENT")
     ap.add_argument("--variants", action="store_true", help="with --emit: this tree's emit.cu variants too")
+    ap.add_argument("--off-only", action="store_true", help="with --tree or --ab: the \"off\" route's part alone")
     args = ap.parse_args(argv)
     if args.emit:
         sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         return emit_one_process(args.emit, args.variants)
     if args.tree:
-        print(json.dumps(one_tree(args.tree)))
+        print(json.dumps(one_tree(args.tree, args.off_only)))
         return 0
-    return ab(*args.ab)
+    return ab(*args.ab, off_only=args.off_only)
 
 
 if __name__ == "__main__":

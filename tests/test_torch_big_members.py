@@ -255,18 +255,18 @@ def test_route_memory_bound(monkeypatch):
     gz += _member9(_copies(2 * N - 1000, 48)) + _member9(_structured(49, 2 * N - 7))
     monkeypatch.setattr(pv2, "BIG_BATCH_POSITIONS", 2 * N)
     batches, pulls = [], []
-    chain, pack = pv2._decode_streams, pv2.pack_tokens
+    chain, pack = pv2._decode_streams, pv2.compact_pack
 
     def chain_spy(payloads, runner, stats, device_caps):
         batches.append((len(payloads), device_caps is not None))
         return chain(payloads, runner, stats, device_caps)
 
-    def pack_spy(tokens):
+    def pack_spy(tok, lit_planes, small):
         pulls.append(batches[-1][1])
-        return pack(tokens)
+        return pack(tok, lit_planes, small)
 
     monkeypatch.setattr(pv2, "_decode_streams", chain_spy)
-    monkeypatch.setattr(pv2, "pack_tokens", pack_spy)
+    monkeypatch.setattr(pv2, "compact_pack", pack_spy)
     got = pv2.gzip_decompress_v2(gz, device=CPU, device_resolve="on")
     stats = pv2.LAST_DECODE_STATS
     assert got == pygzip.decompress(gz)

@@ -174,9 +174,9 @@ def test_overflow_rerun(monkeypatch):
     k1s = []
     wave_stages = pv2.wave_stages
 
-    def spy(w, *, k1=None):
-        k1s.append(k1)
-        return wave_stages(w, k1=k1)
+    def spy(w, **kw):  # the host route's first run asks for the pull (pack=True)
+        k1s.append(kw.get("k1"))
+        return wave_stages(w, **kw)
 
     monkeypatch.setattr(pv2, "wave_stages", spy)
     data = bytes([0, 1]) * 40000
@@ -202,7 +202,8 @@ def test_wave_k1_matches_reference():
         assert v2._lane_k1(mtb) == wp._lane_k1(mtb)
     assert dk.LAUNCHES.keys() == {
         "stage_a_tables", "stage_a", "stage_b", "stage_c", "stage_dc", "compact_flat", "compact_any",
-        "expand", "sweep", "crc32_lanes", "tile_split", "wave_summary", "pack_tokens", "adler_sums",
+        "expand", "sweep", "crc32_lanes", "tile_split", "wave_summary", "pack_tokens", "compact_pack",
+        "adler_sums",
     }
 
 

@@ -69,7 +69,7 @@ SIGNATURES = {
     "td_finish_analysis": [_P] * 16 + [_I, _I, _P],
     "td_tile_split": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     "td_wave_summary": [_P] * 4 + [_I, _I, _P],
-    "td_compact_pack": [_P] * 7 + [_L, _I, _I, _P],
+    "td_compact_pull": [_P] * 8 + [_L, _I, _I, _P],
     "td_adler_blocks": [_L],
     "td_adler_sums": [_P, _L, _P, _P, _P, _P],
 }
@@ -84,7 +84,7 @@ SIGNATURES = {
 LAUNCHES = {
     "stage_a_tables": 0, "stage_a": 0, "stage_b": 0, "stage_c": 0, "stage_dc": 0, "compact_flat": 0,
     "compact_any": 0, "expand": 0, "sweep": 0, "crc32_lanes": 0, "tile_split": 0, "wave_summary": 0,
-    "pack_tokens": 0, "adler_sums": 0,
+    "pack_tokens": 0, "compact_pack": 0, "adler_sums": 0,
 }
 ENCODE_LAUNCHES = {"parse_transfers": 0, "parse_replay": 0, "emit_body": 0, "match_keys": 0, "match_chain": 0,
                    "match_bucket": 0, "match_select": 0, "finish_analysis": 0}

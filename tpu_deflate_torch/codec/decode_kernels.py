@@ -2,7 +2,8 @@
 each lane's decode tables with a kernel of its own, ``stage_a_tables``),
 stage B (K2), stage C (the maps composed over tiles), stage DC (K3),
 level-2 compaction (K4, with K7 as its no-map mode) and the host route's
-packed token pull (``pack_tokens``, K7's pack mode). K3's epilogue folds
+packed token pull, which K4's pull mode does in the compaction's pass
+(``compact_pack``; ``pack_tokens`` is the pull alone). K3's epilogue folds
 its summary rows into the wave's per-lane vector (``wave_summary`` runs
 that fold alone on given rows).
 
@@ -709,7 +710,8 @@ def wave_summary(summ: torch.Tensor, nlit: torch.Tensor | None = None) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# Level-2 compaction (K4; K7 is its no-map mode)
+# Level-2 compaction (K4; K7 is its no-map mode; the packed pull its pull
+# mode)
 # ---------------------------------------------------------------------------
 
 COMPACT_MIN_SEGMENT = 1024  # entries of the smaller segment of csrc/compact.cu
@@ -775,9 +777,9 @@ def compact_any(tok: torch.Tensor) -> torch.Tensor:
     return _compact(tok, None)
 
 
-# Entries of a pack segment where the wave is small (the 1024-entry
+# Entries of a pull segment where the wave is small (the 1024-entry
 # segments of csrc/compact.cu); the scratch is sized for them.
-PACK_MIN_SEGMENT = 1024
+PULL_MIN_SEGMENT = 1024
 
 
 def pack_tokens_plain(tokens: torch.Tensor):
@@ -798,6 +800,29 @@ def pack_tokens_plain(tokens: torch.Tensor):
     return bitmap, lit_c.to(torch.uint8), match_c, nlit
 
 
+def _pull(tok: torch.Tensor, lit_planes: torch.Tensor | None, nlit: torch.Tensor):
+    """One launch of csrc/compact.cu's pull mode (``td_compact_pull``) into
+    new bitmap, lit and match tensors and the given nlit (L,) int32. Its
+    look-back scratch comes in two halves that calls on a stream take in
+    turn, each call zeroing the one the call before it used
+    (``_build.alternating_halves``), so the launch needs no fill."""
+    L, M = tok.shape
+    dev = tok.device
+    bitmap = torch.empty((L, -(-M // 32)), dtype=torch.int32, device=dev)
+    lit = torch.empty((L, M), dtype=torch.uint8, device=dev)
+    match = torch.empty((L, M), dtype=torch.int32, device=dev)
+    scratch, other, dirty = _build.alternating_halves("compact_pull", dev, L * -(-M // PULL_MIN_SEGMENT) + 1)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.td_compact_pull(tok.data_ptr(), None if lit_planes is None else lit_planes.data_ptr(),
+                                  bitmap.data_ptr(), lit.data_ptr(), match.data_ptr(), nlit.data_ptr(),
+                                  scratch.data_ptr(), other.data_ptr(), dirty, L, M, _build.stream(dev))
+    if err:
+        _build.drop_kept_zero("compact_pull", dev)
+    _build.check(err, "td_compact_pull")
+    return bitmap, lit, match
+
+
 def pack_tokens(tokens: torch.Tensor):
     """Split a wave's front-compacted tokens (L, M) int32 for the pull:
     literals as 1 byte, matches as 4, and the order as a 1-bit map.
@@ -805,28 +830,43 @@ def pack_tokens(tokens: torch.Tensor):
     Returns (bitmap (L, ceil(M/32)) int32 [bit k of word w = token 32w+k
     is a literal], lit (L, M) uint8 [the literals, then 255], match (L, M)
     int32 [the matches, then -1], nlit (L,) int32); tokens below 0 are in
-    neither stream. On the card one launch of K7's pack mode
-    (``td_compact_pack``), whose look-back scratch comes in two halves that
-    calls on a stream take in turn, each call zeroing the one the call
-    before it used (``_build.alternating_halves``), so a wave launches
-    nothing else; on the CPU :func:`pack_tokens_plain`."""
+    neither stream. On the card one launch of K4's pull mode with the map
+    off (``td_compact_pull``; the host route runs it with the map on,
+    :func:`compact_pack`); on the CPU :func:`pack_tokens_plain`."""
     _build.check_tensor("tokens", tokens, torch.int32, 2)
     if not _build.on_card(tokens):
         return pack_tokens_plain(tokens)
-    L, M = tokens.shape
-    dev = tokens.device
-    bitmap = torch.empty((L, -(-M // 32)), dtype=torch.int32, device=dev)
-    lit = torch.empty((L, M), dtype=torch.uint8, device=dev)
-    match = torch.empty((L, M), dtype=torch.int32, device=dev)
-    nlit = torch.empty(L, dtype=torch.int32, device=dev)
-    scratch, other, dirty = _build.alternating_halves("pack_tokens", dev, L * -(-M // PACK_MIN_SEGMENT) + 1)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.td_compact_pack(tokens.data_ptr(), bitmap.data_ptr(), lit.data_ptr(), match.data_ptr(),
-                                  nlit.data_ptr(), scratch.data_ptr(), other.data_ptr(), dirty, L, M,
-                                  _build.stream(dev))
-    if err:
-        _build.drop_kept_zero("pack_tokens", dev)
-    _build.check(err, "td_compact_pack")
+    nlit = torch.empty(tokens.shape[0], dtype=torch.int32, device=tokens.device)
+    bitmap, lit, match = _pull(tokens, None, nlit)
     LAUNCHES["pack_tokens"] += 1
     return bitmap, lit, match, nlit
+
+
+def compact_pack_plain(tok: torch.Tensor, lit_planes: torch.Tensor):
+    """Plain K4 and pull in one: :func:`pack_tokens_plain` of
+    :func:`compact_plain` (the route's two steps before the fold)."""
+    return pack_tokens_plain(compact_plain(tok, lit_planes))
+
+
+def compact_pack(tok: torch.Tensor, lit_planes: torch.Tensor, small: torch.Tensor):
+    """K4 and the packed pull in one pass (the host route's wave): K3's
+    tokens (L, M) int32 with their padding in place and the lane's literal
+    planes (L, 64) int32 -> (bitmap, lit, match, nlit) of
+    :func:`pack_tokens` applied to :func:`compact_flat`'s output, with
+    ``nlit`` written into row 6 of K3's (7, L) int32 vector ``small`` (the
+    returned nlit is that row). On the card one launch of
+    ``td_compact_pull`` with the map on (and the bitmap's memset); on the
+    CPU :func:`compact_pack_plain`."""
+    _build.check_tensor("tok", tok, torch.int32, 2)
+    _build.check_tensor("lit_planes", lit_planes, torch.int32, 2)
+    _build.check_tensor("small", small, torch.int32, 2)
+    L = tok.shape[0]
+    _build.require(tuple(lit_planes.shape) == (L, 64), f"lit_planes: shape {tuple(lit_planes.shape)}")
+    _build.require(tuple(small.shape) == (7, L), f"small: shape {tuple(small.shape)}, expected (7, {L})")
+    if not _build.on_card(tok, lit_planes, small):
+        bitmap, lit, match, nlit = compact_pack_plain(tok, lit_planes)
+        small[6] = nlit
+        return bitmap, lit, match, small[6]
+    bitmap, lit, match = _pull(tok, lit_planes, small[6])
+    LAUNCHES["compact_pack"] += 1
+    return bitmap, lit, match, small[6]

@@ -25,8 +25,10 @@ passes of at most that many bytes (:func:`_resolve_passes`: each pass
 sliced from the lane's segments, split, resolved from the last 32 KiB of
 the pass before and pulled, the CRC folded across the passes), so no
 member leaves the device route because of its size. On the host route the
-packed token pull (``decode_kernels.pack_tokens``, K7's pack mode) brings
-each block's tokens back, the shared C core resolves them and the host
+wave's compaction is K4's pull mode (``decode_kernels.compact_pack``: the
+tokens split into literal bytes, matches and a bitmap, and each lane's
+literal count in row 6 of K3's vector, in one launch), which brings each
+block's tokens back packed; the shared C core resolves them and the host
 checks the CRC; a lane the device route hands back (a stage error, a size
 other than its ISIZE, a residue, an error position) takes it.
 
@@ -43,9 +45,10 @@ plain versions run (the CPU tests), on a CUDA device the kernels do.
 
 With a mesh (``dist.mesh``), a :class:`WaveRunner` cuts each wave's lane
 axis into the mesh's shards, contiguous in lane order and padded to a
-multiple of their count, and each shard runs K1-K4 (K7 on the host route)
-on its own device; the main path's rows resolve (K5, K6) and CRC on the
-device of the shard that decoded them, and each batch of the device route
+multiple of their count, and each shard runs K1-K4 (K4's pull mode on the
+host route, into the shard's own vector) on its own device; the main
+path's rows resolve (K5, K6) and CRC on the device of the shard that
+decoded them, and each batch of the device route
 is cut into shards that resolve and CRC on their own devices (a lane in
 passes resolves on the first shard's device). Every shard
 is launched before the first pull to the host. The host loop, its wave
@@ -73,7 +76,7 @@ from ..format.errors import (
 )
 from ..kernels import checksum_lanes as cl
 from . import decode_kernels as dk
-from .decode_kernels import pack_tokens
+from .decode_kernels import compact_pack
 from . import decode_np as dnp
 from . import resolve as rs
 from .wave_prep import (
@@ -116,16 +119,19 @@ def stage_c_entries(
     return entries, final
 
 
-def wave_stages(w: dict, *, k1: int | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def wave_stages(w: dict, *, k1: int | None = None, pack: bool = False) -> tuple:
     """The device stages of one wave (``_run_wave_pallas_impl`` with its
     summary fold): stage A (K1), stage B (K2), stage C, stage DC (K3, the
     fold in its epilogue) and level-2 compaction (K4). ``w`` is a wave dict
     of tensors (:func:`wave_prep.wave_to_tensors`). Returns (tokens (L,
     NT*k1) int32 front-compacted with literal bytes mapped, K3's summary
     rows (L, 8, NT) int32, the (7, L) int32 vector the host pulls, with
-    row 6 (nlit) 0), on the wave's device. ``k1`` defaults to the
-    wave's bucket; past the largest bucket a tile can still overflow, and
-    the wave loop then reruns the wave with k1 = 512, which cannot.
+    row 6 (nlit) 0), on the wave's device. With ``pack`` (the host route)
+    the compaction is K4's pull mode (``decode_kernels.compact_pack``): the
+    first result is then (bitmap, lit, match) of the compacted tokens, and
+    row 6 of the vector holds each lane's literal count. ``k1`` defaults to
+    the wave's bucket; past the largest bucket a tile can still overflow,
+    and the wave loop then reruns the wave with k1 = 512, which cannot.
     """
     if k1 is None:
         k1 = _lane_k1(w.get("_min_tok_bits", 1))
@@ -134,6 +140,10 @@ def wave_stages(w: dict, *, k1: int | None = None) -> tuple[torch.Tensor, torch.
     transfers = dk.stage_b(dt)
     _entries, _final, entries = dk.stage_c(transfers, w["rem"])
     tokc, summ, small = dk.stage_dc(dt, tt, entries, k1=k1)
+    del dt, tt, transfers, entries  # freed before the compaction's outputs are made
+    if pack:
+        bitmap, lit, match, _nlit = compact_pack(tokc.reshape(L, NT * k1), w["lit_planes"], small)
+        return (bitmap, lit, match), summ, small
     tokens = dk.compact_flat(tokc.reshape(L, NT * k1), w["lit_planes"])
     return tokens, summ, small
 
@@ -205,7 +215,7 @@ class LaneState:
     out_total: int = 0
     window: int = W_CAP_INIT  # payload bytes per block on the device (grows on demand)
     bitpos_advanced: bool = False  # this wave's block reached its EOB
-    # Device route: Huffman blocks' tokens stay on the device (no K7 pull)
+    # Device route: Huffman blocks' tokens stay on the device (no packed pull)
     # while out_total is at most this; None = host route.
     device_cap: int | None = None
 
@@ -292,9 +302,9 @@ def decode_deflate_streams_v2(
     block's tokens stay on ``device`` (a copy of the lane's row of the
     wave) while stream i's output is at most ``device_caps[i]``; a stream
     that passes its cap (longer than its trailer claims) has its tokens
-    pulled to the host. Without, the packed pull (K7) brings every block's
-    tokens to the host. ``stats["waves"]``, when given, counts the device
-    waves run.
+    pulled to the host. Without, the packed pull (K4's pull mode) brings
+    every block's tokens to the host. ``stats["waves"]``, when given,
+    counts the device waves run.
     """
     return _decode_streams(payloads, _runner(device, mesh), stats, device_caps)
 
@@ -421,13 +431,12 @@ def _dispatch_block_stages(wave, rows, row_bits, hp, truncated, runner: WaveRunn
     on_device = wave[0].device_cap is not None  # one route for every lane of a chain batch
     shards = []
     for _a, _b, w in runner.dispatch(w_np, len(wave)):
-        tokens, _summ, small = wave_stages(w)
         if on_device:
+            tokens, _summ, small = wave_stages(w)
             shards.append((w, ("device", tokens), small))
         else:
-            bitmap, lit8, match32, nlit = pack_tokens(tokens)
-            small[6] = nlit
-            shards.append((w, ("packed", bitmap, lit8, match32), small))
+            packed, _summ, small = wave_stages(w, pack=True)
+            shards.append((w, ("packed", *packed), small))
     if stats is not None:
         stats["waves"] = stats.get("waves", 0) + 1
     return wave, shift2, truncated, shards
@@ -931,7 +940,7 @@ def gzip_decompress_v2(
     path and every other Huffman member through the device route (tokens
     kept on the device, chained 64 KiB tiles, CRC on the device) when
     ``device`` is CUDA, and everything through the host route otherwise;
-    "on" does the same on any device; "off" takes the host route (K7
+    "on" does the same on any device; "off" takes the host route (packed
     token pull, C-core resolve, host CRC) for every Huffman member. Unlike
     the reference, "auto" sends big and multi-block members to the device,
     since their tokens are already there. No member leaves the device route

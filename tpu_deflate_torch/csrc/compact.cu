@@ -31,26 +31,46 @@
 // through a 256-byte rank -> byte table that each block builds once from
 // the lane's 64 plane words: one shared-memory lookup per literal.
 //
-// Pack mode (pack_kernel, td_compact_pack) replaces the host route's
-// packed token pull, tpu_deflate/codec/decode_jax_v2.py:1385
-// _pack_tokens_jit, whose two compact_any_pallas calls and XLA bitmap and
-// sums the port ran as two K7 launches and some fifteen eager ops a wave.
-// One launch splits a wave's front-compacted tokens (L, M) int32 into the
-// literals (0..255) as bytes, front-compacted with 255 after them, the
-// matches (>= 256) as int32, front-compacted with -1 after them, the
-// order as a bitmap (L, ceil(M / 32)) int32 whose bit k of word w is 1
-// where token 32w + k is a literal (bits past M are 0), and each lane's
-// literal count. Tokens below 0 are in neither stream. Bound on the H100:
-// memory traffic, 4 bytes read and at most 5 + 1/8 written per token. The
-// segments, groups and loads are K7's; a segment's two counts travel as
-// one 62-bit pair (literals in the low 31 bits, matches above) through
-// td::look_back_pair, the padding of each stream follows K7's rule from
-// its end, and each bitmap word is the 4-bit literal masks of 8
-// neighbouring threads joined by three shuffles and stored by the first
-// of them. The lane's last segment writes its literal count. The status
-// words come in two halves that calls on a stream take in turn, each call
-// zeroing the half the call before it used, so a wave launches nothing
-// else.
+// Pull mode (compact_pull_kernel, td_compact_pull) replaces the host
+// route's packed token pull, tpu_deflate/codec/decode_jax_v2.py:1385
+// _pack_tokens_jit, and with the map on folds it into K4's launch: one pass
+// over K3's tokens does what K4 and then the pull did in two. It splits a
+// lane's entries (L, M) int32 into the literals (0..255, mapped to bytes
+// where the map is on) as bytes, front-compacted with 255 after them, the
+// matches (>= 256) as int32, front-compacted with -1 after them, the order
+// as a bitmap (L, ceil(M / 32)) int32, and each lane's literal count.
+// Entries below 0 are in neither stream. With the map on the bitmap is that
+// of the compacted lane: bit k of word w is 1 where its valid entry 32w + k
+// is a literal (what the pull of K4's output gave); with the map off it is
+// that of the input (bit k of word w: entry 32w + k), so on front-compacted
+// tokens the no-map mode is the pull alone (decode_kernels.pack_tokens).
+// Bound on the H100: memory traffic, 4 bytes read and 5 + 1/8 written per
+// entry; K4 and the pull in turn moved 8 + 9 1/8. The segments, groups and
+// loads are K4's; a segment's two counts travel as one 62-bit pair
+// (literals in the low 31 bits, matches above) through td::look_back_pair,
+// whose sum is also the segment's first slot in the compacted lane; the
+// padding of each stream follows K4's rule from its end, stored 16 bytes at
+// a time (a 255 byte and a -1 int are both all ones). The pull takes
+// 4096-entry segments from PULL_SMALL_WAVE_BLOCKS of them a wave, half K4's
+// rule: with 1024-entry ones the 64 x 26624 wave took 13.4 us on an H100
+// at 700 W, with 4096-entry ones 8.6 (scripts/compact_pull_variants.py).
+// Each block stages its literal flags in bitmap order (the valid rank with
+// the map on, the entry with it off) and its warps build the words by
+// ballots. With the map on a segment's bits start at its first slot, which
+// no rule aligns to a word: a word inside the segment's range is stored
+// plainly, and the words at its two ends, which neighbouring segments share
+// (several where the segments between hold no valid entry), are
+// atomicOr'ed into a bitmap that the C entry zeroes first with one
+// cudaMemsetAsync (a memset node, not a kernel launch); zero words are not
+// stored at all, and the bits past the lane's count stay 0. A scratch word
+// with an arrival count would spare the memset (1/32 of the tokens' bytes)
+// but needs every word's writers counted, including the segments that hold
+// no valid entry: the memset is the simpler way and costs no launch. With
+// the map off every word lies in one segment and is stored. The lane's last
+// segment writes its literal count: into row 6 of K3's (7, L) vector on the
+// host route. The status words come in two halves that calls on a stream
+// take in turn, each call zeroing the half the call before it used, so a
+// launch needs no fill.
 #include "td_common.cuh"
 #include "td_lookback.cuh"
 
@@ -211,23 +231,44 @@ extern "C" int td_compact(const void* tok, const void* planes, void* out, void* 
 
 namespace {
 
-constexpr unsigned long long PACK_COUNT = (1ull << 31) - 1;  // the literal count's bits of a pair
+constexpr unsigned long long PAIR_COUNT = (1ull << 31) - 1;  // the literal count's bits of a pair
+
+// The pull takes 4096-entry segments from this many a wave (K4 from
+// SMALL_WAVE_BLOCKS): its blocks carry more than K4's before their first
+// store (two scans, the flags, the ballots).
+constexpr int PULL_SMALL_WAVE_BLOCKS = 2 * 132;
 
 struct PairSum {
   __device__ unsigned long long operator()(unsigned long long a, unsigned long long b) const { return a + b; }
 };
 
-template <int PER>
+// Sets bytes [0, n) of p to 0xFF (the -1 and the 255 padding alike): the
+// head up to a 16-byte boundary and the tail by single bytes, the rest by
+// 16-byte stores.
+__device__ __forceinline__ void fill_ones(uint8_t* p, int n, int tid) {
+  const int head = min(n, (int)((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15));
+  const int nvec = (n - head) >> 4;
+  if (tid < head) p[tid] = 0xFF;
+  int4* q = reinterpret_cast<int4*>(p + head);
+  for (int i = tid; i < nvec; i += THREADS) q[i] = make_int4(-1, -1, -1, -1);
+  const int done = head + (nvec << 4);
+  if (tid < n - done) p[done + tid] = 0xFF;
+}
+
+template <int PER, bool MAP>
 __global__ void __launch_bounds__(THREADS)
-    pack_kernel(const int* __restrict__ tok, int* __restrict__ bitmap, uint8_t* __restrict__ lit,
-                int* __restrict__ match, int* __restrict__ nlit, unsigned long long* __restrict__ status,
-                int* __restrict__ ticket, unsigned long long* __restrict__ other, long long dirty, int M,
-                int Mw, int nseg, int vec) {
+    compact_pull_kernel(const int* __restrict__ tok, const int* __restrict__ planes, int* __restrict__ bitmap,
+                        uint8_t* __restrict__ lit, int* __restrict__ match, int* __restrict__ nlit,
+                        unsigned long long* __restrict__ status, int* __restrict__ ticket,
+                        unsigned long long* __restrict__ other, long long dirty, int M, int Mw, int nseg, int vec) {
   constexpr int SEG = THREADS * PER;
   constexpr int GROUPS = PER / 4;
   static_assert(PER % 4 == 0 && GROUPS <= 4, "up to four groups of 4 entries a thread");
   __shared__ int stage_m[SEG];
   __shared__ uint8_t stage_l[SEG];
+  __shared__ uint8_t stage_f[SEG];  // literal flags in bitmap order
+  __shared__ uint32_t lp[64];
+  __shared__ uint8_t table[256];
   __shared__ unsigned long long wsum_l[WARPS], wsum_m[WARPS];
   __shared__ int s_ticket;
   __shared__ unsigned long long s_before;
@@ -244,6 +285,7 @@ __global__ void __launch_bounds__(THREADS)
   const int seg0 = seg * SEG;
   const int seg_len = min(SEG, M - seg0);
   const int* x = tok + (size_t)lane * M + seg0;
+  if (MAP && tid < 64) lp[tid] = (uint32_t)planes[lane * 64 + tid];
 
   // The thread's groups; entries past the lane's end read as -1.
   int v[GROUPS][4];
@@ -264,23 +306,14 @@ __global__ void __launch_bounds__(THREADS)
   unsigned long long cnt_l = 0, cnt_m = 0;
 #pragma unroll
   for (int k = 0; k < GROUPS; ++k) {
-    uint32_t nib = 0;
-    int nm = 0;
+    int nl = 0, nm = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      nib |= (uint32_t)(v[k][j] >= 0 && v[k][j] < 256) << j;
+      nl += v[k][j] >= 0 && v[k][j] < 256;
       nm += v[k][j] >= 256;
     }
-    cnt_l |= (unsigned long long)__popc(nib) << (16 * k);
+    cnt_l |= (unsigned long long)nl << (16 * k);
     cnt_m |= (unsigned long long)nm << (16 * k);
-    // Word (seg0 + 4 (k THREADS + tid)) / 32 of the bitmap: the masks of
-    // the 8 threads tid & ~7 .. tid | 7, 4 bits each.
-    uint32_t word = nib << (4 * (lid & 7));
-    word |= __shfl_xor_sync(0xffffffffu, word, 1);
-    word |= __shfl_xor_sync(0xffffffffu, word, 2);
-    word |= __shfl_xor_sync(0xffffffffu, word, 4);
-    const int w = (seg0 + 4 * (k * THREADS + tid)) >> 5;
-    if ((lid & 7) == 0 && w < Mw) bitmap[(size_t)lane * Mw + w] = (int)word;
   }
   const unsigned long long incl_l = warp_incl64(cnt_l);
   const unsigned long long incl_m = warp_incl64(cnt_m);
@@ -288,7 +321,7 @@ __global__ void __launch_bounds__(THREADS)
     wsum_l[wid] = incl_l;
     wsum_m[wid] = incl_m;
   }
-  __syncthreads();
+  __syncthreads();  // warp totals and the plane words ready
   if (wid == 0) {
     const unsigned long long a = warp_incl64(lid < WARPS ? wsum_l[lid] : 0ull);
     const unsigned long long b = warp_incl64(lid < WARPS ? wsum_m[lid] : 0ull);
@@ -297,7 +330,14 @@ __global__ void __launch_bounds__(THREADS)
       wsum_m[lid] = b;
     }
   }
-  __syncthreads();
+  if (MAP) {  // rank tid -> its byte
+    const int w = tid >> 5, lo5 = tid & 31;
+    uint32_t byte = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) byte |= ((lp[b * 8 + w] >> lo5) & 1u) << b;
+    table[tid] = (uint8_t)byte;
+  }
+  __syncthreads();  // block scans and table ready
   const unsigned long long tot_l = wsum_l[WARPS - 1], tot_m = wsum_m[WARPS - 1];
   const unsigned long long ex_l = (wid ? wsum_l[wid - 1] : 0ull) + incl_l - cnt_l;
   const unsigned long long ex_m = (wid ? wsum_m[wid - 1] : 0ull) + incl_m - cnt_m;
@@ -316,52 +356,92 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int k = 0; k < GROUPS; ++k) {
     int rl = before_l + field16(ex_l, k), rm = before_m + field16(ex_m, k);
+    const int e = 4 * (k * THREADS + tid);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int t = v[k][j];
-      if (t >= 256) stage_m[rm++] = t;
-      else if (t >= 0) stage_l[rl++] = (uint8_t)t;
+      if (MAP) {
+        if (t >= 256) {
+          stage_f[rl + rm] = 0;
+          stage_m[rm++] = t;
+        } else if (t >= 0) {
+          stage_f[rl + rm] = 1;
+          stage_l[rl++] = table[t];
+        }
+      } else {
+        if (t >= 256) stage_m[rm++] = t;
+        else if (t >= 0) stage_l[rl++] = (uint8_t)t;
+        if (e + j < seg_len) stage_f[e + j] = t >= 0 && t < 256;
+      }
     }
     before_l += field16(tot_l, k);
     before_m += field16(tot_m, k);
   }
   __syncthreads();  // staged entries and the segment's first slots ready
-  const int start_l = (int)(s_before & PACK_COUNT), start_m = (int)(s_before >> 31);
+  const int start_l = (int)(s_before & PAIR_COUNT), start_m = (int)(s_before >> 31);
   uint8_t* yl = lit + (size_t)lane * M;
   int* ym = match + (size_t)lane * M;
   for (int i = tid; i < agg_l; i += THREADS) yl[start_l + i] = stage_l[i];
   for (int i = tid; i < agg_m; i += THREADS) ym[start_m + i] = stage_m[i];
   // The k-th entry of the lane outside a stream goes to M - 1 - k of it.
   const int out_l = seg_len - agg_l, out_m = seg_len - agg_m;
-  uint8_t* pad_l = yl + (M - (seg0 - start_l) - out_l);
-  int* pad_m = ym + (M - (seg0 - start_m) - out_m);
-  for (int i = tid; i < out_l; i += THREADS) pad_l[i] = 255;
-  for (int i = tid; i < out_m; i += THREADS) pad_m[i] = -1;
+  fill_ones(yl + (M - (seg0 - start_l) - out_l), out_l, tid);
+  fill_ones(reinterpret_cast<uint8_t*>(ym + (M - (seg0 - start_m) - out_m)), 4 * out_m, tid);
+  // The bitmap: the segment's flags cover positions [b0, b0 + bn) of the
+  // lane; word w by one ballot of a warp.
+  const int b0 = MAP ? start_l + start_m : seg0;
+  const int bn = MAP ? agg_l + agg_m : seg_len;
+  int* yb = bitmap + (size_t)lane * Mw;
+  if (bn > 0) {
+    for (int w = (b0 >> 5) + wid; w <= (b0 + bn - 1) >> 5; w += WARPS) {
+      const int p = (w << 5) + lid - b0;
+      const uint32_t word = __ballot_sync(0xffffffffu, p >= 0 && p < bn && stage_f[p]);
+      if (lid == 0) {
+        if (!MAP)
+          yb[w] = (int)word;
+        else if (word && (w << 5) >= b0 && (w << 5) + 32 <= b0 + bn)
+          yb[w] = (int)word;  // the segment's own word
+        else if (word)
+          atomicOr(yb + w, (int)word);  // a word shared with a neighbouring segment
+      }
+    }
+  }
   if (seg == nseg - 1 && tid == 0) nlit[lane] = start_l + agg_l;
 }
 
-template <int PER>
-cudaError_t launch_pack(const int* tok, int* bitmap, uint8_t* lit, int* match, int* nlit,
+template <int PER, bool MAP>
+cudaError_t launch_pull(const int* tok, const int* planes, int* bitmap, uint8_t* lit, int* match, int* nlit,
                         unsigned long long* status, unsigned long long* other, long long dirty, int L, int M,
                         int vec, cudaStream_t stream) {
   constexpr int SEG = THREADS * PER;
   const int nseg = (M + SEG - 1) / SEG;
-  pack_kernel<PER><<<L * nseg, THREADS, 0, stream>>>(
-      tok, bitmap, lit, match, nlit, status, reinterpret_cast<int*>(status + (size_t)L * nseg), other, dirty, M,
-      (M + 31) / 32, nseg, vec);
+  compact_pull_kernel<PER, MAP><<<L * nseg, THREADS, 0, stream>>>(
+      tok, planes, bitmap, lit, match, nlit, status, reinterpret_cast<int*>(status + (size_t)L * nseg), other,
+      dirty, M, (M + 31) / 32, nseg, vec);
   return cudaGetLastError();
+}
+
+template <int PER, bool MAP>
+int pull_occupancy() {
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, compact_pull_kernel<PER, MAP>, THREADS, 0);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // namespace
 
-// tok (L, M) int32 -> bitmap (L, ceil(M / 32)) int32, lit (L, M) uint8,
-// match (L, M) int32, nlit (L,) int32. scratch: L * ceil(M / 1024) status
-// words (uint64) then the ticket counter, all 0; other: the scratch of the
-// call before on the stream, whose first `dirty` words the blocks put back
-// to 0.
-extern "C" int td_compact_pack(const void* tok, void* bitmap, void* lit, void* match, void* nlit, void* scratch,
-                               void* other, long long dirty, int L, int M, void* stream) {
+// tok (L, M) int32, planes (L, 64) int32 or null (the map off) -> bitmap
+// (L, ceil(M / 32)) int32, lit (L, M) uint8, match (L, M) int32, nlit (L,)
+// int32 (any L contiguous int32: row 6 of K3's vector on the host route).
+// scratch: L * ceil(M / 1024) status words (uint64) then the ticket
+// counter, all 0; other: the scratch of the call before on the stream,
+// whose first `dirty` words the blocks put back to 0. With the map on the
+// bitmap is zeroed first (a memset on the stream).
+extern "C" int td_compact_pull(const void* tok, const void* planes, void* bitmap, void* lit, void* match,
+                               void* nlit, void* scratch, void* other, long long dirty, int L, int M, void* stream) {
   const auto* t = static_cast<const int*>(tok);
+  const auto* p = static_cast<const int*>(planes);
   auto* b = static_cast<int*>(bitmap);
   auto* l = static_cast<uint8_t*>(lit);
   auto* m = static_cast<int*>(match);
@@ -370,17 +450,28 @@ extern "C" int td_compact_pack(const void* tok, void* bitmap, void* lit, void* m
   auto* o = static_cast<unsigned long long*>(other);
   auto s = static_cast<cudaStream_t>(stream);
   const int vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(tok) % 16 == 0;
-  const bool small = (long long)L * ((M + 4095) / 4096) < SMALL_WAVE_BLOCKS;
-  return (int)(small ? launch_pack<4>(t, b, l, m, n, status, o, dirty, L, M, vec, s)
-                     : launch_pack<16>(t, b, l, m, n, status, o, dirty, L, M, vec, s));
+  const bool small = (long long)L * ((M + 4095) / 4096) < PULL_SMALL_WAVE_BLOCKS;
+  if (p) {
+    const cudaError_t err = cudaMemsetAsync(b, 0, (size_t)L * ((M + 31) / 32) * sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)(small ? launch_pull<4, true>(t, p, b, l, m, n, status, o, dirty, L, M, vec, s)
+                       : launch_pull<16, true>(t, p, b, l, m, n, status, o, dirty, L, M, vec, s));
+  }
+  return (int)(small ? launch_pull<4, false>(t, p, b, l, m, n, status, o, dirty, L, M, vec, s)
+                     : launch_pull<16, false>(t, p, b, l, m, n, status, o, dirty, L, M, vec, s));
 }
 
-// Resident blocks per SM of the four variants: 1024-entry segments with
-// and without the map, then 4096-entry segments with and without it.
+// Resident blocks per SM of the eight variants: the compaction's, then the
+// pull's, each 1024-entry segments with and without the map, then
+// 4096-entry segments with and without it.
 extern "C" int td_compact_occupancy(int* out) {
   out[0] = occupancy<4, true>();
   out[1] = occupancy<4, false>();
   out[2] = occupancy<16, true>();
   out[3] = occupancy<16, false>();
+  out[4] = pull_occupancy<4, true>();
+  out[5] = pull_occupancy<4, false>();
+  out[6] = pull_occupancy<16, true>();
+  out[7] = pull_occupancy<16, false>();
   return (int)cudaGetLastError();
 }
