@@ -118,6 +118,19 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
 7. interop and errors: a foreign gzip stream without the member index,
    a foreign raw multi-block DEFLATE stream through the wave kernels, and a
    corrupted member raising the same Reason on the "auto" and "off" routes;
+   then the host codec (``phase_host_codec``): the one-shot API's gzip
+   streams (256 KiB at efforts 0, 1 and 2 and with ``FULL_STATIC``, 64 KiB
+   at effort 5) decoded by ``engine.decompress`` on the card as written (no
+   member index: the C core) and with their DEFLATE payload under the TD
+   member index (each Huffman stream taking K1 launches), raw DEFLATE
+   through ``inflate_raw_v2``, ``profile_compress_host`` of 4 MiB on the
+   main path, ``engine.compress`` of 2 MiB read back by ``GzipReader``,
+   three ``MemberCatalog.read_range`` calls (inside a member, across a
+   seam, to the end) and ``resume_point``, ``decode_all(on_error="skip")``
+   reporting exactly the one corrupted member, and ``zlib_compress`` of 1
+   MiB through ``zlib_decompress`` and Python's zlib, its trailer equal to
+   ``adler32_device`` on the card; each step's seconds beside the card's
+   name and power limit;
 8. encode kernels: the match finder's four kernels (``match_keys``,
    ``match_chain``, the same-hash links, ``match_bucket``, the compare
    along them, ``match_select``; every hash family in one launch of each),
@@ -2425,6 +2438,163 @@ def phase_interop(corpus: bytes, gz: bytes, device) -> None:
     require(reasons[0] is not None and reasons[0] == reasons[1], "corruption Reason differs")
 
 
+HOST_BYTES = 256 << 10  # the host encoder's streams at efforts 0-2 and FULL_STATIC
+HOST_E5_BYTES = 64 << 10  # effort 5 (about 0.2 MB/s on the host)
+HOST_PROFILE_BYTES = 4 << 20
+HOST_CATALOG_BYTES = 2 << 20
+HOST_ZLIB_BYTES = 1 << 20
+HOST_BAD_MEMBER = 5
+
+
+def phase_host_codec(corpus: bytes, device) -> dict:
+    """The host codec (the one-shot API's host engine, the streams) with the
+    card's front doors: the host encoder's gzip streams decoded on the card
+    as written (no member index: the C core) and with their DEFLATE payload
+    under the TD member index (the wave kernels; each Huffman stream must
+    take K1 launches), raw DEFLATE through ``inflate_raw_v2``, the profile
+    encoder's members on the main path, the card's encode read back by
+    ``GzipReader`` and by the member catalog on the card (``read_range``,
+    ``resume_point``, ``decode_all(on_error="skip")`` on a copy with one
+    member corrupted), a host zlib stream through ``zlib_decompress`` on the
+    card, Python's zlib and ``adler32_device``, and the one-shot API on its
+    default engine, the card (:func:`oneshot_on_card`). Each step's seconds
+    are printed. Returns the phase's launches."""
+    import io
+
+    import tpu_deflate_torch as td
+    from tpu_deflate_torch import _build, engine
+    from tpu_deflate_torch.catalog import MemberCatalog
+    from tpu_deflate_torch.codec import decode_kernels as dk
+    from tpu_deflate_torch.codec import decode_v2 as pv2
+    from tpu_deflate_torch.codec.profile import profile_compress_host
+    from tpu_deflate_torch.kernels import checksum_lanes as cl
+
+    card = gpu_name_power()
+
+    def timed(fn):
+        t0 = time.monotonic()
+        out = fn()
+        return out, time.monotonic() - t0
+
+    _build.reset_launches()
+    data = corpus[:HOST_BYTES]
+    streams = [(f"effort {e}", data, {"effort": e}) for e in (0, 1, 2)]
+    streams += [("effort 5", corpus[:HOST_E5_BYTES], {"effort": 5}), ("FULL_STATIC", data, {"strategy": td.FULL_STATIC})]
+    raws = {}
+    for label, src, kw in streams:
+        gz, t_enc = timed(lambda: td.gzip_compress(src, engine="host", **kw))
+        out, t_dec = timed(lambda: engine.decompress(gz, engine="cuda"))
+        require(out == src, f"host encoder, {label}: the card's decode of the stream differs")
+        raws[label] = gz[10:-8]  # the default header is 10 bytes
+        member = td_member(raws[label], len(src), zlib.crc32(src))
+        before = dk.LAUNCHES["stage_a"]
+        out, t_td = timed(lambda: engine.decompress(member, engine="cuda"))
+        stage_a = dk.LAUNCHES["stage_a"] - before
+        stats = dict(pv2.LAST_DECODE_STATS)
+        require(out == src, f"host encoder, {label}: the card's decode under the TD index differs")
+        huffman = stats["stored"] == 0
+        require(stage_a > 0 if huffman else stage_a == 0,
+                f"host encoder, {label}: {stage_a} stage_a launches for a {'Huffman' if huffman else 'stored'} member")
+        log(f"host codec: gzip_compress({len(src)} bytes, {label}) {len(gz)} bytes in {t_enc:.3f} s; the card's "
+            f"decode {t_dec:.3f} s as written (no index: the C core), {t_td:.3f} s under the TD index "
+            f"(stage_a launches {stage_a}, device_resolved {stats['device_resolved']}, stored {stats['stored']}, "
+            f"waves {stats['waves']}); byte-exact ({card})")
+
+    raw, t_enc = timed(lambda: td.deflate(data, effort=1, engine="host"))
+    for label, r, src in (("deflate effort 1", raw, data), ("effort 5's payload", raws["effort 5"],
+                                                            corpus[:HOST_E5_BYTES])):
+        before = dk.LAUNCHES["stage_a"]
+        out, t_dec = timed(lambda: pv2.inflate_raw_v2(r, device=device))
+        require(out == src and dk.LAUNCHES["stage_a"] > before, f"raw DEFLATE ({label}) through inflate_raw_v2")
+        log(f"host codec: raw DEFLATE ({label}, {len(r)} bytes) through inflate_raw_v2 on the card in {t_dec:.3f} s, "
+            f"{dk.LAUNCHES['stage_a'] - before} stage_a launches; byte-exact (deflate {t_enc:.3f} s) ({card})")
+
+    src = corpus[:HOST_PROFILE_BYTES]
+    pm, t_enc = timed(lambda: profile_compress_host(src))
+    before = dk.LAUNCHES["stage_a"]
+    out, t_dec = timed(lambda: engine.decompress(pm, engine="cuda"))
+    stats = dict(pv2.LAST_DECODE_STATS)
+    require(out == src, "profile_compress_host's members: the card's decode differs")
+    require(stats["members"] == len(src) // MEMBER and stats["device_resolved"] == stats["members"] - stats["stored"]
+            and dk.LAUNCHES["stage_a"] > before, f"profile_compress_host's members off the main path: {stats}")
+    log(f"host codec: profile_compress_host({len(src)} bytes) {len(pm)} bytes in {t_enc:.3f} s; the card's decode "
+        f"{t_dec:.3f} s, {stats['members']} members, device_resolved {stats['device_resolved']}, stored "
+        f"{stats['stored']}, {dk.LAUNCHES['stage_a'] - before} stage_a launches; byte-exact ({card})")
+
+    src = corpus[:HOST_CATALOG_BYTES]
+    gz, t_enc = timed(lambda: engine.compress(src, engine="cuda"))
+    out, t_read = timed(lambda: td.GzipReader(io.BytesIO(gz), multi_member=True).read())
+    require(out == src, "GzipReader of the card's encode differs")
+    cat, t_cat = timed(lambda: MemberCatalog(gz))
+    require(len(cat.entries) == len(src) // MEMBER and cat.total_uncompressed == len(src), "catalog of the card's encode")
+    ranges = ((1000, 5000), (3 * MEMBER - 100, 4 * MEMBER + 100), (len(src) - 12345, 1 << 40))
+    for a, b in ranges:
+        got, t = timed(lambda: cat.read_range(a, b))
+        require(got == src[a:b], f"MemberCatalog.read_range({a}, {b}) differs")
+        log(f"host codec: MemberCatalog.read_range({a}, {b}) of the card's encode: {len(got)} bytes in {t:.4f} s; "
+            f"byte-exact ({card})")
+    done = 7 * MEMBER + 17
+    start, out_start = cat.resume_point(done)
+    out, t_res = timed(lambda: engine.decompress(gz[start:], engine="cuda"))
+    require(out_start == 7 * MEMBER and start == cat.entries[7].index.start and out == src[out_start:],
+            f"resume_point({done}) = ({start}, {out_start})")
+    bad = bytearray(gz)
+    bad[cat.entries[HOST_BAD_MEMBER].index.payload_start + 100] ^= 0x5A
+    (out, bad_members), t_skip = timed(lambda: MemberCatalog(bytes(bad)).decode_all(on_error="skip"))
+    lo, hi = HOST_BAD_MEMBER * MEMBER, (HOST_BAD_MEMBER + 1) * MEMBER
+    require(bad_members == [HOST_BAD_MEMBER] and out == src[:lo] + src[hi:],
+            f"decode_all(on_error='skip') reported {bad_members}, expected [{HOST_BAD_MEMBER}]")
+    log(f"host codec: engine.compress({len(src)} bytes) on the card in {t_enc:.3f} s; GzipReader read it back in "
+        f"{t_read:.3f} s, the catalog of {len(cat.entries)} members in {t_cat:.4f} s (its decodes on the card), resume_point({done}) = "
+        f"({start}, {out_start}) and the card's decode from there in {t_res:.3f} s; decode_all(on_error='skip') "
+        f"with member {HOST_BAD_MEMBER} corrupted reported {bad_members} in {t_skip:.3f} s; byte-exact ({card})")
+
+    src = corpus[:HOST_ZLIB_BYTES]
+    z, t_enc = timed(lambda: td.zlib_compress(src, effort=1, engine="host"))
+    before = dict(dk.LAUNCHES)
+    out, t_dec = timed(lambda: td.zlib_decompress(z))
+    require(out == src and zlib.decompress(z) == src, "zlib_compress's stream does not round-trip")
+    require(dk.LAUNCHES["stage_a"] > before["stage_a"] and dk.LAUNCHES["adler_sums"] == before["adler_sums"] + 1,
+            "zlib_decompress did not decode on the card")
+    before = dk.LAUNCHES["adler_sums"]
+    ad, t_ad = timed(lambda: cl.adler32_device(src, device=device))
+    trailer = int.from_bytes(z[-4:], "big")
+    require(ad == trailer == zlib.adler32(src) and dk.LAUNCHES["adler_sums"] == before + 1,
+            f"zlib trailer {trailer:#010x}, adler32_device {ad:#010x}")
+    log(f"host codec: zlib_compress({len(src)} bytes, effort 1, the host engine) {len(z)} bytes in {t_enc:.3f} s, "
+        f"zlib_decompress on the card {t_dec:.3f} s, Python's zlib reads it; its trailer {trailer:#010x} equals "
+        f"adler32_device's on the card ({t_ad:.4f} s, one launch) ({card})")
+    oneshot_on_card(corpus[:HOST_BYTES], card)
+    return _build.all_launches()
+
+
+def oneshot_on_card(src: bytes, card: str) -> None:
+    """The one-shot API on its default engine, the card: each encode read by
+    Python's gzip or zlib and by the card's one-shot decode, the first member
+    alone with ``multi_member=False``; each step's seconds printed."""
+    import tpu_deflate_torch as td
+    from tpu_deflate_torch import _build
+    from tpu_deflate_torch.codec import decode_kernels as dk
+
+    enc = dict(_build.ENCODE_LAUNCHES)
+    t0 = time.monotonic()
+    gz, raw, z = td.gzip_compress(src), td.deflate(src, effort=4), td.zlib_compress(src, effort=4)
+    t_enc = time.monotonic() - t0
+    require(all(_build.ENCODE_LAUNCHES[k] > enc[k] for k in ("emit_body", "match_select")),
+            "the one-shot encodes did not run on the card")
+    require(gzip.decompress(gz) == zlib.decompress(raw, -15) == zlib.decompress(z) == src,
+            "the one-shot encodes on the card: Python's gzip/zlib read other bytes")
+    before = dk.LAUNCHES["stage_a"]
+    t0 = time.monotonic()
+    outs = (td.gzip_decompress(gz), td.gzip_decompress(gz, multi_member=False), td.zlib_decompress(z))
+    t_dec = time.monotonic() - t0
+    require(outs == (src, src[:MEMBER], src) and dk.LAUNCHES["stage_a"] > before,
+            "the one-shot decodes on the card differ")
+    log(f"host codec: the one-shot API on the card, {len(src)} bytes: gzip_compress (effort 2) {len(gz)}, deflate "
+        f"and zlib_compress (effort 4) {len(raw)} and {len(z)} bytes, {t_enc:.3f} s for the three; gzip_decompress "
+        f"(all members, the first member alone) and zlib_decompress {t_dec:.3f} s for the three; byte-exact ({card})")
+
+
 def encode_members(corpus: bytes) -> bytes:
     """Five members of the corpus for the card-against-CPU check: text,
     random bytes, runs, zeros and a 60-byte text tail (which routes to
@@ -3806,6 +3976,7 @@ def main(argv: list[str]) -> int:
     phase_on_route(corpus)
     big_launches = phase_big_members(corpus, device, args.profile, K)
     phase_interop(corpus, gz, device)
+    host_launches = phase_host_codec(corpus, device)
 
     encode_first = phase_encode_kernels(corpus, device, K)
     enc_launches, enc_median_s, enc_bounds, effort2_bytes = phase_encode_main(corpus, encode_first, K)
@@ -3826,7 +3997,8 @@ def main(argv: list[str]) -> int:
     row_launches = phase_kernel_rows(corpus, native.compress_members_native(corpus), timed_median_s, K)
     path_launches = {"main": launches, "off": off_launches, "big": big_launches, "encode": enc_launches,
                      "continuous": cont_launches, "continuous_decode": cont_dec_launches, "mesh": mesh_launches,
-                     "passes": pass_launches, "kernel_rows": row_launches, "adler": adler_launches}
+                     "passes": pass_launches, "kernel_rows": row_launches, "adler": adler_launches,
+                     "host_codec": host_launches}
 
     kernels = [
         {

@@ -107,3 +107,23 @@ def test_cli_error_paths(tmp_path, monkeypatch, capsys):
     assert cli.main_gunzip([str(src)]) == 1
     with pytest.raises(ValueError, match="cuda"):
         cli.main_gzip(["--engine", "host", str(src), str(tmp_path / "y.gz")])
+
+
+@pytest.mark.parametrize("mtime, shown", [(1 << 31, "1901-12-13 20:45:52 UTC"), ((1 << 32) - 1, "1969-12-31 23:59:59 UTC")])
+def test_cli_reports_mtime_as_signed_int32(tmp_path, capsys, mtime, shown):
+    """An MTIME of 2**31 or more is read as the reference reads it, a signed
+    int32 (RFC 1952 has it unsigned), and reported as that date."""
+    import gzip
+    import io
+
+    from tpu_deflate.format.gzip_meta import GzipMetadata as RefMetadata
+    from tpu_deflate_torch.format.gzip_meta import GzipMetadata, header_bytes
+
+    raw = gzip.compress(b"signed mtime " * 100, mtime=mtime)
+    ours = GzipMetadata.read(io.BytesIO(raw))
+    assert ours.modification_time_unix_s == RefMetadata.read(io.BytesIO(raw)).modification_time_unix_s == mtime - (1 << 32)
+    assert header_bytes(ours) == raw[:10]
+    src, dst = tmp_path / "m.gz", tmp_path / "m.out"
+    src.write_bytes(raw)
+    assert cli.main_gunzip([str(src), str(dst)]) == 0
+    assert f"Last modified: {shown}" in capsys.readouterr().err

@@ -39,7 +39,10 @@ def test_port_modules_import_no_jax_package():
     assert {"tpu_deflate_torch.codec.resolve", "tpu_deflate_torch.kernels.checksum_lanes",
             "tpu_deflate_torch.native", "tpu_deflate_torch.engine", "tpu_deflate_torch.cli",
             "tpu_deflate_torch.dist", "tpu_deflate_torch.dist.mesh", "tpu_deflate_torch.dist.sharded",
-            "tpu_deflate_torch.dist.dryrun"} <= set(mods)
+            "tpu_deflate_torch.dist.dryrun", "tpu_deflate_torch.streams.gzip_stream",
+            "tpu_deflate_torch.streams.zlib_stream", "tpu_deflate_torch.codec.inflate_host",
+            "tpu_deflate_torch.codec.deflate_encode", "tpu_deflate_torch.codec.profile",
+            "tpu_deflate_torch.catalog", "tpu_deflate_torch.stats"} <= set(mods)
     _run([f"import {m}" for m in mods])
 
 

@@ -1,8 +1,9 @@
 """Member index and batched host-side header parse (NumPy; a copy, trimmed,
-of ``tpu_deflate.codec.decode_jax``, which is NumPy-only despite its name,
-plus ``validate_code_lengths`` from ``tpu_deflate.kernels.huffman``).
+of ``tpu_deflate.codec.decode_jax``, which is NumPy-only despite its name;
+``validate_code_lengths`` comes from ``kernels/huffman.py``).
 
-- ``split_members``: walk the 'TD' FEXTRA member index -> MemberIndex.
+- ``split_members``: walk the 'TD' FEXTRA member index -> MemberIndex;
+  ``member_at``: one member of it.
 - ``parse_headers_batch``: lock-step parse of one fixed/dynamic block
   header per lane with the reference's Reasons and their order.
 - ``build_luts_batch``: batched canonical decode LUTs (the header parse
@@ -18,7 +19,8 @@ import numpy as np
 
 from .. import native
 from ..format.errors import DataFormatError, Reason
-from ..format.tables import CLEN_ORDER, FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS, MAX_CODE_LEN
+from ..format.tables import CLEN_ORDER, FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS
+from ..kernels.huffman import validate_code_lengths
 
 TD_SUBFIELD = b"TD"
 
@@ -44,89 +46,57 @@ def split_members(gz: np.ndarray) -> list[MemberIndex] | None:
     member lacks the subfield (the caller falls back to a serial decode)."""
     members = []
     pos = 0
-    n = gz.size
-    buf = gz
-    while pos < n:
-        if pos + 10 > n or buf[pos] != 0x1F or buf[pos + 1] != 0x8B:
+    while pos < gz.size:
+        m = member_at(gz, pos)
+        if m is None:
             return None
-        flags = int(buf[pos + 3])
-        if not flags & 0x04:  # no FEXTRA
-            return None
-        p = pos + 10
-        if p + 2 > n:
-            return None
-        xlen = int(buf[p]) | int(buf[p + 1]) << 8
-        extra = buf[p + 2 : p + 2 + xlen]
-        p += 2 + xlen
-        member_len = None
-        q = 0
-        while q + 4 <= xlen:
-            sid = bytes(extra[q : q + 2])
-            slen = int(extra[q + 2]) | int(extra[q + 3]) << 8
-            if sid == TD_SUBFIELD and slen == 4:
-                member_len = int.from_bytes(bytes(extra[q + 4 : q + 8]), "little")
-            q += 4 + slen
-        if member_len is None:
-            return None
-        if flags & 0x08:  # FNAME
-            while p < n and buf[p] != 0:
-                p += 1
-            p += 1
-        if flags & 0x10:  # FCOMMENT
-            while p < n and buf[p] != 0:
-                p += 1
-            p += 1
-        if flags & 0x02:  # FHCRC
-            p += 2
-        end = pos + member_len
-        if end > n or end - 8 < p:
-            return None
-        isize = int.from_bytes(bytes(buf[end - 4 : end]), "little")
-        crc = int.from_bytes(bytes(buf[end - 8 : end - 4]), "little")
-        members.append(MemberIndex(pos, p, end, isize, crc))
-        pos = end
+        members.append(m)
+        pos = m.end
     return members
 
 
-# ---------------------------------------------------------------------------
-# Code-length validation (tpu_deflate.kernels.huffman.validate_code_lengths)
-# ---------------------------------------------------------------------------
-
-
-def validate_code_lengths(lengths: np.ndarray) -> None:
-    """Raise HUFFMAN_CODE_UNDER_FULL / OVER_FULL unless the lengths form a
-    complete canonical code, with the reference's precedence."""
-    lengths = np.asarray(lengths)
-    used = lengths[lengths > 0]
-    n = used.size
-    under = DataFormatError(
-        Reason.HUFFMAN_CODE_UNDER_FULL,
-        "This canonical code produces an under-full Huffman code tree",
-    )
-    if n < 2:
-        raise under
-    counts = np.bincount(used, minlength=MAX_CODE_LEN + 1)
-    max_present = int(used.max())
-    open_slots = 2  # the root's two children
-    internals = 1  # the root
-    remaining = n
-    for level in range(1, max_present + 1):
-        c = int(counts[level])
-        if c > open_slots:
-            raise DataFormatError(
-                Reason.HUFFMAN_CODE_OVER_FULL,
-                "This canonical code produces an over-full Huffman code tree",
-            )
-        open_slots -= c
-        remaining -= c
-        if remaining == 0:
-            break
-        internals += open_slots
-        if internals > n - 1:
-            raise under
-        open_slots *= 2
-    if open_slots > 0:
-        raise under
+def member_at(buf: np.ndarray, pos: int) -> MemberIndex | None:
+    """The member that starts at ``pos``, from its TD FEXTRA subfield; None
+    where the header is not a gzip header with that subfield or the
+    subfield's size overruns the stream."""
+    n = buf.size
+    if pos + 10 > n or buf[pos] != 0x1F or buf[pos + 1] != 0x8B:
+        return None
+    flags = int(buf[pos + 3])
+    if not flags & 0x04:  # no FEXTRA
+        return None
+    p = pos + 10
+    if p + 2 > n:
+        return None
+    xlen = int(buf[p]) | int(buf[p + 1]) << 8
+    extra = buf[p + 2 : p + 2 + xlen]
+    p += 2 + xlen
+    member_len = None
+    q = 0
+    while q + 4 <= xlen:
+        sid = bytes(extra[q : q + 2])
+        slen = int(extra[q + 2]) | int(extra[q + 3]) << 8
+        if sid == TD_SUBFIELD and slen == 4:
+            member_len = int.from_bytes(bytes(extra[q + 4 : q + 8]), "little")
+        q += 4 + slen
+    if member_len is None:
+        return None
+    if flags & 0x08:  # FNAME
+        while p < n and buf[p] != 0:
+            p += 1
+        p += 1
+    if flags & 0x10:  # FCOMMENT
+        while p < n and buf[p] != 0:
+            p += 1
+        p += 1
+    if flags & 0x02:  # FHCRC
+        p += 2
+    end = pos + member_len
+    if end > n or end - 8 < p:
+        return None
+    isize = int.from_bytes(bytes(buf[end - 4 : end]), "little")
+    crc = int.from_bytes(bytes(buf[end - 8 : end - 4]), "little")
+    return MemberIndex(pos, p, end, isize, crc)
 
 
 # ---------------------------------------------------------------------------

@@ -585,8 +585,15 @@ def _resolve_lane(st: LaneState, cap: int | None) -> bytes:
 def inflate_raw_v2(payload: bytes, *, device: torch.device) -> bytes:
     """Decode one complete raw DEFLATE stream through the wave kernels;
     raises DataFormatError with the reference taxonomy."""
+    return inflate_raw_end_v2(payload, device=device)[0]
+
+
+def inflate_raw_end_v2(payload: bytes, *, device: torch.device) -> tuple[bytes, int]:
+    """:func:`inflate_raw_v2`, and the payload bytes the stream took (to its
+    final block's end, rounded up to a byte): where a container's trailer
+    begins."""
     st = decode_deflate_streams_v2([payload], device)[0]
-    return _resolve_lane(st, None)
+    return _resolve_lane(st, None), (st.bitpos + 7) // 8
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,14 @@
 """Host planning and framing of the device encoder, in NumPy (copies,
-trimmed, of ``tpu_deflate.codec.encode_jax``'s host helpers,
-``deflate_encode``'s code-length RLE and stored framing, and ``profile``'s
-member framing).
+trimmed, of ``tpu_deflate.codec.encode_jax``'s host helpers; the
+code-length RLE comes from ``codec/deflate_encode.py`` and the member
+framing from ``codec/profile.py``).
 
 - ``fix_histograms``: the EOB count and the reference's degenerate-
   histogram fixes, before the lengths are planned;
 - ``pack_codes``: batched canonical codes packed as ``len << 16 | revcode``;
 - ``build_headers``: per-lane dynamic block header slots;
-- ``member_header``, ``build_member``: the profile's TD-indexed gzip member;
+- ``member_header``, ``build_member``, ``TD_SUBFIELD``: the profile's
+  TD-indexed gzip member (``codec/profile.py``'s, imported here);
 - ``stored_payload``: stored framing of one member's bytes.
 """
 
@@ -17,55 +18,12 @@ import numpy as np
 
 from ..format.tables import CLEN_ORDER
 from ..kernels.huffman import huffman_lengths_batch
+from .deflate_encode import _CLEN_EXTRA_BITS, MAX_STORED_BLOCK, _clen_rle
+from .profile import TD_SUBFIELD, build_member, member_header  # noqa: F401 (this module's names)
 
 MEMBER_DATA = 64 * 1024  # bytes per member (one lane)
 MAX_CODE_BITS = 15  # full RFC 1951 code range
 MAX_HEADER_SLOTS = 384  # bfinal/btype + counts + 19 clens + <= 320 RLE syms/extras
-MAX_STORED_BLOCK = (1 << 16) - 1
-TD_SUBFIELD = b"TD"
-_HEADER_LEN = 10 + 2 + 8  # base header, XLEN, 'TD' subfield with the u32 size
-_TRAILER_LEN = 8
-_CLEN_EXTRA_BITS = {16: 2, 17: 3, 18: 7}
-
-
-def _clen_rle(code_lens: np.ndarray) -> tuple[list[int], list[int]]:
-    """Greedy RFC 1951 code-length-code run-length encoding: zero runs of
-    3-10 -> 17, 11-138 -> 18; repeat-previous runs of 3-6 -> 16; otherwise
-    literal lengths."""
-    symbols: list[int] = []
-    extras: list[int] = []
-    i = 0
-    n = code_lens.size
-    while i < n:
-        val = int(code_lens[i])
-        if val == 0:
-            run = 1
-            while run < 138 and i + run < n and code_lens[i + run] == 0:
-                run += 1
-            if run < 3:
-                symbols.append(0)
-                i += 1
-            elif run < 11:
-                symbols.append(17)
-                extras.append(run - 3)
-                i += run
-            else:
-                symbols.append(18)
-                extras.append(run - 11)
-                i += run
-            continue
-        if i > 0:
-            run = 0
-            while run < 6 and i + run < n and code_lens[i + run] == code_lens[i - 1]:
-                run += 1
-            if run >= 3:
-                symbols.append(16)
-                extras.append(run - 3)
-                i += run
-                continue
-        symbols.append(val)
-        i += 1
-    return symbols, extras
 
 
 def fix_histograms(litlen_hist: np.ndarray, dist_hist: np.ndarray):
@@ -174,26 +132,6 @@ def build_headers(litlen_lengths: np.ndarray, dist_lengths: np.ndarray,
             vals[l, j] = v
             bits[l, j] = b
     return vals, bits
-
-
-def member_header(member_total_size: int) -> bytes:
-    return (
-        b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
-        + (8).to_bytes(2, "little")
-        + TD_SUBFIELD
-        + (4).to_bytes(2, "little")
-        + member_total_size.to_bytes(4, "little")
-    )
-
-
-def build_member(payload: bytes, isize: int, crc: int) -> bytes:
-    total = _HEADER_LEN + len(payload) + _TRAILER_LEN
-    return (
-        member_header(total)
-        + payload
-        + crc.to_bytes(4, "little")
-        + (isize & 0xFFFFFFFF).to_bytes(4, "little")
-    )
 
 
 def stored_payload(data: bytes) -> bytes:

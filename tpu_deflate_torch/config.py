@@ -1,6 +1,6 @@
 """Encode, decode and mesh knobs of the port (the device fields of
-``tpu_deflate.config``: ``EncoderConfig``, ``DecoderConfig``, ``MeshConfig``
-and ``FrameworkConfig``)."""
+``tpu_deflate.config``, and the decoder's ``on_error``: ``EncoderConfig``,
+``DecoderConfig``, ``MeshConfig`` and ``FrameworkConfig``)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,11 @@ class DecoderConfig:
     # "auto" (when the decode device is CUDA), "on" (on any device, the
     # CPU with the plain versions) or "off" (host resolve)
     device_resolve: str = "auto"
+    # failure isolation of ``catalog.MemberCatalog.decode_all``, and read
+    # there alone (``engine.decompress`` fails on a bad member whatever it
+    # holds): "raise" fails on a bad member; "skip" drops bad members and
+    # reports them
+    on_error: str = "raise"
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,7 @@ import enum
 
 
 class Reason(enum.IntEnum):
-    """Why a DEFLATE/gzip stream was rejected.
+    """Why a DEFLATE/gzip/zlib stream was rejected.
 
     Kernels report failures as int32 codes ``reason + 1`` (0 = ok),
     converted back with :func:`code_to_reason`.
@@ -46,7 +46,7 @@ class Reason(enum.IntEnum):
 
 
 class DataFormatError(ValueError):
-    """A stream violates RFC 1951/1952; carries a ``Reason``."""
+    """A stream violates RFC 1951/1950/1952; carries a ``Reason``."""
 
     def __init__(self, reason: Reason, message: str):
         super().__init__(message)
@@ -55,6 +55,10 @@ class DataFormatError(ValueError):
     @staticmethod
     def unexpected_end() -> "DataFormatError":
         return DataFormatError(Reason.UNEXPECTED_END_OF_STREAM, "Unexpected end of stream")
+
+
+def raise_unexpected_end():
+    raise DataFormatError.unexpected_end()
 
 
 class OutputCapacityError(RuntimeError):

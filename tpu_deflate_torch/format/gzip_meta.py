@@ -1,9 +1,10 @@
-"""RFC 1952 member headers (trimmed copies of
-``tpu_deflate.format.gzip_meta``): the header record and its writer, for
-the metadata member the encoder can put first, and the reader, which
-validates the fields with the reference's Reasons, leaves its source where
-the DEFLATE payload starts and returns the header's record (the CLI's
-metadata report)."""
+"""RFC 1952 member headers (a copy of ``tpu_deflate.format.gzip_meta``):
+the header record, its one writer (``header_bytes``, behind ``to_bytes``
+and ``write``: the gzip writer's header and the metadata member the
+device encoder can put first) and its one reader (``read_gzip_header``,
+behind ``GzipMetadata.read``), which validates the fields with the
+reference's Reasons, leaves its source where the DEFLATE payload starts
+and returns the header's record."""
 
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ from .errors import DataFormatError, Reason
 MAGIC = 0x1F8B
 _OS_UNKNOWN_WIRE = 0xFF
 _OS_VALUES = 14  # RFC 1952 OS values 0..13, plus 0xFF
+
+
+class CompressionMethod(enum.Enum):
+    DEFLATE = 8
 
 
 class OperatingSystem(enum.IntEnum):
@@ -41,8 +46,9 @@ class OperatingSystem(enum.IntEnum):
 @dataclass(frozen=True)
 class GzipMetadata:
     """The header fields of a gzip member, with the reference record's
-    names, defaults and checks (the method is always DEFLATE)."""
+    names, defaults and checks."""
 
+    compression_method: CompressionMethod = CompressionMethod.DEFLATE
     is_file_text: bool = False
     modification_time_unix_s: int | None = None  # None <=> wire value 0
     extra_flags: int = 0
@@ -53,15 +59,27 @@ class GzipMetadata:
     has_header_crc: bool = False
 
     def __post_init__(self):
+        if not isinstance(self.compression_method, CompressionMethod):
+            raise TypeError("compression_method")
         if self.modification_time_unix_s == 0:
             raise ValueError("Modification timestamp is zero")
         if self.extra_flags >> 8 != 0:
             raise ValueError("Invalid extra flags value")
+        if not isinstance(self.operating_system, OperatingSystem):
+            raise TypeError("operating_system")
         if self.extra_field is not None and len(self.extra_field) > 0xFFFF:
             raise ValueError("Extra field too long")
 
+    @staticmethod
+    def read(source) -> "GzipMetadata":
+        """Parse a gzip member header from ``source`` (``read(n)->bytes``)."""
+        return read_gzip_header(source)
+
     def to_bytes(self) -> bytes:
         return header_bytes(self)
+
+    def write(self, sink) -> None:
+        sink.write(self.to_bytes())
 
 
 def header_bytes(meta) -> bytes:
@@ -142,9 +160,12 @@ def read_gzip_header(source) -> GzipMetadata:
         expect = r.crc & 0xFFFF
         if int.from_bytes(r.read_exact(2), "little") != expect:
             raise DataFormatError(Reason.HEADER_CHECKSUM_MISMATCH, "Header CRC-16 mismatch")
+    mod_time = int.from_bytes(head[4:8], "little")
+    if mod_time >= 1 << 31:
+        mod_time -= 1 << 32  # signed int32, as the reference reads it
     return GzipMetadata(
         is_file_text=bool(flags & 0x01),
-        modification_time_unix_s=int.from_bytes(head[4:8], "little") or None,
+        modification_time_unix_s=mod_time or None,
         extra_flags=head[8],
         operating_system=OperatingSystem(_OS_VALUES if head[9] == _OS_UNKNOWN_WIRE else head[9]),
         extra_field=extra,

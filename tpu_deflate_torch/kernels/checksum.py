@@ -1,4 +1,4 @@
-"""Host CRC-32 and its GF(2) operator algebra (a copy, trimmed, of
+"""Host CRC-32 with its GF(2) operator algebra, and Adler-32 (a copy of
 ``tpu_deflate.kernels.checksum``).
 
 The CRC register update is affine over GF(2): processing message ``D``
@@ -6,7 +6,9 @@ from register ``i`` gives ``r(D, i) = r(D, 0) XOR L^{8 len(D)}(i)``, with
 ``L`` the one-zero-bit shift. A linear operator over GF(2)^32 is a
 ``np.uint32[32]`` array: ``op[j]`` is the operator applied to ``1 << j``.
 The lane CRC (``checksum_lanes``) uses these operators to combine chunk
-registers and to strip a row's zero tail.
+registers and to strip a row's zero tail; ``crc32_combine`` joins two
+CRCs the same way. The zlib streams and the preset dictionary id use
+``adler32``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import functools
 import numpy as np
 
 CRC32_POLY = 0xEDB88320  # reflected polynomial
+ADLER_MOD = 65521
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,6 +135,17 @@ def op_unshift_n_bits(n: int) -> np.ndarray:
     return result
 
 
+def crc32_combine(crc_a: int, crc_b: int, len_b: int) -> int:
+    """CRC of the concatenation A||B given crc32(A), crc32(B), len(B).
+
+    Matches ``zlib.crc32_combine`` semantics (fully conditioned CRCs in and
+    out); derivation: crc(A||B) = crc(B) XOR L^{8*len_b}(crc(A)).
+    """
+    if len_b == 0:
+        return crc_a & 0xFFFFFFFF
+    return int(op_apply(op_shift_n_bits(8 * len_b), np.uint32(crc_a)) ^ np.uint32(crc_b))
+
+
 def _crc32_raw_lanes(chunks: np.ndarray) -> np.ndarray:
     """Raw-register CRC (init 0, no conditioning) of each row of ``chunks``
     (lanes, chunk_len) uint8, chunk_len % 4 == 0; slice-by-4 steps."""
@@ -187,3 +201,42 @@ def crc32(data, value: int = 0) -> int:
     init_reg = np.uint32((value ^ 0xFFFFFFFF) & 0xFFFFFFFF)
     shifted = op_apply(op_shift_n_bits(8 * n), init_reg)
     return int(np.uint32(total_raw) ^ shifted ^ np.uint32(0xFFFFFFFF))
+
+
+def adler32(data, value: int = 1) -> int:
+    """Adler-32 of ``data``, zlib-compatible. Fully vectorized prefix sums."""
+    buf = np.frombuffer(data, dtype=np.uint8) if isinstance(data, (bytes, bytearray, memoryview)) else np.asarray(data, dtype=np.uint8)
+    a = value & 0xFFFF
+    b = (value >> 16) & 0xFFFF
+    n = buf.size
+    # Process in blocks small enough that int64 sums cannot overflow:
+    # within a block of m bytes, the weighted sum is <= m*(m+1)/2*255 < 2^62
+    # for m <= 2^26.
+    block = 1 << 24
+    pos = 0
+    while pos < n:
+        d = buf[pos : pos + block].astype(np.int64)
+        m = d.size
+        s = int(d.sum())
+        w = int((d * np.arange(m, 0, -1, dtype=np.int64)).sum())  # sum (m-i)*d_i, i0-based weight m..1
+        b = (b + m * a + w) % ADLER_MOD
+        a = (a + s) % ADLER_MOD
+        pos += m
+    return ((b << 16) | a) & 0xFFFFFFFF
+
+
+def adler32_combine(adler_a: int, adler_b: int, len_b: int) -> int:
+    """Adler-32 of A||B from the two parts (for distributed shard combine).
+
+    With a(X) = 1 + sum(X) and b(X) = len(X) + weighted-sum(X), one gets
+    a(A||B) = a(A) + a(B) - 1 and b(A||B) = b(A) + b(B) + len(B)*(a(A) - 1),
+    everything mod 65521 (same identity zlib's adler32_combine uses).
+    """
+    rem = len_b % ADLER_MOD
+    a1 = adler_a & 0xFFFF
+    b1 = (adler_a >> 16) & 0xFFFF
+    a2 = adler_b & 0xFFFF
+    b2 = (adler_b >> 16) & 0xFFFF
+    a = (a1 + a2 + ADLER_MOD - 1) % ADLER_MOD
+    b = (b1 + b2 + rem * (a1 + ADLER_MOD - 1)) % ADLER_MOD
+    return ((b << 16) | a) & 0xFFFFFFFF

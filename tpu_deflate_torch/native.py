@@ -8,7 +8,8 @@ calls: the token resolve and CRC-32 of the host-resolve route, the serial
 inflate of the fallback for streams without a member index, the member
 encoder that writes the profile streams the port reads, and the block
 encoder of the sharded continuous-history encode
-(``dist.sharded.sharded_continuous_compress``). A failed
+(``dist.sharded.sharded_continuous_compress``), and the serial greedy
+tokenizer, the ratio oracle of the host encoder's ``exact=True``. A failed
 build raises with the compiler's output: there is no Python fallback.
 """
 
@@ -48,6 +49,11 @@ SIGNATURES = {
         _SZ,
         [ctypes.c_char_p, _SZ, _SZ, _P, _SZ, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
          ctypes.c_int, ctypes.c_int],
+    ),
+    "td_oracle_tokenize": (
+        _SZ,
+        [ctypes.c_char_p, _SZ, _SZ, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+         ctypes.c_uint32, _P, _P, _P],
     ),
 }
 
@@ -128,10 +134,28 @@ def resolve_tokens(tokens: np.ndarray, out_cap: int) -> bytes:
     return out.raw[: out_len.value]
 
 
-def gzip_decompress_serial(data: bytes) -> bytes:
+def oracle_tokenize(buf: np.ndarray, hist_len: int, *, min_run: int, max_run: int, min_dist: int,
+                    max_dist: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The reference's serial greedy tokenizer (an exhaustive distance scan
+    a position, smallest distance on ties) over ``buf[hist_len:]``, matches
+    reaching into the history: the ratio oracle, O(n * max_dist). Returns
+    int32 (tok_pos, tok_run, tok_dist); tok_run == 0 marks a literal."""
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    m = max(buf.size - hist_len, 1)
+    pos, run, dist = (np.empty(m, np.int32) for _ in range(3))
+    ntok = load().td_oracle_tokenize(
+        buf.ctypes.data_as(ctypes.c_char_p), buf.size, hist_len, min_run, max_run, min_dist, max_dist,
+        pos.ctypes.data_as(ctypes.c_void_p), run.ctypes.data_as(ctypes.c_void_p),
+        dist.ctypes.data_as(ctypes.c_void_p),
+    )
+    return pos[:ntok], run[:ntok], dist[:ntok]
+
+
+def gzip_decompress_serial(data: bytes, *, multi_member: bool = True) -> bytes:
     """Decode a gzip stream member after member with the C core's inflate
     (the stream needs no member index): header, payload, then the trailer's
-    CRC-32 and size, in the host decoder's order."""
+    CRC-32 and size, in the host decoder's order. With ``multi_member``
+    False, only the first member; the bytes after it are not read."""
     if not data:
         raise DataFormatError.unexpected_end()
     out_parts = []
@@ -157,6 +181,8 @@ def gzip_decompress_serial(data: bytes) -> bytes:
         if (len(out) & 0xFFFFFFFF) != int.from_bytes(trailer[4:8], "little"):
             raise DataFormatError(Reason.DECOMPRESSED_SIZE_MISMATCH, "Decompressed size mismatch")
         out_parts.append(out)
+        if not multi_member:
+            break
         stream.seek(payload_start + consumed + 8)
     return b"".join(out_parts)
 
