@@ -48,6 +48,7 @@ import torch
 from ..dist.mesh import LaneSharding, lane_sharding, pad_lanes
 from ..kernels.checksum_lanes import crc32_device
 from ..native import _EMPTY_MEMBER
+from ..spans import span
 from .emit import EMIT_CHUNK, EMIT_WORDS
 from .encode import ENC_LANE_BATCH, ROUTE_STORED, dispatch_phase1, emit_batch, run_pipeline
 from .encode_np import MAX_STORED_BLOCK, MEMBER_DATA, build_member
@@ -182,57 +183,63 @@ def compress_continuous(data: bytes, *, device: torch.device | None = None, mesh
     n = len(data)
     if n == 0:
         return _EMPTY_MEMBER
-    sh = LaneSharding.one(device) if mesh is None else lane_sharding(mesh.local(), None)
-    quality = 2 if effort >= 5 else 1
-    flat = np.frombuffer(data, np.uint8)
-    nlanes = -(-n // block_data)
-    sp = BitSplicer()
-    crc = 0
+    with span("td.encode"):
+        sh = LaneSharding.one(device) if mesh is None else lane_sharding(mesh.local(), None)
+        quality = 2 if effort >= 5 else 1
+        flat = np.frombuffer(data, np.uint8)
+        nlanes = -(-n // block_data)
+        sp = BitSplicer()
+        crc = 0
 
-    def dispatch(first):
-        count = min(lane_batch, nlanes - first)
-        rows, hstart, pay_lens, final = lane_rows(flat, first, count, block_data, pad_lanes(count, sh.n))
-        shards = []  # (pending stage 1, first lane, its finals, its real lanes), in lane order
-        for dev, (a, b) in zip(sh.devices, sh.bounds(rows.shape[0], real=count)):
-            with _on(dev):
-                pend = dispatch_lanes(torch.from_numpy(rows[a:b]).to(dev), torch.from_numpy(hstart[a:b]).to(dev),
-                                      pay_lens[a:b], True, quality)
-            shards.append((pend, first + a, final[a:b], min(b, count) - a))
-        return shards
+        def dispatch(first):
+            count = min(lane_batch, nlanes - first)
+            with span("td.encode.prep"):
+                rows, hstart, pay_lens, final = lane_rows(flat, first, count, block_data, pad_lanes(count, sh.n))
+            shards = []  # (pending stage 1, first lane, its finals, its real lanes), in lane order
+            with span("td.encode.enqueue"):
+                for dev, (a, b) in zip(sh.devices, sh.bounds(rows.shape[0], real=count)):
+                    with _on(dev):
+                        pend = dispatch_lanes(torch.from_numpy(rows[a:b]).to(dev),
+                                              torch.from_numpy(hstart[a:b]).to(dev), pay_lens[a:b], True, quality)
+                    shards.append((pend, first + a, final[a:b], min(b, count) - a))
+            return shards
 
-    def emit(shards):
-        out = []
-        for pend, first, final, real in shards:
-            with _on(pend[0].device):
-                out.append((*_emit_lanes(pend, final), pend[0], first, pend[-1], final, real))
-        return out
+        def emit(shards):
+            out = []
+            for pend, first, final, real in shards:
+                with _on(pend[0].device):
+                    out.append((*_emit_lanes(pend, final), pend[0], first, pend[-1], final, real))
+            return out
 
-    def splice(em):
-        for shard in em:
-            splice_shard(*shard)
+        def splice(em):
+            for shard in em:
+                splice_shard(*shard)
 
-    def splice_shard(words, total_bits, choice, rows, first, pay_lens, final, real):
-        nonlocal crc
-        pay_lens = pay_lens[:real]
-        payload = rows[:real, HALO_COLS : HALO_COLS + block_data].reshape(-1)[: int(pay_lens.sum())]
-        crc = crc32_device(payload, crc)
-        total_bits = total_bits[:real].cpu().numpy()
-        choice = choice[:real].cpu().numpy()
-        ln = pay_lens.astype(np.int64)
-        stored_bits = 8 * (ln + 5 * (-(-ln // MAX_STORED_BLOCK)) + 1)
-        # The device's route, with the emitted size as a backstop in bits (the
-        # reference's), and stored framing for a lane whose bits overflow the
-        # word grid (F2).
-        huff = (choice != ROUTE_STORED) & (total_bits < stored_bits) & (total_bits <= 32 * EMIT_WORDS)
-        mw = max(-(-int(total_bits[huff].max(initial=0)) // 32), 1)
-        wbytes = words[:real, :mw].contiguous().cpu().numpy().view(np.uint8)
-        for i in range(real):
-            nb = int(total_bits[i])
-            if huff[i]:
-                sp.append(wbytes[i, : (nb + 7) // 8].tobytes(), nb)
-            else:
-                p0 = (first + i) * block_data
-                sp.append_stored(flat[p0 : p0 + int(ln[i])].tobytes(), bool(final[i]))
+        def splice_shard(words, total_bits, choice, rows, first, pay_lens, final, real):
+            nonlocal crc
+            pay_lens = pay_lens[:real]
+            with span("td.encode.pull"):  # the member CRC's launch and its read back, then the words
+                payload = rows[:real, HALO_COLS : HALO_COLS + block_data].reshape(-1)[: int(pay_lens.sum())]
+                crc = crc32_device(payload, crc)
+                total_bits = total_bits[:real].cpu().numpy()
+                choice = choice[:real].cpu().numpy()
+                ln = pay_lens.astype(np.int64)
+                stored_bits = 8 * (ln + 5 * (-(-ln // MAX_STORED_BLOCK)) + 1)
+                # The device's route, with the emitted size as a backstop in bits (the
+                # reference's), and stored framing for a lane whose bits overflow the
+                # word grid (F2).
+                huff = (choice != ROUTE_STORED) & (total_bits < stored_bits) & (total_bits <= 32 * EMIT_WORDS)
+                mw = max(-(-int(total_bits[huff].max(initial=0)) // 32), 1)
+                wbytes = words[:real, :mw].contiguous().cpu().numpy().view(np.uint8)
+            with span("td.encode.assemble"):
+                for i in range(real):
+                    nb = int(total_bits[i])
+                    if huff[i]:
+                        sp.append(wbytes[i, : (nb + 7) // 8].tobytes(), nb)
+                    else:
+                        p0 = (first + i) * block_data
+                        sp.append_stored(flat[p0 : p0 + int(ln[i])].tobytes(), bool(final[i]))
 
-    run_pipeline(list(range(0, nlanes, lane_batch)), dispatch, emit, splice)
-    return build_member(sp.payload(), n, crc)
+        run_pipeline(list(range(0, nlanes, lane_batch)), dispatch, emit, splice)
+        with span("td.encode.assemble"):
+            return build_member(sp.payload(), n, crc)

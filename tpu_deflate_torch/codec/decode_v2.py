@@ -75,6 +75,7 @@ from ..format.errors import (
     reason_to_code,
 )
 from ..kernels import checksum_lanes as cl
+from ..spans import span
 from . import decode_kernels as dk
 from .decode_kernels import compact_pack
 from . import decode_np as dnp
@@ -317,10 +318,11 @@ def _decode_streams(payloads: list[bytes], runner: WaveRunner, stats: dict | Non
     lanes = [LaneState(p, device_cap=c) for p, c in zip(payloads, caps)]
     while True:
         wave = []  # (lane, bfinal) whose next block is Huffman
-        for st in lanes:
-            nxt = _advance_host(st)
-            if nxt is not None:
-                wave.append((st, bool(nxt[0] & 1)))
+        with span("td.decode.prep"):
+            for st in lanes:
+                nxt = _advance_host(st)
+                if nxt is not None:
+                    wave.append((st, bool(nxt[0] & 1)))
         if not wave:
             break
         _decode_huffman_wave([st for st, _ in wave], runner, stats)
@@ -360,14 +362,15 @@ def _decode_huffman_wave(wave: list[LaneState], runner: WaveRunner, stats) -> No
     subwave overlaps the kernels of the one before."""
     if not wave:
         return
-    for st in wave:
-        st.bitpos_advanced = False
-    k1s = _k1_groups([st.payload for st in wave], [st.bitpos for st in wave])
-    groups: dict[tuple[int, int], list[LaneState]] = {}
-    for st, k1 in zip(wave, k1s):
-        avail = len(st.payload) - st.bitpos // 8
-        key = (_bucket(max(min(avail, st.window), 1), P_BUCKETS_PALLAS), k1)
-        groups.setdefault(key, []).append(st)
+    with span("td.decode.prep"):
+        for st in wave:
+            st.bitpos_advanced = False
+        k1s = _k1_groups([st.payload for st in wave], [st.bitpos for st in wave])
+        groups: dict[tuple[int, int], list[LaneState]] = {}
+        for st, k1 in zip(wave, k1s):
+            avail = len(st.payload) - st.bitpos // 8
+            key = (_bucket(max(min(avail, st.window), 1), P_BUCKETS_PALLAS), k1)
+            groups.setdefault(key, []).append(st)
     pending = []
     for (P, _k1), grp in sorted(groups.items()):
         lmax = _lane_cap(P, runner.lane_multiple)
@@ -375,8 +378,9 @@ def _decode_huffman_wave(wave: list[LaneState], runner: WaveRunner, stats) -> No
             pend = _decode_huffman_subwave(grp[base : base + lmax], P, runner, stats)
             if pend is not None:
                 pending.append(pend)
-    for mid in [_apply_small(*pend) for pend in pending]:
-        _apply_tokens(*mid)
+    with span("td.decode.pull"):  # the wave's results read back and applied to its lanes
+        for mid in [_apply_small(*pend) for pend in pending]:
+            _apply_tokens(*mid)
 
 
 def _decode_huffman_subwave(wave: list[LaneState], P: int, runner: WaveRunner, stats):
@@ -384,31 +388,34 @@ def _decode_huffman_subwave(wave: list[LaneState], P: int, runner: WaveRunner, s
     pending (not yet pulled) results, or None if a header failed."""
     L_real = len(wave)
     L = runner.lanes(L_real)
-    shifts = [st.bitpos // 8 for st in wave]
-    rems = [st.bitpos % 8 for st in wave]
-    avail = [len(st.payload) - sh for st, sh in zip(wave, shifts)]
-    remain = [min(a, st.window, P) for a, st in zip(avail, wave)]
-    rows = np.zeros((L, P), np.uint8)
-    row_bits = np.zeros(L, np.int64)
-    start_bits = np.zeros(L, np.int64)
-    for i, st in enumerate(wave):
-        rows[i, : remain[i]] = np.frombuffer(st.payload, np.uint8, remain[i], shifts[i])
-        row_bits[i] = remain[i] * 8
-        start_bits[i] = rems[i]
-    for i in range(L_real, L):
-        rows[i, : len(_PAD_PAYLOAD)] = np.frombuffer(_PAD_PAYLOAD, np.uint8)
-        row_bits[i] = len(_PAD_PAYLOAD) * 8
-    truncated = [remain[i] < avail[i] for i in range(L_real)]
-
-    # Batched header parse; on failure re-parse lane by lane so the error
-    # lands on the right stream only.
-    try:
-        hp = dnp.parse_headers_batch(rows, row_bits, start_bits=start_bits)
-    except DataFormatError:
+    with span("td.decode.prep"):
+        shifts = [st.bitpos // 8 for st in wave]
+        rems = [st.bitpos % 8 for st in wave]
+        avail = [len(st.payload) - sh for st, sh in zip(wave, shifts)]
+        remain = [min(a, st.window, P) for a, st in zip(avail, wave)]
+        rows = np.zeros((L, P), np.uint8)
+        row_bits = np.zeros(L, np.int64)
+        start_bits = np.zeros(L, np.int64)
         for i, st in enumerate(wave):
-            r = _reparse_single(rows[i : i + 1], row_bits[i : i + 1], start_bits[i : i + 1])
-            if r is not None:
-                st.err = reason_to_code(r)
+            rows[i, : remain[i]] = np.frombuffer(st.payload, np.uint8, remain[i], shifts[i])
+            row_bits[i] = remain[i] * 8
+            start_bits[i] = rems[i]
+        for i in range(L_real, L):
+            rows[i, : len(_PAD_PAYLOAD)] = np.frombuffer(_PAD_PAYLOAD, np.uint8)
+            row_bits[i] = len(_PAD_PAYLOAD) * 8
+        truncated = [remain[i] < avail[i] for i in range(L_real)]
+
+        # Batched header parse; on failure re-parse lane by lane so the error
+        # lands on the right stream only.
+        try:
+            hp = dnp.parse_headers_batch(rows, row_bits, start_bits=start_bits)
+        except DataFormatError:
+            hp = None
+            for i, st in enumerate(wave):
+                r = _reparse_single(rows[i : i + 1], row_bits[i : i + 1], start_bits[i : i + 1])
+                if r is not None:
+                    st.err = reason_to_code(r)
+    if hp is None:
         rest = [st for st in wave if not st.err]
         if len(rest) < len(wave):
             _decode_huffman_wave(rest, runner, stats)
@@ -427,16 +434,18 @@ def _reparse_single(rows, row_bits, start_bits):
 def _dispatch_block_stages(wave, rows, row_bits, hp, truncated, runner: WaveRunner, stats):
     """Launch one wave's device work, shard by shard; nothing is pulled to
     the host here. The pending shards are (wave dict, tokens, small)."""
-    w_np, shift2 = _wave_arrays(rows, row_bits, hp)
+    with span("td.decode.prep"):
+        w_np, shift2 = _wave_arrays(rows, row_bits, hp)
     on_device = wave[0].device_cap is not None  # one route for every lane of a chain batch
     shards = []
-    for _a, _b, w in runner.dispatch(w_np, len(wave)):
-        if on_device:
-            tokens, _summ, small = wave_stages(w)
-            shards.append((w, ("device", tokens), small))
-        else:
-            packed, _summ, small = wave_stages(w, pack=True)
-            shards.append((w, ("packed", *packed), small))
+    with span("td.decode.enqueue"):
+        for _a, _b, w in runner.dispatch(w_np, len(wave)):
+            if on_device:
+                tokens, _summ, small = wave_stages(w)
+                shards.append((w, ("device", tokens), small))
+            else:
+                packed, _summ, small = wave_stages(w, pack=True)
+                shards.append((w, ("packed", *packed), small))
     if stats is not None:
         stats["waves"] = stats.get("waves", 0) + 1
     return wave, shift2, truncated, shards
@@ -592,8 +601,10 @@ def inflate_raw_end_v2(payload: bytes, *, device: torch.device) -> tuple[bytes, 
     """:func:`inflate_raw_v2`, and the payload bytes the stream took (to its
     final block's end, rounded up to a byte): where a container's trailer
     begins."""
-    st = decode_deflate_streams_v2([payload], device)[0]
-    return _resolve_lane(st, None), (st.bitpos + 7) // 8
+    with span("td.decode"):
+        st = decode_deflate_streams_v2([payload], device)[0]
+        with span("td.decode.assemble"):
+            return _resolve_lane(st, None), (st.bitpos + 7) // 8
 
 
 # ---------------------------------------------------------------------------
@@ -623,29 +634,33 @@ def _single_block_shards(payloads: list[bytes], runner: WaveRunner, stats: dict 
     the per-lane vectors (7, n) int32 of K3's summary fold, the tokens (n, N_POS) int32 padded or
     cut to N_POS slots), on the shard's device)."""
     N = rs.N_POS
-    k1s = _k1_groups(payloads, [0] * len(payloads))
-    bygroup: dict[tuple[int, int], list[int]] = {}
-    for i, (p, k1) in enumerate(zip(payloads, k1s)):
-        bygroup.setdefault((_bucket(len(p), P_BUCKETS_PALLAS), k1), []).append(i)
+    with span("td.decode.prep"):
+        k1s = _k1_groups(payloads, [0] * len(payloads))
+        bygroup: dict[tuple[int, int], list[int]] = {}
+        for i, (p, k1) in enumerate(zip(payloads, k1s)):
+            bygroup.setdefault((_bucket(len(p), P_BUCKETS_PALLAS), k1), []).append(i)
     order: list[int] = []
     shards: dict[int, tuple[list, list, list]] = {}
     for (P, _k1), idxs in sorted(bygroup.items()):
         lmax = _lane_cap(P, runner.lane_multiple)
         for base in range(0, len(idxs), lmax):
             chunk = idxs[base : base + lmax]
-            w = _prep_wave([payloads[i] for i in chunk], runner.lanes(len(chunk)))
-            for d, (a, b, wt) in enumerate(runner.dispatch(w, len(chunk))):
-                tokens, _summ, small = wave_stages(wt)
-                n = min(b, len(chunk)) - a
-                t = tokens[:n, :N]
-                rows, smalls, toks = shards.setdefault(d, ([], [], []))
-                rows += range(len(order) + a, len(order) + a + n)
-                toks.append(torch.nn.functional.pad(t, (0, N - t.shape[1]), value=-1))
-                smalls.append(small[:, :n])
+            with span("td.decode.prep"):
+                w = _prep_wave([payloads[i] for i in chunk], runner.lanes(len(chunk)))
+            with span("td.decode.enqueue"):
+                for d, (a, b, wt) in enumerate(runner.dispatch(w, len(chunk))):
+                    tokens, _summ, small = wave_stages(wt)
+                    n = min(b, len(chunk)) - a
+                    t = tokens[:n, :N]
+                    rows, smalls, toks = shards.setdefault(d, ([], [], []))
+                    rows += range(len(order) + a, len(order) + a + n)
+                    toks.append(torch.nn.functional.pad(t, (0, N - t.shape[1]), value=-1))
+                    smalls.append(small[:, :n])
             if stats is not None:
                 stats["waves"] = stats.get("waves", 0) + 1
             order += chunk
-    return order, [(rows, torch.cat(smalls, 1), torch.cat(toks)) for rows, smalls, toks in shards.values()]
+    with span("td.decode.enqueue"):
+        return order, [(rows, torch.cat(smalls, 1), torch.cat(toks)) for rows, smalls, toks in shards.values()]
 
 
 def single_block_tokens(
@@ -678,49 +693,55 @@ def _decode_single_block_device(
     N = rs.N_POS
     order, shards = _single_block_shards(payloads, runner, stats)
     launched = []
-    for rows, small, T in shards:
-        ys, summs, raws = [], [], []
-        for base in range(0, T.shape[0], RB):
-            y, summ = rs.resolve_tokens_device(T[base : base + RB])
-            y8 = y.to(torch.uint8)
-            ys.append(y8)
-            summs.append(summ)
-            raws.append(cl.crc32_lanes_raw8(y8))
-        launched.append((rows, small, ys, summs, raws))
+    with span("td.decode.enqueue"):
+        for rows, small, T in shards:
+            ys, summs, raws = [], [], []
+            for base in range(0, T.shape[0], RB):
+                y, summ = rs.resolve_tokens_device(T[base : base + RB])
+                y8 = y.to(torch.uint8)
+                ys.append(y8)
+                summs.append(summ)
+                raws.append(cl.crc32_lanes_raw8(y8))
+            launched.append((rows, small, ys, summs, raws))
     where: list = [None] * len(order)  # row -> (shard, its row there)
     small_h, summ_h, crcs = [], [], []
     for k, (rows, small, _ys, summs, raws) in enumerate(launched):
-        small_h.append(small.cpu().numpy())
-        summ_h.append(torch.cat(summs).cpu().numpy())
-        raw_h = torch.cat(raws).cpu().numpy()
-        crcs.append(cl.crc32_finish_leftaligned(raw_h, np.clip(summ_h[k][:, 1], 0, N), N) if verify_crc else None)
-        for r, g in enumerate(rows):
-            where[g] = (k, r)
-    y_h = [torch.cat(ys).cpu().numpy() for _rows, _small, ys, _summs, _raws in launched]
+        with span("td.decode.pull"):
+            small_h.append(small.cpu().numpy())
+            summ_h.append(torch.cat(summs).cpu().numpy())
+            raw_h = torch.cat(raws).cpu().numpy()
+        with span("td.decode.assemble"):
+            crcs.append(cl.crc32_finish_leftaligned(raw_h, np.clip(summ_h[k][:, 1], 0, N), N)
+                        if verify_crc else None)
+            for r, g in enumerate(rows):
+                where[g] = (k, r)
+    with span("td.decode.pull"):
+        y_h = [torch.cat(ys).cpu().numpy() for _rows, _small, ys, _summs, _raws in launched]
 
     outs: list[bytes | None] = [None] * len(payloads)
-    for li, pi in enumerate(order):
-        k, r = where[li]
-        _count, has_eob, _eob_exit, err, _total, ovf, _nlit = (int(v) for v in small_h[k][:, r])
-        if ovf:
-            continue  # a tile held more than k1 tokens: the host route redoes it
-        summ = summ_h[k][r]
-        if int(summ[0]) < N:
-            # a bad back-reference precedes any pending stage error
-            raise _df(Reason.COPY_FROM_BEFORE_DICTIONARY_START)
-        if err:
-            check_device_error(err)
-        if not has_eob:
-            check_device_error(_ERR_END)
-        if int(summ[3]) > 0:
-            continue  # unresolved residue: the host route resolves the lane
-        total = int(summ[1])
-        m = members[pi]
-        if total != m.isize:
-            raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
-        if verify_crc and int(crcs[k][r]) != m.crc32:
-            raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
-        outs[pi] = y_h[k][r, :total].tobytes()
+    with span("td.decode.assemble"):
+        for li, pi in enumerate(order):
+            k, r = where[li]
+            _count, has_eob, _eob_exit, err, _total, ovf, _nlit = (int(v) for v in small_h[k][:, r])
+            if ovf:
+                continue  # a tile held more than k1 tokens: the host route redoes it
+            summ = summ_h[k][r]
+            if int(summ[0]) < N:
+                # a bad back-reference precedes any pending stage error
+                raise _df(Reason.COPY_FROM_BEFORE_DICTIONARY_START)
+            if err:
+                check_device_error(err)
+            if not has_eob:
+                check_device_error(_ERR_END)
+            if int(summ[3]) > 0:
+                continue  # unresolved residue: the host route resolves the lane
+            total = int(summ[1])
+            m = members[pi]
+            if total != m.isize:
+                raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
+            if verify_crc and int(crcs[k][r]) != m.crc32:
+                raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
+            outs[pi] = y_h[k][r, :total].tobytes()
     return outs
 
 
@@ -798,30 +819,35 @@ def _decode_chained_device(
                 outs[j] = _resolve_passes(states[j], verify_crc, first_device, pass_tiles, stats)
             continue
         launched = []
-        for dev, a, b in runner.shards(pad_lanes(len(grp), runner.lane_multiple), len(grp)):
-            part = grp[a:b]
-            for j in part:
-                segs = [t.to(dev) if isinstance(t, torch.Tensor) else torch.from_numpy(t).to(dev)
-                        for t in states[j].tokens]
-                states[j].tokens = [torch.cat(segs) if len(segs) > 1 else segs[0]]
-            tok = torch.nn.utils.rnn.pad_sequence([states[j].tokens[0] for j in part], batch_first=True,
-                                                  padding_value=-1)
-            launched.append((part, *rs.resolve_tiles_crc(rs.split_tiles_device(tok, T))))
-            del tok
+        with span("td.decode.enqueue"):
+            for dev, a, b in runner.shards(pad_lanes(len(grp), runner.lane_multiple), len(grp)):
+                part = grp[a:b]
+                for j in part:
+                    segs = [t.to(dev) if isinstance(t, torch.Tensor) else torch.from_numpy(t).to(dev)
+                            for t in states[j].tokens]
+                    states[j].tokens = [torch.cat(segs) if len(segs) > 1 else segs[0]]
+                tok = torch.nn.utils.rnn.pad_sequence([states[j].tokens[0] for j in part], batch_first=True,
+                                                      padding_value=-1)
+                launched.append((part, *rs.resolve_tiles_crc(rs.split_tiles_device(tok, T))))
+                del tok
         stats["chained_groups"] = stats.get("chained_groups", 0) + 1
         stats["chained_tiles"] = stats.get("chained_tiles", 0) + len(grp) * T
         for part, y8, summs, raws in launched:
-            summ_h, raw_h = summs.cpu().numpy(), raws.cpu().numpy()
-            totals = np.array([states[j].out_total for j in part], np.int64)
-            crcs = cl.crc32_fold_tiles(raw_h, totals, N) if verify_crc else None
-            ok = (summ_h[:, :, 3].sum(1) == 0) & (summ_h[:, :, 0] >= N).all(1)
+            with span("td.decode.pull"):
+                summ_h, raw_h = summs.cpu().numpy(), raws.cpu().numpy()
+            with span("td.decode.assemble"):
+                totals = np.array([states[j].out_total for j in part], np.int64)
+                crcs = cl.crc32_fold_tiles(raw_h, totals, N) if verify_crc else None
+                ok = (summ_h[:, :, 3].sum(1) == 0) & (summ_h[:, :, 0] >= N).all(1)
             if not ok.any():
                 continue
-            y_h = y8.cpu().numpy()
-            for r, j in enumerate(part):
-                if ok[r]:
-                    outs[j] = (y_h[r, : totals[r]].tobytes(), None if crcs is None else int(crcs[r]))
-                    states[j].tokens = []
+            with span("td.decode.pull"):
+                y_h = y8.cpu().numpy()
+            with span("td.decode.assemble"):
+                for r, j in enumerate(part):
+                    if ok[r]:
+                        outs[j] = (y_h[r, : totals[r]].tobytes(), None if crcs is None else int(crcs[r]))
+                        states[j].tokens = []
     return outs
 
 
@@ -878,39 +904,45 @@ def _resolve_passes(st: LaneState, verify_crc: bool, dev: torch.device, pass_til
     for x0 in range(0, total, B):
         x1 = min(x0 + B, total)
         pieces = []
-        if s < x0:  # a match straddles the seam: its second half heads the pass
-            v = int(segs[k][i])
-            end = s + ((v >> 16) & 0x3FF)
-            pieces.append(torch.tensor([rs.TOKEN_MATCH_BIT | (end - x0) << 16 | (v & 0xFFFF)], dtype=torch.int32))
-            i, s = i + 1, end
-        if x1 < total:
-            k1 = int(np.searchsorted(seg_ends, x1, side="right"))
-            a, sa = (i, s) if k1 == k else (0, int(seg_ends[k1 - 1]))  # from the first token not yet taken
-            i1, s1 = _covering_token(segs[k1], a, sa, x1, B)
-            stop = i1 + (s1 < x1)  # the straddler's first half ends the pass
-        else:
-            k1, i1, s1 = len(segs) - 1, 0, total
-            stop = segs[-1].numel()
-        for kk in range(k, k1 + 1):
-            piece = segs[kk][i if kk == k else 0 : stop if kk == k1 else None]
-            if piece.numel():
-                pieces.append(piece)
-        tokens = torch.cat([p.to(dev) for p in pieces])[None]
-        del pieces
-        T = -(-(x1 - x0) // N)
-        y8, summs, raw = rs.resolve_tiles_crc(rs.split_tiles_device(tokens, T), tail=tail)
-        del tokens
+        with span("td.decode.prep"):  # the pass's tokens: the seams' searches read the segments on the device
+            if s < x0:  # a match straddles the seam: its second half heads the pass
+                v = int(segs[k][i])
+                end = s + ((v >> 16) & 0x3FF)
+                pieces.append(torch.tensor([rs.TOKEN_MATCH_BIT | (end - x0) << 16 | (v & 0xFFFF)],
+                                           dtype=torch.int32))
+                i, s = i + 1, end
+            if x1 < total:
+                k1 = int(np.searchsorted(seg_ends, x1, side="right"))
+                a, sa = (i, s) if k1 == k else (0, int(seg_ends[k1 - 1]))  # from the first token not yet taken
+                i1, s1 = _covering_token(segs[k1], a, sa, x1, B)
+                stop = i1 + (s1 < x1)  # the straddler's first half ends the pass
+            else:
+                k1, i1, s1 = len(segs) - 1, 0, total
+                stop = segs[-1].numel()
+            for kk in range(k, k1 + 1):
+                piece = segs[kk][i if kk == k else 0 : stop if kk == k1 else None]
+                if piece.numel():
+                    pieces.append(piece)
+        with span("td.decode.enqueue"):
+            tokens = torch.cat([p.to(dev) for p in pieces])[None]
+            del pieces
+            T = -(-(x1 - x0) // N)
+            y8, summs, raw = rs.resolve_tiles_crc(rs.split_tiles_device(tokens, T), tail=tail)
+            del tokens
         stats["passes"] = stats.get("passes", 0) + 1
         stats["chained_groups"] = stats.get("chained_groups", 0) + 1
         stats["chained_tiles"] = stats.get("chained_tiles", 0) + T
-        summ_h = summs.cpu().numpy()
-        if summ_h[0, :, 3].sum() or (summ_h[0, :, 0] < N).any():
-            return None
-        raws.append(raw.cpu().numpy())
-        out[x0:x1] = y8[0, : x1 - x0].cpu().numpy()
-        tail = y8[:, -rs.TAIL :].to(torch.int32)
+        with span("td.decode.pull"):
+            summ_h = summs.cpu().numpy()
+            if summ_h[0, :, 3].sum() or (summ_h[0, :, 0] < N).any():
+                return None
+            raws.append(raw.cpu().numpy())
+            out[x0:x1] = y8[0, : x1 - x0].cpu().numpy()
+        with span("td.decode.enqueue"):
+            tail = y8[:, -rs.TAIL :].to(torch.int32)
         k, i, s = k1, i1, s1
-    crc = int(cl.crc32_fold_tiles(np.concatenate(raws, axis=1), np.array([total]), N)[0]) if verify_crc else None
+    with span("td.decode.assemble"):
+        crc = int(cl.crc32_fold_tiles(np.concatenate(raws, axis=1), np.array([total]), N)[0]) if verify_crc else None
     st.tokens, st.sizes = [], []
     return out.tobytes(), crc
 
@@ -970,70 +1002,73 @@ def gzip_decompress_v2(
     if device_resolve not in ("auto", "on", "off"):
         raise ValueError(f"device_resolve={device_resolve!r}: expected 'auto', 'off' or 'on'")
     runner = _runner(device, mesh)
-    if mesh is not None and mesh.rank_axis is not None:
-        return _decompress_across_ranks(data, mesh, verify_crc=verify_crc, lane_batch=lane_batch,
-                                        device_resolve=device_resolve)
-    device = runner.devices[0]
-    stats = LAST_DECODE_STATS
-    stats.clear()
-    buf = np.frombuffer(data, dtype=np.uint8)
-    members = dnp.split_members(buf)
-    if not members:
-        return native.gzip_decompress_serial(data)
+    with span("td.decode"):  # its own time: the member split and the route choice
+        if mesh is not None and mesh.rank_axis is not None:
+            return _decompress_across_ranks(data, mesh, verify_crc=verify_crc, lane_batch=lane_batch,
+                                            device_resolve=device_resolve)
+        device = runner.devices[0]
+        stats = LAST_DECODE_STATS
+        stats.clear()
+        buf = np.frombuffer(data, dtype=np.uint8)
+        members = dnp.split_members(buf)
+        if not members:
+            with span("td.decode.assemble"):
+                return native.gzip_decompress_serial(data)
 
-    out_parts: list[bytes | None] = [None] * len(members)
-    huff: list[tuple[int, dnp.MemberIndex]] = []
-    for i, m in enumerate(members):
-        btype = (int(buf[m.payload_start]) >> 1) & 3 if m.payload_start < buf.size else 0
-        if btype == 0:
-            out_parts[i] = dnp._decode_stored_member(buf, m, verify_crc=verify_crc).tobytes()
-        else:
-            huff.append((i, m))
+        out_parts: list[bytes | None] = [None] * len(members)
+        stored: list[tuple[int, dnp.MemberIndex]] = []
+        huff: list[tuple[int, dnp.MemberIndex]] = []
+        for i, m in enumerate(members):
+            btype = (int(buf[m.payload_start]) >> 1) & 3 if m.payload_start < buf.size else 0
+            (stored if btype == 0 else huff).append((i, m))
+        with span("td.decode.assemble"):
+            for i, m in stored:
+                out_parts[i] = dnp._decode_stored_member(buf, m, verify_crc=verify_crc).tobytes()
 
-    stats.update(members=len(members), stored=len(members) - len(huff), waves=0)
-    launches0 = dict(dk.LAUNCHES)
-    device_resolved = 0
-    on_device = device_resolve == "on" or (device_resolve == "auto" and device.type == "cuda")
-    if huff and on_device:
-        elig = [(i, m) for i, m in huff if _single_block_eligible(buf, m)]
-        if elig:
-            outs = _decode_single_block_device(
-                [buf[m.payload_start : m.end - 8].tobytes() for _, m in elig],
-                [m for _, m in elig],
-                verify_crc,
-                runner,
-                stats,
-            )
-            done = set()
-            for (i, _m), o in zip(elig, outs):
-                if o is not None:
-                    out_parts[i] = o
-                    done.add(i)
-            huff = [(i, m) for i, m in huff if i not in done]
-            device_resolved = len(done)
+        stats.update(members=len(members), stored=len(stored), waves=0)
+        launches0 = dict(dk.LAUNCHES)
+        device_resolved = 0
+        on_device = device_resolve == "on" or (device_resolve == "auto" and device.type == "cuda")
+        if huff and on_device:
+            elig = [(i, m) for i, m in huff if _single_block_eligible(buf, m)]
+            if elig:
+                with span("td.decode.prep"):
+                    payloads = [buf[m.payload_start : m.end - 8].tobytes() for _, m in elig]
+                outs = _decode_single_block_device(payloads, [m for _, m in elig], verify_crc, runner, stats)
+                done = set()
+                for (i, _m), o in zip(elig, outs):
+                    if o is not None:
+                        out_parts[i] = o
+                        done.add(i)
+                huff = [(i, m) for i, m in huff if i not in done]
+                device_resolved = len(done)
 
-    # The other members (multi-block, larger than 64 KiB, handed back)
-    # walk their block chains through the wave kernels; on the device
-    # route their tokens stay on the device, tile-split and resolve with
-    # chained 32 KiB tails, CRC included.
-    batch_n = min(lane_batch or V2_LANE_BATCH, V2_LANE_BATCH)
-    for batch in _chain_batches(huff, batch_n, on_device):
-        payloads = [buf[m.payload_start : m.end - 8].tobytes() for _, m in batch]
-        isizes = [m.isize for _, m in batch] if on_device else None
-        states = _decode_streams(payloads, runner, stats, isizes)
-        douts = _decode_chained_device(states, isizes, verify_crc, runner, stats) if on_device else [None] * len(batch)
-        for j, ((i, m), st) in enumerate(zip(batch, states)):
-            out, crc = douts[j] if douts[j] is not None else (_resolve_lane(st, m.isize), None)
-            if len(out) != m.isize:
-                raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
-            if verify_crc and (native.crc32(out) if crc is None else crc) != m.crc32:
-                raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
-            out_parts[i] = out
-        device_resolved += sum(o is not None for o in douts)
-    stats["device_resolved"] = device_resolved
-    stats["host_resolved"] = len(members) - stats["stored"] - device_resolved
-    stats["launches"] = {k: dk.LAUNCHES[k] - launches0[k] for k in dk.LAUNCHES}
-    return b"".join(p for p in out_parts if p is not None)
+        # The other members (multi-block, larger than 64 KiB, handed back)
+        # walk their block chains through the wave kernels; on the device
+        # route their tokens stay on the device, tile-split and resolve with
+        # chained 32 KiB tails, CRC included.
+        batch_n = min(lane_batch or V2_LANE_BATCH, V2_LANE_BATCH)
+        for batch in _chain_batches(huff, batch_n, on_device):
+            with span("td.decode.prep"):
+                payloads = [buf[m.payload_start : m.end - 8].tobytes() for _, m in batch]
+            isizes = [m.isize for _, m in batch] if on_device else None
+            states = _decode_streams(payloads, runner, stats, isizes)
+            douts = (_decode_chained_device(states, isizes, verify_crc, runner, stats) if on_device
+                     else [None] * len(batch))
+            with span("td.decode.assemble"):  # the host route's resolve, and every member's checks
+                for j, ((i, m), st) in enumerate(zip(batch, states)):
+                    out, crc = douts[j] if douts[j] is not None else (_resolve_lane(st, m.isize), None)
+                    if len(out) != m.isize:
+                        raise _df(Reason.DECOMPRESSED_SIZE_MISMATCH)
+                    if verify_crc and (native.crc32(out) if crc is None else crc) != m.crc32:
+                        raise _df(Reason.DECOMPRESSED_CHECKSUM_MISMATCH)
+                    out_parts[i] = out
+            device_resolved += sum(o is not None for o in douts)
+        stats["device_resolved"] = device_resolved
+        stats["host_resolved"] = len(members) - stats["stored"] - device_resolved
+        stats["launches"] = {k: dk.LAUNCHES[k] - launches0[k] for k in dk.LAUNCHES}
+        with span("td.decode.assemble"):
+            return b"".join(p for p in out_parts if p is not None)
 
 
 def _decompress_across_ranks(data: bytes, mesh, **kw) -> bytes:

@@ -60,6 +60,7 @@ from ..format.tables import FIXED_DIST_LENGTHS, FIXED_LITLEN_LENGTHS
 from ..kernels.checksum_lanes import crc32_members
 from ..kernels.huffman import huffman_lengths_batch
 from ..native import _EMPTY_MEMBER
+from ..spans import span
 from . import parse as pp
 from .decode_kernels import wrap_int32
 from . import emit as em
@@ -596,19 +597,22 @@ def _plan_codes(a: dict, lengths: np.ndarray, final: np.ndarray | None = None) -
     ``emit.emit_routed`` (on the histograms' device): the histograms, the
     planned lengths, the header's bits and the member lengths, the codes,
     header and EOB, the fixed tables and ``final`` (None or (L,) int64)."""
-    litlen_hist, dist_hist = fix_histograms(a["litlen_hist"].cpu().numpy(),
-                                            a["dist_hist"].cpu().numpy())
-    ll_lengths = huffman_lengths_batch(litlen_hist, MAX_CODE_BITS)
-    d_lengths = huffman_lengths_batch(dist_hist, MAX_CODE_BITS)
-    ll_codes = pack_codes(ll_lengths, MAX_CODE_BITS)
-    d_codes = pack_codes(d_lengths, MAX_CODE_BITS)
-    header_vals, header_bits = build_headers(ll_lengths, d_lengths, final)
-    plan = _upload(a["litlen_hist"].device, ll_lengths.astype(np.int32), d_lengths.astype(np.int32),
-                   header_bits.sum(axis=1).astype(np.int32), np.asarray(lengths, np.int32), ll_codes, d_codes,
-                   header_vals.astype(np.int64), header_bits, (ll_codes[:, 256] & 0xFFFF).astype(np.int64),
-                   ll_codes[:, 256] >> 16, *_fixed_code_tables(),
-                   *(() if final is None else (np.asarray(final, np.int64),)))
-    return (a["litlen_hist"], a["dist_hist"], *plan[:12], plan[12] if len(plan) > 12 else None)
+    with span("td.encode.plan"):
+        with span("td.encode.pull"):
+            ll_h, d_h = a["litlen_hist"].cpu().numpy(), a["dist_hist"].cpu().numpy()
+        litlen_hist, dist_hist = fix_histograms(ll_h, d_h)
+        ll_lengths = huffman_lengths_batch(litlen_hist, MAX_CODE_BITS)
+        d_lengths = huffman_lengths_batch(dist_hist, MAX_CODE_BITS)
+        ll_codes = pack_codes(ll_lengths, MAX_CODE_BITS)
+        d_codes = pack_codes(d_lengths, MAX_CODE_BITS)
+        header_vals, header_bits = build_headers(ll_lengths, d_lengths, final)
+        with span("td.encode.enqueue"):
+            plan = _upload(a["litlen_hist"].device, ll_lengths.astype(np.int32), d_lengths.astype(np.int32),
+                           header_bits.sum(axis=1).astype(np.int32), np.asarray(lengths, np.int32), ll_codes,
+                           d_codes, header_vals.astype(np.int64), header_bits,
+                           (ll_codes[:, 256] & 0xFFFF).astype(np.int64), ll_codes[:, 256] >> 16,
+                           *_fixed_code_tables(), *(() if final is None else (np.asarray(final, np.int64),)))
+        return (a["litlen_hist"], a["dist_hist"], *plan[:12], plan[12] if len(plan) > 12 else None)
 
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64}
@@ -672,8 +676,10 @@ def _dispatch_staged(dd: torch.Tensor, padded: np.ndarray, lengths: np.ndarray, 
 def _dispatch_analyze(chunk: np.ndarray, lazy: bool, quality: int, device: torch.device):
     """Stage 1: one lane batch (:func:`_pad_batch`), uploaded, then
     :func:`_dispatch_staged`."""
-    padded, lengths = _pad_batch(chunk)
-    return _dispatch_staged(torch.from_numpy(padded).to(device), padded, lengths, lazy, quality)
+    with span("td.encode.prep"):
+        padded, lengths = _pad_batch(chunk)
+    with span("td.encode.enqueue"):
+        return _dispatch_staged(torch.from_numpy(padded).to(device), padded, lengths, lazy, quality)
 
 
 def emit_inputs(pend, final: np.ndarray | None = None):
@@ -684,9 +690,13 @@ def emit_inputs(pend, final: np.ndarray | None = None):
     :func:`_plan_codes` takes it."""
     dd, p1, host, done, _caller, lengths = pend
     if done is not None:
-        done.synchronize()
-    entries = torch.from_numpy(pp.host_entries(host.numpy())).to(dd.device)
-    a, flags = analyze_phase2(dd, p1["use"], p1["dist"], p1["tiles"], p1["valid"], entries)
+        with span("td.encode.pull"):
+            done.synchronize()
+    with span("td.encode.prep"):
+        entries_h = pp.host_entries(host.numpy())
+    with span("td.encode.enqueue"):
+        entries = torch.from_numpy(entries_h).to(dd.device)
+        a, flags = analyze_phase2(dd, p1["use"], p1["dist"], p1["tiles"], p1["valid"], entries)
     args = (a["litlen_sym"], flags, a["len_eb"], a["len_ev"], a["dist_sym"], a["dist_eb"],
             a["dist_ev"], *_plan_codes(a, lengths, final))
     return args, p1["tiles"], entries
@@ -696,7 +706,9 @@ def emit_batch(pend, final: np.ndarray | None = None) -> tuple:
     """:func:`emit_inputs`, then the emit with the routing in the same
     launch -> (words, total_bits, choice, dyn_bits, fixed_bits,
     stored_bits)."""
-    return em.emit_routed(*emit_inputs(pend, final)[0])
+    args = emit_inputs(pend, final)[0]
+    with span("td.encode.enqueue"):
+        return em.emit_routed(*args)
 
 
 def _plan_and_emit(pend):
@@ -710,25 +722,27 @@ def _assemble_members(em) -> bytes:
     """Stage 3: member CRCs on the device, the words pulled up to the
     longest lane, members framed on the host."""
     words, total_bits, choice, dd, padded, lengths = em
-    crcs = crc32_members(dd, lengths)
-    total_bits = total_bits.cpu().numpy()
-    mw = min(words.shape[1], -(-int(total_bits.max()) // 32 // 512) * 512 or 512)
-    payload_bytes = words[:, :mw].contiguous().cpu().numpy().view(np.uint8)
-    choice = choice.cpu().numpy()
+    with span("td.encode.pull"):  # the CRC's launch and its read back, then the words
+        crcs = crc32_members(dd, lengths)
+        total_bits = total_bits.cpu().numpy()
+        mw = min(words.shape[1], -(-int(total_bits.max()) // 32 // 512) * 512 or 512)
+        payload_bytes = words[:, :mw].contiguous().cpu().numpy().view(np.uint8)
+        choice = choice.cpu().numpy()
     out = bytearray()
-    for l in range(len(lengths)):
-        ln = int(lengths[l])
-        nbytes = (int(total_bits[l]) + 7) // 8
-        stored_cost = ln + 5 * (-(-ln // 65535)) + 1
-        # The device's route, with the emitted size as a backstop: a lane
-        # never grows past the stored bound (this also frames lanes whose
-        # bits overflowed the word grid).
-        if choice[l] == ROUTE_STORED or nbytes >= stored_cost:
-            payload = stored_payload(padded[l, :ln].tobytes())
-        else:
-            payload = payload_bytes[l, :nbytes].tobytes()
-        out += build_member(payload, ln, int(crcs[l]))
-    return bytes(out)
+    with span("td.encode.assemble"):
+        for l in range(len(lengths)):
+            ln = int(lengths[l])
+            nbytes = (int(total_bits[l]) + 7) // 8
+            stored_cost = ln + 5 * (-(-ln // 65535)) + 1
+            # The device's route, with the emitted size as a backstop: a lane
+            # never grows past the stored bound (this also frames lanes whose
+            # bits overflowed the word grid).
+            if choice[l] == ROUTE_STORED or nbytes >= stored_cost:
+                payload = stored_payload(padded[l, :ln].tobytes())
+            else:
+                payload = payload_bytes[l, :nbytes].tobytes()
+            out += build_member(payload, ln, int(crcs[l]))
+        return bytes(out)
 
 
 def compress_members(data: bytes, *, device: torch.device, effort: int = 2) -> bytes:
@@ -741,15 +755,17 @@ def compress_members(data: bytes, *, device: torch.device, effort: int = 2) -> b
     n = len(data)
     if n == 0:
         return _EMPTY_MEMBER
-    lazy = effort >= 2
-    quality = 2 if effort >= 5 else (1 if effort >= 3 else 0)
-    buf = np.frombuffer(data, dtype=np.uint8)
-    step = ENC_LANE_BATCH * MEMBER_DATA
-    chunks = [buf[base : base + step] for base in range(0, n, step)]
-    out = bytearray()
-    run_pipeline(chunks, lambda c: _dispatch_analyze(c, lazy, quality, device), _plan_and_emit,
-                 lambda em: out.extend(_assemble_members(em)))
-    return bytes(out)
+    with span("td.encode"):
+        lazy = effort >= 2
+        quality = 2 if effort >= 5 else (1 if effort >= 3 else 0)
+        buf = np.frombuffer(data, dtype=np.uint8)
+        step = ENC_LANE_BATCH * MEMBER_DATA
+        chunks = [buf[base : base + step] for base in range(0, n, step)]
+        parts = []
+        run_pipeline(chunks, lambda c: _dispatch_analyze(c, lazy, quality, device), _plan_and_emit,
+                     lambda em: parts.append(_assemble_members(em)))
+        with span("td.encode.assemble"):
+            return b"".join(parts)
 
 
 def run_pipeline(batches: list, dispatch, emit, assemble) -> None:
